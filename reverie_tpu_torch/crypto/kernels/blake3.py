@@ -1,0 +1,237 @@
+"""Per-column BLAKE3 of transcript buffers.
+
+Port of reverie_tpu/crypto/kernels/blake3_jax.py (`hash_columns`,
+`_bulk_cvs`, `_chunk_cvs`, `_tree_reduce`, `_rows_to_bytes`,
+`hash_pair_columns`) and of the Pallas kernel
+blake3_pallas.py:_fb_kernel / `chunk_cvs_from_bytes`, which becomes the CUDA
+kernel csrc/blake3_chunks.cu.
+
+A transcript buffer is a (T, R) uint8 tensor whose columns are the
+per-repetition streams.  The whole chunks go through `chunk_cvs` (CPU
+tensors: the plain version `chunk_cvs_ref`; CUDA tensors: the kernel); the
+final partial chunk, the tree reduction and the pair hashes stay plain torch,
+as they were XLA in the reference.
+
+Words are carried as int64 holding values in [0, 2^32) and masked after
+every add and shift; the chunk CVs leave `chunk_cvs` as int32 (the kernel's
+u32 bit patterns).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from ... import _build
+
+#: kernel launches made by `chunk_cvs` (CUDA tensors only)
+LAUNCHES = 0
+
+IV = (0x6A09E667, 0xBB67AE85, 0x3C6EF372, 0xA54FF53A,
+      0x510E527F, 0x9B05688C, 0x1F83D9AB, 0x5BE0CD19)
+MSG_PERM = (2, 6, 3, 10, 7, 0, 4, 13, 1, 11, 12, 5, 9, 14, 15, 8)
+CHUNK_START, CHUNK_END, PARENT, ROOT = 1, 2, 4, 8
+CHUNK_LEN = 1024
+M32 = 0xFFFFFFFF
+
+
+# per round, the message words of the column G mixes (x, y) and of the
+# diagonal G mixes (x, y): round r reads m[_SCHED[r][...]]
+_SCHED = []
+_perm = list(range(16))
+for _ in range(7):
+    _SCHED.append([_perm[j] for j in (0, 2, 4, 6, 1, 3, 5, 7,
+                                      8, 10, 12, 14, 9, 11, 13, 15)])
+    _perm = [_perm[i] for i in MSG_PERM]
+
+
+def _rotr(x, n: int):
+    return ((x >> n) | (x << (32 - n))) & M32
+
+
+def _g(a, b, c, d, mx, my):
+    """Four G mixes at once on (4, ...) rows."""
+    a = (a + b + mx) & M32
+    d = _rotr(d ^ a, 16)
+    c = (c + d) & M32
+    b = _rotr(b ^ c, 12)
+    a = (a + b + my) & M32
+    d = _rotr(d ^ a, 8)
+    c = (c + d) & M32
+    b = _rotr(b ^ c, 7)
+    return a, b, c, d
+
+
+def compress(cv, m, counter, block_len, flags):
+    """One BLAKE3 compression on row tensors.  cv: (8, *S) int64 chaining
+    value, m: (16, *S) int64 message words (both broadcastable to the
+    batch shape S); counter/block_len/flags: ints or int64 tensors
+    broadcastable to S.  Returns the (8, *S) chaining-value words
+    v[i] ^ v[i + 8].  The 4 column mixes, then the 4 diagonal mixes, run as
+    one op each on (4, *S) rows; the diagonal phase rolls rows b, c, d."""
+    S = torch.broadcast_shapes(cv.shape[1:], m.shape[1:],
+                               *(x.shape for x in (counter, block_len, flags)
+                                 if isinstance(x, torch.Tensor)))
+    dev = m.device
+    cv = cv.expand(8, *S)
+    a, b = cv[:4], cv[4:]
+    c = _iv(dev)[:4].view(4, *[1] * len(S))
+    d = torch.stack([_word(x, S, dev)
+                     for x in (counter & M32, counter >> 32, block_len, flags)])
+    ms = torch.stack([m[j] for sched in _SCHED for j in sched]).expand(16 * 7, *S)
+    for rnd in range(7):
+        w = ms[16 * rnd : 16 * rnd + 16]
+        a, b, c, d = _g(a, b, c, d, w[0:4], w[4:8])
+        b, c, d = b.roll(-1, 0), c.roll(-2, 0), d.roll(-3, 0)
+        a, b, c, d = _g(a, b, c, d, w[8:12], w[12:16])
+        b, c, d = b.roll(1, 0), c.roll(2, 0), d.roll(3, 0)
+    return torch.cat([a ^ c, b ^ d])
+
+
+@functools.lru_cache(maxsize=None)
+def _iv(device: torch.device) -> torch.Tensor:
+    """The IV words as an (8,) int64 tensor on `device` (made once: a
+    host-to-device copy per compression would stall the stream)."""
+    return torch.tensor(IV, dtype=torch.int64, device=device)
+
+
+def _word(x, S, device) -> torch.Tensor:
+    """An int or int64 tensor as a tensor of batch shape S."""
+    if isinstance(x, torch.Tensor):
+        return x.expand(S)
+    return torch.full(S, x, dtype=torch.int64, device=device)
+
+
+def _bytes_to_words(buf: torch.Tensor) -> torch.Tensor:
+    """(4k, ...) uint8 -> (k, ...) int64 little-endian words."""
+    b = buf.reshape(buf.shape[0] // 4, 4, *buf.shape[1:]).to(torch.int64)
+    return b[:, 0] | (b[:, 1] << 8) | (b[:, 2] << 16) | (b[:, 3] << 24)
+
+
+def _to_i32(w: torch.Tensor) -> torch.Tensor:
+    """int64 words in [0, 2^32) -> int32 with the same bit pattern."""
+    return torch.where(w >= 2**31, w - 2**32, w).to(torch.int32)
+
+
+def _from_i32(w: torch.Tensor) -> torch.Tensor:
+    return w.to(torch.int64) & M32
+
+
+def chunk_cvs_ref(buf: torch.Tensor, n_chunks: int, chunk_base: int = 0
+                  ) -> torch.Tensor:
+    """Plain PyTorch version of the chunk kernel: CVs of the first n_chunks
+    whole 1024-byte chunks of each column of buf (>= n_chunks*1024 rows, R)
+    uint8, chunk i with counter chunk_base + i, non-root.  -> (8, n, R)
+    int32."""
+    R = buf.shape[1]
+    n = n_chunks
+    if buf.shape[0] < n * CHUNK_LEN:
+        raise ValueError("buffer shorter than n_chunks*1024 rows")
+    words = _bytes_to_words(buf[: n * CHUNK_LEN]).reshape(n, 16, 16, R)
+    ctr = (chunk_base + torch.arange(n, dtype=torch.int64, device=buf.device))[:, None]
+    cv = _iv(buf.device)[:, None, None]
+    for blk in range(16):
+        flags = (CHUNK_START if blk == 0 else 0) | (CHUNK_END if blk == 15 else 0)
+        cv = compress(cv, words[:, blk].transpose(0, 1), ctr, 64, flags)
+    return _to_i32(cv)
+
+
+def chunk_cvs(buf: torch.Tensor, n_chunks: int, chunk_base: int = 0
+              ) -> torch.Tensor:
+    """(>= n_chunks*1024, R) uint8 -> (8, n_chunks, R) int32 chunk CVs.
+    CPU tensors take the plain version; CUDA tensors launch
+    csrc/blake3_chunks.cu."""
+    global LAUNCHES
+    dev = buf.device
+    if dev.type == "cpu":
+        return chunk_cvs_ref(buf, n_chunks, chunk_base)
+    if dev.type != "cuda":
+        raise ValueError(f"chunk_cvs: unsupported device {dev}")
+    if buf.dtype != torch.uint8 or buf.dim() != 2 or not buf.is_contiguous():
+        raise ValueError("chunk_cvs: buf must be a contiguous uint8 (T, R) tensor")
+    R = buf.shape[1]
+    if n_chunks < 1 or buf.shape[0] < n_chunks * CHUNK_LEN:
+        raise ValueError("chunk_cvs: need 1 <= n_chunks <= T // 1024")
+    if not 0 <= chunk_base < 2**63:
+        raise ValueError("chunk_cvs: chunk_base out of range")
+    out = torch.empty((8, n_chunks, R), dtype=torch.int32, device=dev)
+    if R == 0:
+        return out
+    lib = _build.kernels()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.reverie_blake3_chunk_cvs(buf.data_ptr(), R, n_chunks, chunk_base,
+                                      out.data_ptr(), stream)
+    _build.check(rc, "blake3_chunk_cvs kernel")
+    LAUNCHES += 1
+    return out
+
+
+def _tail_cv(tail: torch.Tensor, length: int, counter: int, root: bool):
+    """CV of one partial (or whole) chunk: tail (>= length rows, R) uint8,
+    length in [0, 1024].  -> (8, R) int64 words."""
+    R = tail.shape[1]
+    nb = max(1, (length + 63) // 64)
+    pad = torch.zeros((nb * 64, R), dtype=torch.uint8, device=tail.device)
+    pad[:length] = tail[:length]
+    words = _bytes_to_words(pad).reshape(nb, 16, R)
+    cv = _iv(tail.device)[:, None]
+    for blk in range(nb):
+        blen = 64 if blk < nb - 1 else length - (nb - 1) * 64
+        flags = (CHUNK_START if blk == 0 else 0)
+        if blk == nb - 1:
+            flags |= CHUNK_END | (ROOT if root else 0)
+        cv = compress(cv, words[blk], counter, blen, flags)
+    return cv
+
+
+def _tree_reduce(cvs: torch.Tensor) -> torch.Tensor:
+    """cvs: (8, n, R) int64 chunk CVs, n >= 2 -> (8, R) root words.
+    Level-wise adjacent pairing with the odd last node promoted is BLAKE3's
+    left-biased tree; one batched compress per level."""
+    n = cvs.shape[1]
+    iv = _iv(cvs.device)[:, None, None]
+    while n > 2:
+        pairs = n // 2
+        m = torch.cat([cvs[:, 0 : 2 * pairs : 2], cvs[:, 1 : 2 * pairs : 2]])
+        out = compress(iv, m, 0, 64, PARENT)
+        cvs = torch.cat([out, cvs[:, -1:]], dim=1) if n % 2 else out
+        n = cvs.shape[1]
+    m = torch.cat([cvs[:, 0], cvs[:, 1]])
+    return compress(iv[:, 0], m, 0, 64, PARENT | ROOT)
+
+
+def _rows_to_bytes(words: torch.Tensor) -> torch.Tensor:
+    """(8, R) int64 words -> (R, 32) uint8, little-endian per word."""
+    sh = torch.arange(0, 32, 8, dtype=torch.int64, device=words.device)
+    b = (words[:, :, None] >> sh) & 0xFF  # (8, R, 4)
+    return b.permute(1, 0, 2).reshape(words.shape[1], 32).to(torch.uint8)
+
+
+def hash_columns(buf: torch.Tensor, T: int) -> torch.Tensor:
+    """buf: (>= T, R) uint8 -> (R, 32) uint8, blake3 of each column's first
+    T bytes (rows beyond T are ignored)."""
+    R = buf.shape[1]
+    dev = buf.device
+    if T == 0:
+        # the empty input: one zero-length root chunk (blake3(b""))
+        zero = torch.zeros((16, R), dtype=torch.int64, device=dev)
+        cv = compress(_iv(dev)[:, None], zero, 0, 0, CHUNK_START | CHUNK_END | ROOT)
+        return _rows_to_bytes(cv)
+    n_chunks = (T + CHUNK_LEN - 1) // CHUNK_LEN
+    rem = T - (n_chunks - 1) * CHUNK_LEN
+    tail = buf[(n_chunks - 1) * CHUNK_LEN : T]
+    if n_chunks == 1:
+        return _rows_to_bytes(_tail_cv(tail, rem, 0, True))
+    bulk = _from_i32(chunk_cvs(buf, n_chunks - 1, 0))
+    last = _tail_cv(tail, rem, n_chunks - 1, False)
+    cvs = torch.cat([bulk, last[:, None]], dim=1)
+    return _rows_to_bytes(_tree_reduce(cvs))
+
+
+def hash_pair_columns(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a, b: (R, 32) uint8 -> (R, 32) uint8, blake3(a_r || b_r) per row (one
+    64-byte root block)."""
+    m = _bytes_to_words(torch.cat([a, b], dim=1).t().contiguous())  # (16, R)
+    cv = compress(_iv(m.device)[:, None], m, 0, 64, CHUNK_START | CHUNK_END | ROOT)
+    return _rows_to_bytes(cv)

@@ -1,0 +1,115 @@
+"""Package-level checks of reverie_tpu_torch: it imports without jax, its
+CPU wrappers take the plain versions without launching a kernel, the CUDA
+path never falls back to the CPU, and (on a CUDA card only) each kernel
+equals its plain version byte for byte."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from reverie_tpu_torch import device as tdevice
+from reverie_tpu_torch.crypto.kernels import aes_tape, blake3 as b3
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_NO_JAX = """
+import sys
+sys.modules["jax"] = None
+import reverie_tpu_torch
+import reverie_tpu_torch._build, reverie_tpu_torch.device
+import reverie_tpu_torch.backend.executor, reverie_tpu_torch.backend.host
+import reverie_tpu_torch.crypto.kernels.aes_tape, reverie_tpu_torch.crypto.kernels.blake3
+import chip_smoke
+import reverie_tpu.circuit.builders, reverie_tpu.proof, reverie_tpu.crypto
+assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules if sys.modules[m] is not None)
+print("no-jax import ok")
+"""
+
+
+def _run(code_or_args, cwd=REPO):
+    env = dict(os.environ, PYTHONPATH=REPO)
+    return subprocess.run([sys.executable, *code_or_args], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_imports_without_jax():
+    res = _run(["-c", _NO_JAX])
+    assert res.returncode == 0, res.stderr
+    assert "no-jax import ok" in res.stdout
+
+
+def test_cpu_wrappers_take_plain_path():
+    a0, b0 = aes_tape.LAUNCHES, b3.LAUNCHES
+    keys = np.random.RandomState(0).randint(0, 256, (4, 8, 16), dtype=np.uint8)
+    rk = aes_tape.round_keys(keys, torch.device("cpu"))
+    tape = aes_tape.aes_ctr_tape_gf2(rk, 200)
+    assert tape.device.type == "cpu" and tape.shape == (200, 4)
+    buf = torch.zeros((2048, 4), dtype=torch.uint8)
+    cvs = b3.chunk_cvs(buf, 2)
+    assert cvs.dtype == torch.int32 and cvs.shape == (8, 2, 4)
+    assert (aes_tape.LAUNCHES, b3.LAUNCHES) == (a0, b0)
+
+
+def test_default_device_needs_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        tdevice.default_device()
+
+
+def test_chip_smoke_fails_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    res = _run([os.path.join(REPO, "chip_smoke.py")])
+    assert res.returncode != 0
+    assert '"ok": true' not in res.stdout
+
+
+# -- on a CUDA card only ------------------------------------------------------
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the H100)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R, m2, with_omit", [(256, 1000, False), (40, 4097, True),
+                                              (216, 129, False)])
+def test_aes_kernel_matches_plain(cuda_device, R, m2, with_omit):
+    rng = np.random.RandomState(R)
+    rk = aes_tape.round_keys(rng.randint(0, 256, (R, 8, 16), dtype=np.uint8), cuda_device)
+    omit = (torch.from_numpy(rng.randint(0, 9, R).astype(np.uint8)).to(cuda_device)
+            if with_omit else None)
+    n0 = aes_tape.LAUNCHES
+    got = aes_tape.aes_ctr_tape_gf2(rk, m2, omit, start_block=3)
+    assert aes_tape.LAUNCHES == n0 + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, aes_tape.aes_ctr_tape_gf2_ref(rk, m2, omit, start_block=3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R, n, base", [(256, 3, 0), (40, 2, 7), (216, 1, 1)])
+def test_blake3_kernel_matches_plain(cuda_device, R, n, base):
+    buf = torch.from_numpy(np.random.RandomState(n).randint(
+        0, 256, (n * 1024 + 5, R), dtype=np.uint8)).to(cuda_device)
+    n0 = b3.LAUNCHES
+    got = b3.chunk_cvs(buf, n, base)
+    assert b3.LAUNCHES == n0 + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, b3.chunk_cvs_ref(buf, n, base))
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_reject_bad_input(cuda_device):
+    rk = torch.zeros((16, 11, 16), dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError):
+        aes_tape.aes_ctr_tape_gf2(rk[:, :, :8].contiguous(), 10)
+    buf = torch.zeros((1024, 8), dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError):
+        b3.chunk_cvs(buf.t(), 1)
