@@ -1,10 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-The kernels' sources are `csrc/*.cu`.  They are compiled with `nvcc` for
-`sm_90a` into one shared library with a plain C interface under
-`reverie_tpu_torch/_build/` at first use, and loaded with ctypes.  Each C
-entry point returns `cudaGetLastError()` after its launch; `check` raises on
-anything but 0.
+The kernels' sources are `csrc/*.cu` and the headers they share,
+`csrc/*.cuh`. They are compiled with `nvcc` for `sm_90a` into one shared
+library with a plain C interface under `reverie_tpu_torch/_build/` at first
+use, and loaded with ctypes. Each C entry point returns `cudaGetLastError()`
+after its launch; `check` raises on anything but 0.
 """
 
 from __future__ import annotations
@@ -61,10 +61,13 @@ def build(ptxas_verbose: bool = False) -> str:
 
 
 def _stale() -> bool:
+    """True when the library is missing or older than a source or a shared
+    header."""
     if not LIB_PATH.exists():
         return True
     built = LIB_PATH.stat().st_mtime
-    return any(s.stat().st_mtime > built for s in sources())
+    deps = [*sources(), *CSRC.glob("*.cuh")]
+    return any(s.stat().st_mtime > built for s in deps)
 
 
 def kernels() -> ctypes.CDLL:
@@ -80,6 +83,8 @@ def kernels() -> ctypes.CDLL:
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.reverie_aes_tape_gf2.argtypes = [vp, vp, vp, i64, i32, i64, vp]
         lib.reverie_aes_tape_gf2.restype = i32
+        lib.reverie_aes_tape_z64.argtypes = [vp, vp, vp, i64, i32, i64, vp]
+        lib.reverie_aes_tape_z64.restype = i32
         lib.reverie_blake3_chunk_cvs.argtypes = [vp, i32, i64, i64, vp, vp]
         lib.reverie_blake3_chunk_cvs.restype = i32
         lib.reverie_cuda_error_string.argtypes = [i32]

@@ -1,26 +1,34 @@
-"""Levelized batched KKW execution of the GF(2) kinds in PyTorch.
+"""Levelized batched KKW execution in PyTorch, GF(2) and Z_2^64 kinds.
 
-Port of reverie_tpu/backend/tpu.py (`Executor`, `_gf2_kind`, `_Acc`,
-`_classify`, `_assemble_stream`, `_parity8`, `_expand`, `_dead_dst_columns`,
-`_arena_rows`).  Every gate of a level runs as one vector op over all
-repetitions:
+Port of reverie_tpu/backend/tpu.py (`Executor`, `_gf2_kind`, `_z64_kind`,
+`_prep_tables`, `_Acc`, `_classify`, `_assemble_stream`, `_parity8`,
+`_expand`, `_recon_sum`, `_compose_bits`, `_dead_dst_columns`,
+`Executor._arena_rows`).  Every gate of a level runs as one vector op over
+all repetitions:
 
-  mask arena : (V, R) uint8 -- byte r = the 8 player bits of rep r
-               (bit 7-p = player p, the reference byte layout)
-  corr arena : (V, R) uint8 -- 0/1 per rep
-  tape       : (m2, R) uint8 -- the AES-CTR mask tape (aes_tape.py)
+  mask2 arena : (L2, R) uint8 -- byte r = the 8 player bits of rep r
+                (bit 7-p = player p, the reference byte layout)
+  corr2 arena : (L2, R) uint8 -- 0/1 per rep
+  maskz arena : (Lz, 8, R) int64 -- player-major Z_2^64 shares
+  corrz arena : (Lz, R) int64
+  tape        : (m2, R) uint8 (aes_tape.py); tapez (mz, 8, R) int64
+                (aes_tape_z64.py)
 
-Transcript rows land at their compile-time offsets in the (stream_len, R)
-onl2 / pre2 streams, so each column is byte-identical to the reference's
-sequential absorption.  Index columns that are constant or arithmetic runs
-become broadcasts and (strided) slices; the rest are device int64 gathers.
+Z_2^64 is native int64: add, sub, mul and sum wrap mod 2^64.  Transcript
+rows land at their compile-time offsets in the (stream_len, R) onl2 / pre2
+/ onlz / prez streams, so each column is byte-identical to the reference's
+sequential absorption (a z64 word is 8 little-endian bytes, a z64 share
+event 8 players x 8 bytes).  Index columns that are constant or arithmetic
+runs become broadcasts and (strided) slices; the rest are device int64
+gathers.
 
-PyTorch runs eagerly, and the arenas are updated in place: within a level
-every kind reads values of earlier levels only and writes fresh SSA values,
-so no read sees a write of its own level.
-
-Scope: GF(2) kinds in the levelized executor.  Z64 and B2A kinds, streaming
-carries and the scan executor for deep circuits are not ported yet.
+PyTorch runs eagerly, and the arenas are updated in place: a gate's level
+is one more than the levels of the values it reads, so within a level every
+kind reads values of earlier levels only and writes fresh SSA values, and
+no read sees a write of its own level.  That holds at any depth, so deep
+circuits run here level by level too.  reverie_tpu sends circuits deeper
+than 128 levels to its scan executor only because XLA compiles the
+levelized trace unrolled; eager execution has no compile cost per level.
 """
 
 from __future__ import annotations
@@ -31,6 +39,8 @@ import numpy as np
 import torch
 
 from reverie_tpu.circuit.compile import (
+    B2A_CORR,
+    B2A_OUT,
     G_ADD,
     G_ADDC,
     G_ASSERT,
@@ -42,29 +52,13 @@ from reverie_tpu.circuit.compile import (
     G_SUBC,
     GF2,
     N_KINDS,
+    Z_SUB,
     CompiledCircuit,
 )
 
 PROVER = 0
 VERIFY_ONL = 1
 VERIFY_PRE = 2
-
-#: depth beyond which reverie_tpu switches to its scan executor
-SCAN_DEPTH_THRESHOLD = 128
-
-
-def check_supported(cc: CompiledCircuit) -> None:
-    """Raise NotImplementedError for what this slice does not run."""
-    z64 = cc.mz > 0 or any(key // N_KINDS != GF2
-                           for table in cc.levels for key in table)
-    if z64:
-        raise NotImplementedError(
-            "reverie_tpu_torch runs GF(2) circuits only: Z64 and B2A gates "
-            "are ROADMAP Queue 1 item 7")
-    if cc.depth > SCAN_DEPTH_THRESHOLD:
-        raise NotImplementedError(
-            f"circuit depth {cc.depth} > {SCAN_DEPTH_THRESHOLD}: the scan "
-            "executor for deep circuits is ROADMAP Queue 1 item 9")
 
 
 def _parity8(x: torch.Tensor) -> torch.Tensor:
@@ -77,6 +71,36 @@ def _parity8(x: torch.Tensor) -> torch.Tensor:
 def _expand(c: torch.Tensor) -> torch.Tensor:
     """0/1 uint8 -> 0x00/0xFF (the hash byte form)."""
     return torch.zeros_like(c) - c
+
+
+def _recon_sum(x: torch.Tensor) -> torch.Tensor:
+    """Reconstruct z64 shares: (k, 8, R) int64 -> (k, R), the sum over the
+    players mod 2^64."""
+    return x.sum(dim=1)
+
+
+def _compose_bits(bits: torch.Tensor) -> torch.Tensor:
+    """(k, 64, R) 0/1 uint8 -> (k, R) int64 with bit i = wire i.  The
+    terms are distinct powers of two, so their wrapping sum is their OR."""
+    sh = torch.arange(64, dtype=torch.int64, device=bits.device)[None, :, None]
+    return (bits.to(torch.int64) << sh).sum(dim=1)
+
+
+def _word_bytes(x: torch.Tensor) -> torch.Tensor:
+    """(k, R) int64 -> (8k, R) uint8 transcript rows, row 8e + j = byte j
+    (little-endian) of word e, permuted from the words' byte view (no
+    byte is widened to an int64)."""
+    k, R = x.shape
+    b = x.contiguous().view(torch.uint8).reshape(k, R, 8)
+    return b.permute(0, 2, 1).reshape(8 * k, R)
+
+
+def _share_bytes(s: torch.Tensor) -> torch.Tensor:
+    """(k, 8, R) int64 shares -> (64k, R) uint8 transcript rows, row
+    64e + 8p + j = byte j of player p's share of event e."""
+    k, P, R = s.shape
+    b = s.contiguous().view(torch.uint8).reshape(k, P, R, 8)
+    return b.permute(0, 1, 3, 2).reshape(64 * k, R)
 
 
 def _classify(idx: np.ndarray):
@@ -106,95 +130,148 @@ def take(src: torch.Tensor, meta: tuple, index=None) -> torch.Tensor:
     return src.index_select(0, index)
 
 
+def event_rows(starts, width: int) -> np.ndarray:
+    """Stream rows of events that start at `starts`, `width` rows each."""
+    return (np.asarray(starts, np.int64)[:, None] + np.arange(width)).reshape(-1)
+
+
+def _derived_rows(kind: int, cols: dict):
+    """The z64 kinds' derived transcript-row columns (tpu.py _prep_tables):
+    (name, base column, rows per event).  A share event is 64 stream rows,
+    a word event 8, and B2A_OUT's 64 bit events are 64 GF(2) rows."""
+    if kind in (G_MUL, G_ASSERT) and "onl" in cols:
+        yield "onl_rows", "onl", 64
+    if kind in (G_MUL, B2A_CORR) and "pre" in cols:
+        yield "pre_rows", "pre", 8
+    if kind == G_INPUT and "onl" in cols:
+        yield "onl_rows", "onl", 8
+    if kind == B2A_OUT:
+        yield "onl_rows", "onl", 64
+        yield "rec_rows", "rec", 64
+
+
 def tables_to_device(cc: CompiledCircuit, device: torch.device
                      ) -> Tuple[Dict[str, tuple], Dict[str, torch.Tensor]]:
     """Lower the compiled index columns once: `meta[name]` is
     ('const', v, k) | ('arith', start, step, k) | ('gather', None, k) and
     `tables[name]` holds the device int64 index tensor of every 'gather'
-    column and the 0/1 uint8 constant bits ('cbit').  Names are
+    column, the GF(2) constants as 0/1 uint8 ('cbit') and the z64 constants
+    as int64 ('cz').  B2A's (k, 64) 'bits' columns are lowered flat, and
+    the z64 kinds' event rows are derived columns (_derived_rows).  Names are
     '<level>.<key>.<column>'."""
     meta: Dict[str, tuple] = {}
     tables: Dict[str, torch.Tensor] = {}
+
+    def lower(name: str, col) -> None:
+        col = np.asarray(col, np.int64).reshape(-1)
+        m = _classify(col)
+        meta[name] = m + (len(col),)
+        if m[0] == "gather":
+            tables[name] = torch.from_numpy(col).to(device)
+
     for li, table in enumerate(cc.levels):
         for key, cols in table.items():
+            domain, kind = divmod(key, N_KINDS)
             pre = f"{li}.{key}."
             for name, arr in cols.items():
-                if name == "const":
+                if name != "const":
+                    lower(pre + name, arr)
+                elif domain == GF2:
                     cbit = (np.asarray(arr) & 1).astype(np.uint8)
                     tables[pre + "cbit"] = torch.from_numpy(cbit).to(device)
-                    continue
-                col = np.asarray(arr, np.int64)
-                m = _classify(col)
-                meta[pre + name] = m + (len(col),)
-                if m[0] == "gather":
-                    tables[pre + name] = torch.from_numpy(col).to(device)
+                else:
+                    cz = np.asarray(arr, np.uint64).view(np.int64)
+                    tables[pre + "cz"] = torch.from_numpy(cz).to(device)
+            if domain != GF2:
+                for name, base, width in _derived_rows(kind, cols):
+                    lower(pre + name, event_rows(cols[base], width))
     return meta, tables
 
 
 def _dead_dst_columns(cc: CompiledCircuit) -> Dict[tuple, bool]:
     """(level, key) -> True when no later gate reads the column's dst
-    values: their arena writes are skipped (transcripts are unchanged)."""
-    read = np.zeros(cc.n_vals2 + 1, bool)
+    values: their arena writes are skipped (transcripts are unchanged).
+    GF(2) and z64 values are numbered apart, so their liveness is kept
+    apart; B2A gates read GF(2) values through 'bits' and B2A_OUT reads a
+    z64 value through 'zr'."""
+    read = (np.zeros(cc.n_vals2 + 1, bool), np.zeros(cc.n_valsz + 1, bool))
     for table in cc.levels:
-        for cols in table.values():
+        for key, cols in table.items():
+            tgt = read[key // N_KINDS != GF2]
             for nm in ("a", "b"):
                 if nm in cols:
-                    read[np.asarray(cols[nm], np.int64)] = True
+                    tgt[np.asarray(cols[nm], np.int64)] = True
+            if "zr" in cols:
+                read[1][np.asarray(cols["zr"], np.int64)] = True
+            if "bits" in cols:
+                read[0][np.asarray(cols["bits"], np.int64).reshape(-1)] = True
     return {
-        (li, key): not bool(read[np.asarray(cols["dst"], np.int64)].any())
+        (li, key): not bool(
+            read[key // N_KINDS != GF2][np.asarray(cols["dst"], np.int64)].any())
         for li, table in enumerate(cc.levels)
         for key, cols in table.items()
         if "dst" in cols
     }
 
 
-def _arena_rows(cc: CompiledCircuit, dead: Dict[tuple, bool]) -> int:
-    """1 + the highest arena row any gate reads or (live) writes."""
-    hi = 0
+def _arena_rows(cc: CompiledCircuit, dead: Dict[tuple, bool]) -> Tuple[int, int]:
+    """(L2, Lz): per domain, 1 + the highest arena row any gate reads or
+    (live) writes."""
+    hi = [0, 0]
     for li, table in enumerate(cc.levels):
         for key, cols in table.items():
+            z = int(key // N_KINDS != GF2)
             names = ["a", "b"] + ([] if dead.get((li, key), False) else ["dst"])
             for nm in names:
                 if nm in cols and len(cols[nm]):
-                    hi = max(hi, int(np.max(cols[nm])))
-    return min(cc.n_vals2, hi + 1)
+                    hi[z] = max(hi[z], int(np.max(cols[nm])))
+            if "zr" in cols and len(cols["zr"]):
+                hi[1] = max(hi[1], int(np.max(cols["zr"])))
+            if "bits" in cols and np.size(cols["bits"]):
+                hi[0] = max(hi[0], int(np.max(cols["bits"])))
+    return min(cc.n_vals2, hi[0] + 1), min(cc.n_valsz, hi[1] + 1)
 
 
 class Executor:
-    """Eager executor for one compiled GF(2) circuit in one role.
+    """Eager executor for one compiled circuit in one role.
 
-    Call with an input dict: 'tape' (m2, R) uint8, plus 'wit2' (n_wit2, R)
-    in PROVER mode, or 'in2', 'co2', 're2' (rows, R) in VERIFY_ONL mode.
-    Returns {'onl2': (onl2, R), 'pre2': (pre2, R) uint8, 'fail': (R,)
-    bool}."""
+    Call with an input dict: 'tape' (m2, R) uint8 and 'tapez' (mz, 8, R)
+    int64, plus 'wit2' (n_wit2, R) uint8 and 'witz' (n_witz, R) int64 in
+    PROVER mode, or 'in2', 'co2', 're2' (rows, R) uint8 and 'inz', 'coz'
+    (rows, R) and 'rez' (rows, 8, R) int64 in VERIFY_ONL mode.  Returns
+    {'onl2', 'pre2', 'onlz', 'prez': (rows, R) uint8, 'fail': (R,) bool}."""
 
     def __init__(self, cc: CompiledCircuit, mode: int, total_reps: int,
                  device: torch.device):
-        check_supported(cc)
         self.cc = cc
         self.mode = mode
         self.R = total_reps
         self.device = device
         self.meta, self.tables = tables_to_device(cc, device)
         self._dead = _dead_dst_columns(cc)
-        self._rows = _arena_rows(cc, self._dead)
+        self._rows2, self._rowsz = _arena_rows(cc, self._dead)
 
     def __call__(self, inp: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        cc, R = self.cc, self.R
-        z = dict(dtype=torch.uint8, device=self.device)
+        cc, R, dev = self.cc, self.R, self.device
+        u8 = dict(dtype=torch.uint8, device=dev)
+        i64 = dict(dtype=torch.int64, device=dev)
         st = dict(
-            mask2=torch.zeros((self._rows, R), **z),
-            corr2=torch.zeros((self._rows, R), **z),
-            fail=torch.zeros((R,), dtype=torch.bool, device=self.device),
-            pending={"onl2": [], "pre2": []},
+            mask2=torch.zeros((self._rows2, R), **u8),
+            corr2=torch.zeros((self._rows2, R), **u8),
+            maskz=torch.zeros((self._rowsz, 8, R), **i64),
+            corrz=torch.zeros((self._rowsz, R), **i64),
+            fail=torch.zeros((R,), dtype=torch.bool, device=dev),
+            pending={"onl2": [], "pre2": [], "onlz": [], "prez": []},
         )
         for li, table in enumerate(cc.levels):
             for key in sorted(table):
-                self._gf2_kind(st, inp, key % N_KINDS, _Acc(self, li, key))
+                domain, kind = divmod(key, N_KINDS)
+                run = self._gf2_kind if domain == GF2 else self._z64_kind
+                run(st, inp, kind, _Acc(self, li, key))
         out = {"fail": st["fail"]}
-        for name, n_rows in (("onl2", cc.onl2), ("pre2", cc.pre2)):
-            out[name] = _assemble_stream(st["pending"][name], n_rows, R,
-                                         self.device)
+        for name, n_rows in (("onl2", cc.onl2), ("pre2", cc.pre2),
+                             ("onlz", cc.onlz), ("prez", cc.prez)):
+            out[name] = _assemble_stream(st["pending"][name], n_rows, R, dev)
         return out
 
     def _gf2_kind(self, st, inp, kind: int, A: "_Acc") -> None:
@@ -261,6 +338,99 @@ class Executor:
             A.put_dst(corr2, cbit[:, None].expand(cbit.shape[0], self.R))
         else:
             raise ValueError(f"bad gf2 kind {kind}")
+
+    def _z64_kind(self, st, inp, kind: int, A: "_Acc") -> None:
+        mode = self.mode
+        maskz, corrz = st["maskz"], st["corrz"]
+
+        def put(mask, corr) -> None:
+            A.put_dst(maskz, mask)
+            A.put_dst(corrz, corr)
+
+        if kind == G_INPUT:
+            m = A.take(inp["tapez"], "tape")
+            if mode == PROVER:
+                corr = A.take(inp["witz"], "wit") - _recon_sum(m)
+            elif mode == VERIFY_ONL:
+                corr = A.take(inp["inz"], "rec")
+            else:
+                corr = torch.zeros_like(m[:, 0])
+            if mode != VERIFY_PRE:
+                A.put_stream(st, "onlz", "onl_rows", _word_bytes(corr))
+            put(m, corr)
+        elif kind in (G_ADD, Z_SUB):
+            a, b = A.take(maskz, "a"), A.take(maskz, "b")
+            ac, bc = A.take(corrz, "a"), A.take(corrz, "b")
+            if kind == G_ADD:
+                put(a + b, ac + bc)
+            else:
+                put(a - b, ac - bc)
+        elif kind in (G_ADDC, G_SUBC):
+            a, ac = A.take(maskz, "a"), A.take(corrz, "a")
+            cz = A.arr("cz")[:, None]
+            put(a, ac + cz if kind == G_ADDC else ac - cz)
+        elif kind == G_MULC:
+            a, ac = A.take(maskz, "a"), A.take(corrz, "a")
+            cz = A.arr("cz")[:, None]
+            put(a * cz[:, None], ac * cz)
+        elif kind == G_MUL:
+            a, b = A.take(maskz, "a"), A.take(maskz, "b")
+            ac, bc = A.take(corrz, "a"), A.take(corrz, "b")
+            m_ab, m_new = A.take_tape_pair(inp["tapez"], "tape_ab", "tape_new")
+            if mode == VERIFY_ONL:
+                delta = A.take(inp["coz"], "corr")
+            else:
+                delta = _recon_sum(a) * _recon_sum(b) - _recon_sum(m_ab)
+            A.put_stream(st, "prez", "pre_rows", _word_bytes(delta))
+            s = b * ac[:, None] + a * bc[:, None] + m_ab - m_new
+            if mode == VERIFY_ONL:
+                s = s + A.take(inp["rez"], "rec")
+            if mode != VERIFY_PRE:
+                A.put_stream(st, "onlz", "onl_rows", _share_bytes(s))
+                recon = _recon_sum(s) + delta
+            else:
+                recon = torch.zeros_like(delta)  # junk (verifier/preprocess.rs:63-65)
+            put(m_new, recon + ac * bc)
+        elif kind == G_ASSERT:
+            if mode == VERIFY_PRE:
+                return
+            s, ac = A.take(maskz, "a"), A.take(corrz, "a")
+            if mode == VERIFY_ONL:
+                s = s + A.take(inp["rez"], "rec")
+            A.put_stream(st, "onlz", "onl_rows", _share_bytes(s))
+            st["fail"] |= ((_recon_sum(s) + ac) != 0).any(dim=0)
+        elif kind == G_RANDOM:
+            A.put_dst(maskz, A.take(inp["tapez"], "tape"))
+        elif kind == G_CONST:
+            cz = A.arr("cz")
+            A.put_dst(corrz, cz[:, None].expand(cz.shape[0], self.R))
+        elif kind == B2A_CORR:
+            # the z64 mask r of a B2A and its correction: the 64 fresh GF(2)
+            # masks composed into one word, minus the z64 mask's value
+            bits = _parity8(A.take(st["mask2"], "bits")).reshape(-1, 64, self.R)
+            m = A.take(inp["tapez"], "tape")
+            if mode == VERIFY_ONL:
+                corr = A.take(inp["coz"], "corr")
+            else:
+                corr = _compose_bits(bits) - _recon_sum(m)
+            A.put_stream(st, "prez", "pre_rows", _word_bytes(corr))
+            put(m, corr)
+        elif kind == B2A_OUT:
+            # 64 GF(2) bit reconstructions (onl2 events), composed into the
+            # z64 destination: value - r, with the mask of -r
+            s = A.take(st["mask2"], "bits")  # (64k, R)
+            bc = A.take(st["corr2"], "bits")
+            if mode == VERIFY_ONL:
+                s = s ^ A.take(inp["re2"], "rec_rows")
+            if mode != VERIFY_PRE:
+                A.put_stream(st, "onl2", "onl_rows", s)
+                bits = _parity8(s) ^ bc
+            else:
+                bits = bc  # junk: recon is zero in preprocess mode
+            value = _compose_bits(bits.reshape(-1, 64, self.R))
+            put(-A.take(maskz, "zr"), value - A.take(corrz, "zr"))
+        else:
+            raise ValueError(f"bad z64 kind {kind}")
 
 
 def _assemble_stream(parts, n_rows: int, R: int, device) -> torch.Tensor:

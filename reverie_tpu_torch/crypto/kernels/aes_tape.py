@@ -151,6 +151,30 @@ def aes_ctr_tape_gf2_ref(round_keys: torch.Tensor, m2: int,
     return out
 
 
+def check_launch_args(name: str, round_keys: torch.Tensor,
+                      omit: Optional[torch.Tensor], start_block: int
+                      ) -> torch.Tensor:
+    """Validate a tape kernel's CUDA arguments; returns the (R,) uint8 omit
+    (8 = none where `omit` is None)."""
+    dev = round_keys.device
+    K = round_keys.shape[0]
+    if (round_keys.dtype != torch.uint8 or round_keys.dim() != 3
+            or round_keys.shape[1:] != (11, 16) or K % 8
+            or not round_keys.is_contiguous()):
+        raise ValueError(f"{name}: round_keys must be contiguous uint8 "
+                         "(R*8, 11, 16)")
+    R = K // 8
+    if omit is None:
+        omit = torch.full((R,), 8, dtype=torch.uint8, device=dev)
+    if (omit.dtype != torch.uint8 or omit.shape != (R,)
+            or omit.device != dev or not omit.is_contiguous()):
+        raise ValueError(f"{name}: omit must be contiguous uint8 (R,) on the "
+                         "keys' device")
+    if not 0 <= start_block < 2**63:
+        raise ValueError(f"{name}: start_block out of range")
+    return omit
+
+
 def aes_ctr_tape_gf2(round_keys: torch.Tensor, m2: int,
                      omit: Optional[torch.Tensor] = None,
                      start_block: int = 0) -> torch.Tensor:
@@ -163,21 +187,8 @@ def aes_ctr_tape_gf2(round_keys: torch.Tensor, m2: int,
         return aes_ctr_tape_gf2_ref(round_keys, m2, omit, start_block)
     if dev.type != "cuda":
         raise ValueError(f"aes_ctr_tape_gf2: unsupported device {dev}")
-    K = round_keys.shape[0]
-    if (round_keys.dtype != torch.uint8 or round_keys.dim() != 3
-            or round_keys.shape[1:] != (11, 16) or K % 8
-            or not round_keys.is_contiguous()):
-        raise ValueError("aes_ctr_tape_gf2: round_keys must be contiguous "
-                         "uint8 (R*8, 11, 16)")
-    R = K // 8
-    if omit is None:
-        omit = torch.full((R,), 8, dtype=torch.uint8, device=dev)
-    if (omit.dtype != torch.uint8 or omit.shape != (R,)
-            or omit.device != dev or not omit.is_contiguous()):
-        raise ValueError("aes_ctr_tape_gf2: omit must be contiguous uint8 "
-                         "(R,) on the keys' device")
-    if not 0 <= start_block < 2**63:
-        raise ValueError("aes_ctr_tape_gf2: start_block out of range")
+    omit = check_launch_args("aes_ctr_tape_gf2", round_keys, omit, start_block)
+    R = round_keys.shape[0] // 8
     out = torch.empty((m2, R), dtype=torch.uint8, device=dev)
     if m2 == 0 or R == 0:
         return out

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from reverie_tpu_torch import device as tdevice
-from reverie_tpu_torch.crypto.kernels import aes_tape, blake3 as b3
+from reverie_tpu_torch.crypto.kernels import aes_tape, aes_tape_z64, blake3 as b3
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -23,6 +23,7 @@ import reverie_tpu_torch
 import reverie_tpu_torch._build, reverie_tpu_torch.device
 import reverie_tpu_torch.backend.executor, reverie_tpu_torch.backend.host
 import reverie_tpu_torch.crypto.kernels.aes_tape, reverie_tpu_torch.crypto.kernels.blake3
+import reverie_tpu_torch.crypto.kernels.aes_tape_z64
 import chip_smoke
 import reverie_tpu.circuit.builders, reverie_tpu.proof, reverie_tpu.crypto
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules if sys.modules[m] is not None)
@@ -43,15 +44,18 @@ def test_imports_without_jax():
 
 
 def test_cpu_wrappers_take_plain_path():
-    a0, b0 = aes_tape.LAUNCHES, b3.LAUNCHES
+    counts = (aes_tape.LAUNCHES, aes_tape_z64.LAUNCHES, b3.LAUNCHES)
     keys = np.random.RandomState(0).randint(0, 256, (4, 8, 16), dtype=np.uint8)
     rk = aes_tape.round_keys(keys, torch.device("cpu"))
     tape = aes_tape.aes_ctr_tape_gf2(rk, 200)
     assert tape.device.type == "cpu" and tape.shape == (200, 4)
+    tapez = aes_tape_z64.aes_ctr_tape_z64(rk, 9)
+    assert tapez.device.type == "cpu" and tapez.dtype == torch.int64
+    assert tapez.shape == (9, 8, 4)
     buf = torch.zeros((2048, 4), dtype=torch.uint8)
     cvs = b3.chunk_cvs(buf, 2)
     assert cvs.dtype == torch.int32 and cvs.shape == (8, 2, 4)
-    assert (aes_tape.LAUNCHES, b3.LAUNCHES) == (a0, b0)
+    assert (aes_tape.LAUNCHES, aes_tape_z64.LAUNCHES, b3.LAUNCHES) == counts
 
 
 def test_default_device_needs_cuda(monkeypatch):
@@ -94,6 +98,21 @@ def test_aes_kernel_matches_plain(cuda_device, R, m2, with_omit):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("R, mz, with_omit", [(256, 1000, False), (40, 4097, True),
+                                              (216, 1, True)])
+def test_aes_z64_kernel_matches_plain(cuda_device, R, mz, with_omit):
+    rng = np.random.RandomState(R + 1)
+    rk = aes_tape.round_keys(rng.randint(0, 256, (R, 8, 16), dtype=np.uint8), cuda_device)
+    omit = (torch.from_numpy(rng.randint(0, 9, R).astype(np.uint8)).to(cuda_device)
+            if with_omit else None)
+    n0 = aes_tape_z64.LAUNCHES
+    got = aes_tape_z64.aes_ctr_tape_z64(rk, mz, omit, start_block=5)
+    assert aes_tape_z64.LAUNCHES == n0 + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, aes_tape_z64.aes_ctr_tape_z64_ref(rk, mz, omit, start_block=5))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("R, n, base", [(256, 3, 0), (40, 2, 7), (216, 1, 1)])
 def test_blake3_kernel_matches_plain(cuda_device, R, n, base):
     buf = torch.from_numpy(np.random.RandomState(n).randint(
@@ -110,6 +129,13 @@ def test_cuda_wrappers_reject_bad_input(cuda_device):
     rk = torch.zeros((16, 11, 16), dtype=torch.uint8, device=cuda_device)
     with pytest.raises(ValueError):
         aes_tape.aes_ctr_tape_gf2(rk[:, :, :8].contiguous(), 10)
+    with pytest.raises(ValueError):
+        aes_tape_z64.aes_ctr_tape_z64(rk[:12], 10)  # 12 keys: not 8 per rep
+    with pytest.raises(ValueError):
+        aes_tape_z64.aes_ctr_tape_z64(rk, 10, torch.zeros(2, dtype=torch.int64,
+                                                          device=cuda_device))
+    with pytest.raises(ValueError):  # omit off the card
+        aes_tape_z64.aes_ctr_tape_z64(rk, 10, torch.zeros(2, dtype=torch.uint8))
     buf = torch.zeros((1024, 8), dtype=torch.uint8, device=cuda_device)
     with pytest.raises(ValueError):
         b3.chunk_cvs(buf.t(), 1)

@@ -285,15 +285,23 @@ def _deep_circuit(depth=140):
     return prog
 
 
-@pytest.mark.parametrize("make, item", [
-    (lambda: z64_mul_bench_circuit(4)[0], "item 7"),
-    (lambda: mixed_b2a_circuit()[0], "item 7"),
-    (lambda: [CombineOp.z64(Gate(Op.CONST, dst=0, const=3))], "item 7"),
-    (_deep_circuit, "item 9"),
-])
-def test_out_of_scope_circuits_raise(make, item):
-    with pytest.raises(NotImplementedError, match=item):
-        TorchKKW(make(), device=CPU)
+@pytest.mark.parametrize("make", [
+    lambda: z64_mul_bench_circuit(4),
+    mixed_b2a_circuit,
+    lambda: ([CombineOp.z64(Gate(Op.CONST, dst=0, const=3))], [], []),
+    lambda: (_deep_circuit(140), [True], []),
+], ids=["z64_mul4", "mixed_b2a", "z64_const", "deep140"])
+def test_z64_b2a_and_deep_circuits_prove(make):
+    """Z64 and B2A circuits and circuits deeper than 128 levels (which
+    reverie_tpu runs on its scan executor) prove byte-equal to the NumPy
+    golden prover on the levelized executor, and verify."""
+    prog, wit2, witz = make()
+    s = seeds256(11)
+    port = TorchKKW(prog, device=CPU)
+    proof = port.prove(wit2, witz, seeds=s)
+    assert proof.to_bytes() == golden_prove(
+        prog, wit2, witz, seeds=s.reshape(32, 8, 16)).to_bytes()
+    assert port.verify(proof) is True
 
 
 @pytest.mark.parametrize("method", ["prove_many", "prove_batch",
