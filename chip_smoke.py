@@ -5,33 +5,44 @@
 Phases, each printed on its own lines; any failure exits non-zero and
 prints no result line:
 
-  1. the card: its name, and its name and power limit from nvidia-smi;
-  2. the build of the CUDA kernels (csrc/*.cu, nvcc for sm_90a), timed;
-  3. each kernel against its plain PyTorch version on the card at the main
-     paths' shapes, byte for byte, with both times from CUDA events (the
-     GF(2) tape, the z64 tape at mz = 100,002 for R = 256, then R = 40 with
-     random omits and R = 216, the BLAKE3 chunks); then the per-column hash
-     on the card against the host C blake3;
+  1. the card: its name, its name and power limit and its maximum SM clock
+     from nvidia-smi;
+  2. the build of the CUDA kernels (csrc/*.cu, one nvcc per source in
+     parallel, for sm_90a) and of the host C crypto (native/*.c, gcc),
+     timed;
+  3. each of the seven kernels against its plain PyTorch version on the
+     card, byte for byte, with its time, the plain version's, a library
+     call's where one computes the same function (all from CUDA events) and
+     its bound: the GF(2) tape, the z64 tape at mz = 100,002 for R = 256,
+     then R = 40 with random omits and R = 216, the BLAKE3 chunks, then the
+     per-column hash against the host C blake3; the keystream planes
+     (B = 15,626, 2,048 keys), the copy (512 MB in u8 and in u32), the
+     u32 -> u8 emission (T = 1,000,001, both orders) and the pack-shift
+     (1,000,002 x 256, random shifts);
   4. the GF(2) main path: TorchKKW(mul_bench_circuit(1_000_000)).prove,
      then .verify (True), and a proof with one flipped byte in a GF(2)
      online opening (False), with the kernels' launch counts of that run;
-  5. byte parity at 50,000 AND gates with reverie_tpu's NumPy golden prover;
+  5. byte parity at 50,000 AND gates with reverie_tpu's NumPy golden
+     prover, through the digest committed in reverie_tpu_torch/parity.py;
   6. the Z64 main path: TorchKKW(z64_mul_bench_circuit(50_000)), the same
      legs, a flipped byte in a z64 online opening (False), and the z64 tape
      kernel launched in the prove, the online and the preprocessing verify;
   7. Z64 / B2A parity: tests/golden/b2a_proof.bin reproduced from
-     b2a_seeds.bin, and 2,000 Z64 MULs byte-equal to the NumPy golden;
-  8. one JSON line of kernels, the nvidia-smi line, and the last line
+     b2a_seeds.bin, and 2,000 Z64 MULs equal to the golden's digest;
+  8. the probes (reverie_tpu_torch/tools: r2_measure at B = 15,626,
+     r4_bwroof, r5_u8emit, r4_extract_probe at the tools' shapes), with the
+     launches of the planes, copy, emission and pack-shift kernels in them;
+  9. one JSON line of kernels, the nvidia-smi line, and the last line
      {"ok": true, "device": {...}}.
 
-Imports nothing of JAX.  Needs the CUDA toolkit (nvcc) and one card.
+Imports nothing of JAX or reverie_tpu.  Needs the CUDA toolkit (nvcc), gcc
+and one card.
 """
 
 from __future__ import annotations
 
 import copy
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -41,33 +52,22 @@ import torch
 
 #: the GF(2) main path's sizes (bench config 4: 1M AND gates, 256 reps)
 N_MUL = 1_000_000
-N_PARITY = 50_000
 M2 = 2 * N_MUL + 2  # tape slots of mul_bench_circuit(N_MUL)
 T_STREAM = N_MUL + 2  # onl2 rows of mul_bench_circuit(N_MUL)
 REPS = (256, 40, 216)  # prove, online verify, preprocessing verify
 #: the Z64 main path's sizes (bench.py's z64 cell, BASELINE config 3)
 N_MUL_Z64 = 50_000
-N_PARITY_Z64 = 2_000
 MZ = 2 * N_MUL_Z64 + 2  # z64 tape slots of z64_mul_bench_circuit(N_MUL_Z64)
 GOLDEN = Path(__file__).resolve().parent / "tests" / "golden"
+#: the probes' shapes (reverie_tpu's tools)
+PLANES_BLOCKS = 15_626  # r2_measure at the 1M tape: 2,048 keys
+EMIT_T = 1_000_001  # r5_u8emit at the 1M tape
+PACK_N, PACK_R = 1_000_002, 256  # r4_extract_probe
+KEY_BYTES = 176  # AES-128 round keys per key
 
 
 def log(tag: str, msg: str) -> None:
     print(f"[{tag}] {msg}", flush=True)
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean stream time of fn() over `reps` runs after one warm-up, from
-    CUDA events."""
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -75,41 +75,70 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     for int64 (a difference of two int64 can overflow)."""
     if a.shape != b.shape:
         raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
+    if torch.equal(a, b):
+        return 0
     if a.dtype == torch.int64:
         a, b = a.view(torch.uint8), b.view(torch.uint8)
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
 
 
-def check_aes(dev, rng, m2: int) -> dict:
-    from reverie_tpu_torch.crypto.kernels import aes_tape
+def timed(res: dict, kernel, plain, library=None) -> str:
+    """Time kernel, plain version and library call into res (mean stream
+    ms from CUDA events after a warm-up; the plain version once); the log
+    text."""
+    from reverie_tpu_torch.tools._timing import cuda_ms
 
-    res = {"max_abs_err": 0}
+    dev = torch.device("cuda")
+    res["ms"] = cuda_ms(kernel, dev)
+    res["plain_ms"] = cuda_ms(plain, dev, 1)
+    res["library_ms"] = cuda_ms(library, dev) if library is not None else None
+    lib = "null" if library is None else f"{res['library_ms']:.4f}"
+    return (f"kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
+            f"library_ms={lib} bound_ms={res['bound_ms']:.4f} ({res['bound_by']})")
+
+
+def set_bound(res: dict, n_bytes: float, int_ops: float, clock_mhz: float) -> None:
+    from reverie_tpu_torch.roofline import bound_ms
+
+    res["bound_ms"], res["bound_by"] = bound_ms(n_bytes, int_ops, clock_mhz)
+
+
+def check(name: str, res: dict, got: torch.Tensor, ref: torch.Tensor, line: str) -> None:
+    err = max_abs_err(got, ref)
+    res["max_abs_err"] = max(res.get("max_abs_err", 0), err)
+    log("kernel", f"{name} {line} max_abs_err={err}")
+    if err:
+        raise AssertionError(f"{name} disagrees with its plain version ({line})")
+
+
+def check_aes(dev, rng, m2: int, clock: float) -> dict:
+    from reverie_tpu_torch.crypto.kernels import aes_tape
+    from reverie_tpu_torch.roofline import AES_BLOCK_INT_OPS
+
+    res = {}
     for R in REPS:
         keys = rng.randint(0, 256, (R, 8, 16), dtype=np.uint8)
         rk = aes_tape.round_keys(keys, dev)
         omit = None
         if R == 40:  # the online verifier's shape: one omitted player per rep
             omit = torch.from_numpy(rng.randint(0, 8, R).astype(np.uint8)).to(dev)
-        got = aes_tape.aes_ctr_tape_gf2(rk, m2, omit)
-        ref = aes_tape.aes_ctr_tape_gf2_ref(rk, m2, omit)
-        err = max_abs_err(got, ref)
-        res["max_abs_err"] = max(res["max_abs_err"], err)
-        line = f"aes_tape_gf2 m2={m2} R={R} omit={'random' if omit is not None else 'none'} max_abs_err={err}"
+        line = f"m2={m2} R={R} omit={'random' if omit is not None else 'none'}"
+        check("aes_tape_gf2", res, aes_tape.aes_ctr_tape_gf2(rk, m2, omit),
+              aes_tape.aes_ctr_tape_gf2_ref(rk, m2, omit), line)
         if R == REPS[0]:
-            res["ms"] = cuda_ms(lambda: aes_tape.aes_ctr_tape_gf2(rk, m2, omit), 5)
-            res["plain_ms"] = cuda_ms(lambda: aes_tape.aes_ctr_tape_gf2_ref(rk, m2, omit), 1)
-            line += f" kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f}"
-        log("kernel", line)
-        if err:
-            raise AssertionError(f"aes_tape_gf2 disagrees with its plain version at R={R}")
-        del got, ref
+            set_bound(res, m2 * R + R * 8 * KEY_BYTES + R,
+                      -(-m2 // 128) * R * 8 * AES_BLOCK_INT_OPS, clock)
+            log("kernel", f"aes_tape_gf2 {line} " + timed(
+                res, lambda: aes_tape.aes_ctr_tape_gf2(rk, m2, omit),
+                lambda: aes_tape.aes_ctr_tape_gf2_ref(rk, m2, omit)))
     return res
 
 
-def check_aes_z64(dev, rng, mz: int) -> dict:
+def check_aes_z64(dev, rng, mz: int, clock: float) -> dict:
     from reverie_tpu_torch.crypto.kernels import aes_tape, aes_tape_z64
+    from reverie_tpu_torch.roofline import AES_BLOCK_INT_OPS
 
-    res = {"max_abs_err": 0}
+    res = {}
     for R in REPS:
         keys = rng.randint(0, 256, (R, 8, 16), dtype=np.uint8)
         rk = aes_tape.round_keys(keys, dev)
@@ -118,41 +147,33 @@ def check_aes_z64(dev, rng, mz: int) -> dict:
             om = rng.randint(0, 9, R).astype(np.uint8)
             om[0] = 8
             omit = torch.from_numpy(om).to(dev)
-        got = aes_tape_z64.aes_ctr_tape_z64(rk, mz, omit)
-        ref = aes_tape_z64.aes_ctr_tape_z64_ref(rk, mz, omit)
-        err = max_abs_err(got, ref)
-        res["max_abs_err"] = max(res["max_abs_err"], err)
-        line = (f"aes_tape_z64 mz={mz} R={R} omit={'random' if omit is not None else 'none'} "
-                f"byte_equal={torch.equal(got, ref)} max_abs_err={err}")
+        line = f"mz={mz} R={R} omit={'random' if omit is not None else 'none'}"
+        check("aes_tape_z64", res, aes_tape_z64.aes_ctr_tape_z64(rk, mz, omit),
+              aes_tape_z64.aes_ctr_tape_z64_ref(rk, mz, omit), line)
         if R == REPS[0]:
-            res["ms"] = cuda_ms(lambda: aes_tape_z64.aes_ctr_tape_z64(rk, mz, omit), 5)
-            res["plain_ms"] = cuda_ms(lambda: aes_tape_z64.aes_ctr_tape_z64_ref(rk, mz, omit), 1)
-            line += f" kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f}"
-        log("kernel", line)
-        if err or not torch.equal(got, ref):
-            raise AssertionError(f"aes_tape_z64 disagrees with its plain version at R={R}")
-        del got, ref
+            set_bound(res, mz * 8 * R * 8 + R * 8 * KEY_BYTES + R,
+                      -(-mz // 2) * R * 8 * AES_BLOCK_INT_OPS, clock)
+            log("kernel", f"aes_tape_z64 {line} " + timed(
+                res, lambda: aes_tape_z64.aes_ctr_tape_z64(rk, mz, omit),
+                lambda: aes_tape_z64.aes_ctr_tape_z64_ref(rk, mz, omit)))
     return res
 
 
-def check_blake3(dev, rng, T: int) -> dict:
-    from reverie_tpu.crypto import blake3_many
+def check_blake3(dev, rng, T: int, clock: float) -> dict:
+    from reverie_tpu_torch.crypto import blake3_many
     from reverie_tpu_torch.crypto.kernels import blake3 as b3
+    from reverie_tpu_torch.roofline import BLAKE3_COMPRESSION_INT_OPS
 
     R = REPS[0]
     n = T // 1024
     buf = torch.from_numpy(rng.randint(0, 256, (T, R), dtype=np.uint8)).to(dev)
-    got = b3.chunk_cvs(buf, n, 0)
-    ref = b3.chunk_cvs_ref(buf, n, 0)
-    err = max_abs_err(got, ref)
-    res = {"max_abs_err": err,
-           "ms": cuda_ms(lambda: b3.chunk_cvs(buf, n, 0), 5),
-           "plain_ms": cuda_ms(lambda: b3.chunk_cvs_ref(buf, n, 0), 1)}
-    log("kernel", f"blake3_chunk_cvs T={T} R={R} n={n} max_abs_err={err} "
-        f"kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f}")
-    if err:
-        raise AssertionError("blake3_chunk_cvs disagrees with its plain version")
-    del got, ref
+    res = {}
+    line = f"T={T} R={R} n={n}"
+    check("blake3_chunk_cvs", res, b3.chunk_cvs(buf, n, 0), b3.chunk_cvs_ref(buf, n, 0), line)
+    set_bound(res, n * 1024 * R + 8 * n * R * 4,
+              n * R * 16 * BLAKE3_COMPRESSION_INT_OPS, clock)
+    log("kernel", f"blake3_chunk_cvs {line} " + timed(
+        res, lambda: b3.chunk_cvs(buf, n, 0), lambda: b3.chunk_cvs_ref(buf, n, 0)))
     for R in REPS:
         cols = rng.randint(0, 256, (R, T), dtype=np.uint8)
         dbuf = torch.from_numpy(np.ascontiguousarray(cols.T)).to(dev)
@@ -167,19 +188,106 @@ def check_blake3(dev, rng, T: int) -> dict:
     return res
 
 
-def reset_launches() -> None:
-    from reverie_tpu_torch.crypto.kernels import aes_tape, aes_tape_z64, blake3 as b3
+def check_planes(dev, clock: float) -> dict:
+    from reverie_tpu_torch.crypto.kernels import aes_planes
+    from reverie_tpu_torch.roofline import AES_BLOCK_INT_OPS
+    from reverie_tpu_torch.tools import r2_measure
 
-    aes_tape.LAUNCHES = aes_tape_z64.LAUNCHES = b3.LAUNCHES = 0
+    rk = r2_measure.round_keys(dev)
+    K, B = rk.shape[0], PLANES_BLOCKS
+    res = {}
+    line = f"B={B} keys={K}"
+    check("aes_ctr_planes", res, aes_planes.aes_ctr_planes(rk, B),
+          aes_planes.aes_ctr_planes_ref(rk, B), line)
+    set_bound(res, 16 * 8 * B * (K // 32) * 4 + K * KEY_BYTES,
+              B * K * AES_BLOCK_INT_OPS, clock)
+    log("kernel", f"aes_ctr_planes {line} " + timed(
+        res, lambda: aes_planes.aes_ctr_planes(rk, B),
+        lambda: aes_planes.aes_ctr_planes_ref(rk, B)))
+    return res
+
+
+def check_copy(dev, clock: float) -> dict:
+    """Both of the probe's 512 MB arrays; the kernels line takes the u8
+    one's times."""
+    from reverie_tpu_torch.tools import r4_bwroof
+
+    res, first = {}, None
+    for name, shape, dtype in r4_bwroof.CASES:
+        x = r4_bwroof.random_tensor(shape, dtype, dev, 5)
+        n_bytes = x.numel() * x.element_size()
+        line = f"{name} shape={list(shape)}"
+        check("copy", res, r4_bwroof.copy(x), r4_bwroof.copy_ref(x), line)
+        case = {}
+        set_bound(case, 2 * n_bytes, 0, clock)
+        log("kernel", f"copy {line} " + timed(
+            case, lambda: r4_bwroof.copy(x), lambda: r4_bwroof.copy_ref(x),
+            lambda: torch.empty_like(x).copy_(x)))
+        first = first or case
+        del x
+    return {**first, "max_abs_err": res["max_abs_err"]}
+
+
+def check_u8emit(dev, clock: float) -> dict:
+    """Both orders; the kernels line takes the sigma order's times (its
+    library call is a real transposing copy)."""
+    from reverie_tpu_torch.tools import r4_bwroof, r5_u8emit
+
+    w = r4_bwroof.random_tensor((EMIT_T, 128), torch.int32, dev, 7)
+    res = {}
+    for perm in (False, True):
+        line = f"T={EMIT_T} order={'sigma' if perm else 'exact'}"
+        check("u32_to_u8_rows", res, r5_u8emit.u32_to_u8_rows(w, perm),
+              r5_u8emit.u32_to_u8_rows_ref(w, perm), line)
+        set_bound(res, 2 * w.numel() * 4, 0, clock)
+        log("kernel", f"u32_to_u8_rows {line} " + timed(
+            res, lambda: r5_u8emit.u32_to_u8_rows(w, perm),
+            lambda: r5_u8emit.u32_to_u8_rows_ref(w, perm),
+            lambda: r5_u8emit.u32_to_u8_rows_library(w, perm)))
+    return res
+
+
+def check_pack_shift(dev, clock: float) -> dict:
+    from reverie_tpu_torch.tools import r4_bwroof, r4_extract_probe as rx
+
+    n, R = PACK_N, PACK_R
+    x = r4_bwroof.random_tensor((n, R), torch.uint8, dev, 11)
+    sh = torch.from_numpy(np.random.RandomState(11).randint(0, 8, R).astype(np.uint8)).to(dev)
+    res = {}
+    line = f"n={n} R={R} shifts=random"
+    check("pack_shift", res, rx.pack_shift(x, sh), rx.pack_shift_ref(x, sh), line)
+    nc = n // 8 + 1
+    set_bound(res, n * R + nc * R + R, nc * (R // 4) * rx.INT_OPS_PER_WORD, clock)
+    log("kernel", f"pack_shift {line} " + timed(
+        res, lambda: rx.pack_shift(x, sh), lambda: rx.pack_shift_ref(x, sh)))
+    return res
+
+
+def counters() -> dict:
+    """The module that counts each kernel's launches (its LAUNCHES)."""
+    from reverie_tpu_torch.crypto.kernels import aes_planes, aes_tape, aes_tape_z64, blake3 as b3
+    from reverie_tpu_torch.tools import r4_bwroof, r4_extract_probe, r5_u8emit
+
+    return {"aes_tape_gf2": aes_tape, "aes_tape_z64": aes_tape_z64,
+            "blake3_chunk_cvs": b3, "aes_ctr_planes": aes_planes, "copy": r4_bwroof,
+            "u32_to_u8_rows": r5_u8emit, "pack_shift": r4_extract_probe}
+
+
+def reset_launches() -> None:
+    for mod in counters().values():
+        mod.LAUNCHES = 0
+
+
+def launch_counts() -> dict:
+    return {name: mod.LAUNCHES for name, mod in counters().items()}
 
 
 def main_path(dev, tag: str, make, domain: str, rng) -> dict:
     """Prove and verify one circuit, cold then warm, through TorchKKW; a
     proof with one flipped recon byte in a `domain` online opening must
     not verify.  Returns the kernels' launch counts of the run."""
-    from reverie_tpu.proof import Proof
     from reverie_tpu_torch import TorchKKW
-    from reverie_tpu_torch.backend.host import launch_counts
+    from reverie_tpu_torch.proof import Proof
 
     t0 = time.perf_counter()
     prog, w2, wz = make()
@@ -237,33 +345,29 @@ def main_path(dev, tag: str, make, domain: str, rng) -> dict:
     return launches
 
 
-def parity(dev, n_mul: int, rng) -> None:
-    from reverie_tpu.circuit.builders import mul_bench_circuit
-    from reverie_tpu.proof import prove as golden_prove
-    from reverie_tpu_torch import TorchKKW
+def parity(dev, name: str) -> None:
+    """The port's proof of a committed parity case against the NumPy
+    golden's length and SHA-256."""
+    from reverie_tpu_torch import TorchKKW, parity as golden
 
-    prog, w2, wz = mul_bench_circuit(n_mul)
-    seeds = rng.randint(0, 256, (256, 16), dtype=np.uint8)
+    case = golden.CASES[name]
+    prog, w2, wz, seeds = golden.inputs(case)
     t = time.perf_counter()
     got = TorchKKW(prog, device=dev).prove(w2, wz, seeds=seeds).to_bytes()
-    t_port = time.perf_counter() - t
-    t = time.perf_counter()
-    want = golden_prove(prog, w2, wz, seeds=seeds.reshape(32, 8, 16)).to_bytes()
-    t_gold = time.perf_counter() - t
-    log("parity", f"mul_bench_circuit({n_mul}) proof_bytes={len(got)} "
-        f"equal_to_numpy_golden={got == want} port_s={t_port:.3f} golden_s={t_gold:.3f}")
-    if got != want:
-        raise AssertionError("proof bytes differ from the NumPy golden")
+    ok = golden.matches(case, got)
+    log("parity", f"{case.builder}({case.n}) seeds=RandomState({case.seed}) "
+        f"proof_bytes={len(got)} equal_to_numpy_golden_digest={ok} "
+        f"port_s={time.perf_counter() - t:.3f}")
+    if not ok:
+        raise AssertionError(f"{name}: proof bytes differ from the NumPy golden's")
 
 
-def z64_parity(dev, n_mul: int, rng) -> None:
-    """The committed B2A golden blob, and n_mul Z64 MULs against the NumPy
-    golden prover, byte for byte."""
-    from reverie_tpu.circuit import load_program
-    from reverie_tpu.circuit.builders import mixed_b2a_circuit, z64_mul_bench_circuit
-    from reverie_tpu.proof import Proof
-    from reverie_tpu.proof import prove as golden_prove
+def golden_b2a(dev) -> None:
+    """The committed B2A golden blob, byte for byte."""
     from reverie_tpu_torch import TorchKKW
+    from reverie_tpu_torch.circuit import load_program
+    from reverie_tpu_torch.circuit.builders import mixed_b2a_circuit
+    from reverie_tpu_torch.proof import Proof
 
     prog = load_program((GOLDEN / "b2a_program.bin").read_bytes())
     seeds = np.frombuffer((GOLDEN / "b2a_seeds.bin").read_bytes(), np.uint8).reshape(256, 16)
@@ -278,18 +382,40 @@ def z64_parity(dev, n_mul: int, rng) -> None:
     if got != blob or ok is not True:
         raise AssertionError("the golden B2A proof was not reproduced")
 
-    prog, w2, wz = z64_mul_bench_circuit(n_mul)
-    seeds = rng.randint(0, 256, (256, 16), dtype=np.uint8)
-    t = time.perf_counter()
-    got = TorchKKW(prog, device=dev).prove(w2, wz, seeds=seeds).to_bytes()
-    t_port = time.perf_counter() - t
-    t = time.perf_counter()
-    want = golden_prove(prog, w2, wz, seeds=seeds.reshape(32, 8, 16)).to_bytes()
-    t_gold = time.perf_counter() - t
-    log("parity", f"z64_mul_bench_circuit({n_mul}) proof_bytes={len(got)} "
-        f"equal_to_numpy_golden={got == want} port_s={t_port:.3f} golden_s={t_gold:.3f}")
-    if got != want:
-        raise AssertionError("z64 proof bytes differ from the NumPy golden")
+
+def probes(dev) -> dict:
+    """Run the four probes at the tools' shapes, counting the launches of
+    their kernels from 0."""
+    from reverie_tpu_torch.tools import r2_measure, r4_bwroof, r4_extract_probe, r5_u8emit
+
+    reset_launches()
+    rows = [*r2_measure.run(dev, blocks=(PLANES_BLOCKS,)), *r4_bwroof.run(dev),
+            *r5_u8emit.run(dev, t_time=EMIT_T),
+            r4_extract_probe.run(dev, n=PACK_N, r=PACK_R)]
+    launches = launch_counts()
+    for row in rows:
+        log("probe", json.dumps(row))
+    log("probe", f"launches={json.dumps(launches)}")
+    return launches
+
+
+KERNELS = (  # name, source, replaces (file:line of every TPU function)
+    ("aes_tape_gf2", "reverie_tpu_torch/csrc/aes_tape.cu",
+     "reverie_tpu/crypto/kernels/aes_pallas.py:128, reverie_tpu/crypto/kernels/aes_pallas.py:425"),
+    ("aes_tape_z64", "reverie_tpu_torch/csrc/aes_tape_z64.cu",
+     "reverie_tpu/crypto/kernels/aes_pallas.py:458"),
+    ("blake3_chunk_cvs", "reverie_tpu_torch/csrc/blake3_chunks.cu",
+     "reverie_tpu/crypto/kernels/blake3_pallas.py:74"),
+    ("aes_ctr_planes", "reverie_tpu_torch/csrc/aes_planes.cu",
+     "reverie_tpu/crypto/kernels/aes_pallas.py:34"),
+    ("copy", "reverie_tpu_torch/csrc/copy.cu", "tools/r4_bwroof.py:52"),
+    ("u32_to_u8_rows", "reverie_tpu_torch/csrc/u8emit.cu",
+     "tools/r5_u8emit.py:33, tools/r5_u8emit.py:42, tools/r5_u8emit.py:75, "
+     "tools/r5_u8emit.py:124"),
+    ("pack_shift", "reverie_tpu_torch/csrc/pack_shift.cu",
+     "tools/r4_extract_probe.py:143, tools/r4_extract_probe.py:308, "
+     "tools/r4_extract_probe.py:331"),
+)
 
 
 def main() -> int:
@@ -298,16 +424,16 @@ def main() -> int:
               "runs on a CUDA card only", file=sys.stderr)
         return 2
     from reverie_tpu_torch import _build
+    from reverie_tpu_torch.crypto import native
     from reverie_tpu_torch.device import default_device
+    from reverie_tpu_torch.tools._timing import card, max_sm_clock_mhz
 
     dev = default_device()
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    smi, clock = card(), max_sm_clock_mhz()
     log("card", f"{name} | torch {torch.__version__} cuda {torch.version.cuda} "
         f"| count {torch.cuda.device_count()}")
-    log("card", f"nvidia-smi: {smi}")
+    log("card", f"nvidia-smi: {smi} | clocks.max.sm {clock:.0f} MHz")
 
     t = time.perf_counter()
     out = _build.build(ptxas_verbose=True)
@@ -317,38 +443,40 @@ def main() -> int:
     for line in out.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("build", line.strip())
+    t = time.perf_counter()
+    native.build()
+    native.get_lib()
+    log("build", f"gcc {' '.join(native.CFLAGS)} {[s.name for s in native.sources()]} "
+        f"seconds={time.perf_counter() - t:.3f}")
 
-    from reverie_tpu.circuit.builders import mul_bench_circuit, z64_mul_bench_circuit
+    from reverie_tpu_torch.circuit.builders import mul_bench_circuit, z64_mul_bench_circuit
 
     rng = np.random.RandomState(2026)
-    aes = check_aes(dev, rng, M2)
-    aesz = check_aes_z64(dev, rng, MZ)
-    b3 = check_blake3(dev, rng, T_STREAM)
+    checks = {"aes_tape_gf2": check_aes(dev, rng, M2, clock),
+              "aes_tape_z64": check_aes_z64(dev, rng, MZ, clock),
+              "blake3_chunk_cvs": check_blake3(dev, rng, T_STREAM, clock),
+              "aes_ctr_planes": check_planes(dev, clock),
+              "copy": check_copy(dev, clock),
+              "u32_to_u8_rows": check_u8emit(dev, clock),
+              "pack_shift": check_pack_shift(dev, clock)}
     gf2 = main_path(dev, "main", lambda: mul_bench_circuit(N_MUL), "gf2", rng)
-    parity(dev, N_PARITY, rng)
+    parity(dev, "gf2_50k")
     z64 = main_path(dev, "z64", lambda: z64_mul_bench_circuit(N_MUL_Z64), "z64", rng)
-    z64_parity(dev, N_PARITY_Z64, rng)
+    golden_b2a(dev)
+    parity(dev, "z64_2k")
+    tools = probes(dev)
 
-    kernels = [
-        {"name": "aes_tape_gf2", "route": "cuda",
-         "source": "reverie_tpu_torch/csrc/aes_tape.cu",
-         "replaces": "reverie_tpu/crypto/kernels/aes_pallas.py:128",
-         "launches": gf2["aes_tape_gf2"] + z64["aes_tape_gf2"],
-         "max_abs_err": aes["max_abs_err"], "ms": aes["ms"], "plain_ms": aes["plain_ms"]},
-        {"name": "aes_tape_z64", "route": "cuda",
-         "source": "reverie_tpu_torch/csrc/aes_tape_z64.cu",
-         "replaces": "reverie_tpu/crypto/kernels/aes_pallas.py:458",
-         "launches": gf2["aes_tape_z64"] + z64["aes_tape_z64"],
-         "max_abs_err": aesz["max_abs_err"], "ms": aesz["ms"], "plain_ms": aesz["plain_ms"]},
-        {"name": "blake3_chunk_cvs", "route": "cuda",
-         "source": "reverie_tpu_torch/csrc/blake3_chunks.cu",
-         "replaces": "reverie_tpu/crypto/kernels/blake3_pallas.py:74",
-         "launches": gf2["blake3_chunk_cvs"] + z64["blake3_chunk_cvs"],
-         "max_abs_err": b3["max_abs_err"], "ms": b3["ms"], "plain_ms": b3["plain_ms"]},
-    ]
-    for k in kernels:
-        if k["launches"] < 1:
-            raise AssertionError(f"{k['name']} was not launched on the main paths")
+    kernels = []
+    for kname, source, replaces in KERNELS:
+        c = checks[kname]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": gf2[kname] + z64[kname] + tools[kname],
+            "max_abs_err": c["max_abs_err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
+            "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+            "library_ms": c["library_ms"]})
+        if kernels[-1]["launches"] < 1:
+            raise AssertionError(f"{kname} was not launched on its path")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -38,7 +38,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from reverie_tpu.circuit.compile import (
+from ..circuit.compile import (
     B2A_CORR,
     B2A_OUT,
     G_ADD,

@@ -26,19 +26,18 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from reverie_tpu.circuit.compile import CompiledCircuit, compile_program
-from reverie_tpu.circuit.ir import CombineOp
-from reverie_tpu.crypto import blake3, expand_seeds
-from reverie_tpu.params import DEFAULT_PARAMS as PARAMS, KEY_SIZE
-from reverie_tpu.proof.challenge import challenge_to_opening
-from reverie_tpu.proof.container import (
+from ..circuit.compile import CompiledCircuit, compile_program
+from ..circuit.ir import CombineOp, Gate, Kind, Op
+from ..crypto import blake3, expand_seeds
+from ..crypto.kernels import aes_tape, aes_tape_z64, blake3 as b3
+from ..params import DEFAULT_PARAMS as PARAMS, KEY_SIZE
+from ..proof.challenge import challenge_to_opening
+from ..proof.container import (
     OpenOnline,
     OpenPreprocessing,
     Proof,
     ProofSingle,
 )
-
-from ..crypto.kernels import aes_tape, aes_tape_z64, blake3 as b3
 from ..device import default_device
 from .executor import (
     PROVER,
@@ -244,6 +243,21 @@ def _not_ported(name: str, item: int):
     return method
 
 
+def check_program(program: Sequence[CombineOp]) -> None:
+    """Raise TypeError unless every op is one of the port's own circuit
+    objects.  reverie_tpu's classes are distinct (IntEnum comparison would
+    make them appear to work): a program built there crosses over as
+    bincode, `circuit.load_program(reverie_tpu.circuit.dumps_program(p))`."""
+    for op in program:
+        gate = getattr(op, "gate", None)
+        if not (isinstance(op, CombineOp) and type(op.kind) is Kind
+                and (gate is None or (isinstance(gate, Gate) and type(gate.op) is Op))):
+            raise TypeError(
+                f"TorchKKW takes reverie_tpu_torch.circuit ops, not {type(op).__module__}."
+                f"{type(op).__name__}; carry the program over as bincode bytes "
+                "(reverie_tpu_torch.circuit.load_program)")
+
+
 class TorchKKW:
     """Compile a circuit once; prove and verify on one device.
 
@@ -262,6 +276,7 @@ class TorchKKW:
             raise NotImplementedError(
                 "TorchKKW runs on one device; sharding over several is "
                 "ROADMAP Queue 1 item 12")
+        check_program(program)
         self.device = default_device() if device is None else torch.device(device)
         self.cc = compile_program(program)
         self._executors: Dict[tuple, Executor] = {}

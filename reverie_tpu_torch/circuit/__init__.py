@@ -1,0 +1,13 @@
+from .bincode import dump_program, dumps_program, load_program
+from .ir import CombineOp, Gate, Kind, Op, Program
+
+__all__ = [
+    "CombineOp",
+    "Gate",
+    "Kind",
+    "Op",
+    "Program",
+    "dump_program",
+    "dumps_program",
+    "load_program",
+]

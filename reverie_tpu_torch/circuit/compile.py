@@ -1,0 +1,325 @@
+"""Circuit compiler: a composite program -> static-level gate tables.
+
+The port's copy of the levelized part of reverie_tpu/circuit/compile.py
+(the compiled-kind constants, `_DomState`, `CompiledCircuit`, `_Builder`,
+`compile_program`).  Left out: the pickle disk cache (`cache_key`) and the
+segment carry plumbing (`carry_in`, `out_val_map`) with `compile_segments`
+and `build_waves`, which belong to the streaming and scan slices.
+
+  * SSA conversion: the mutable wire arena becomes an immutable value arena
+    (each gate output is a fresh value id), so gates within a level are
+    independent and run batched.
+  * Level assignment: level(gate) = 1 + max(level(operand producers)).
+  * Static stream assignment, exactly reproducing the reference's sequential
+    transcript order (critical for bit-identical proofs):
+      - mask tape indices (ShareGen.next() call order, generator/share.rs)
+      - online/preprocess transcript byte offsets per domain
+        (gf2 events are 1 byte/rep; z64 input/corr 8 bytes, share 64 bytes)
+      - witness indices, and record indices for recons/corrs/inputs
+  * B2A macro-expansion (combine.rs:132-219): 64 fresh bit masks, a z64
+    correction, a 63-AND ripple-carry adder, 64 bit reconstructions -- all in
+    the reference's exact tape/event order.
+
+Because hashing order is determined by the compile-time slot assignment,
+execution order is free: levels run in any schedule and the transcript bytes
+land in their program-order positions.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Sequence
+
+import numpy as np
+
+from .ir import CombineOp, Gate, Kind, Op
+
+# Compiled gate kinds (per domain).
+G_INPUT = 0
+G_ADD = 1  # also SUB (gf2: same op; z64 uses Z_SUB)
+G_ADDC = 2
+G_SUBC = 3
+G_MULC = 4
+G_MUL = 5
+G_ASSERT = 6
+G_RANDOM = 7
+G_CONST = 8
+Z_SUB = 9  # z64 subtraction (distinct from add)
+B2A_CORR = 10  # defines the z64 'r' value + its correction event
+B2A_OUT = 11  # 64 bit reconstructions + z64 destination write
+
+N_KINDS = 12
+
+# Bytes per event in the per-rep transcript streams.
+GF2_EVENT = 1
+Z64_CORR_EVENT = 8
+Z64_SHARE_EVENT = 64
+
+
+class _DomState:
+    """Per-domain compile-time counters + SSA map."""
+
+    def __init__(self) -> None:
+        self.wire_to_val: Dict[int, int] = {}
+        self.val_level: List[int] = [0]  # value 0 = constant zero
+        self.n_vals = 1
+        self.tape = 0  # masks consumed
+        self.onl = 0  # online stream bytes
+        self.pre = 0  # preprocess stream bytes
+        self.n_inputs = 0
+        self.n_corrs = 0
+        self.n_recons = 0
+        self.wit = 0  # witness elements consumed
+
+    def read(self, wire: int) -> int:
+        return self.wire_to_val.get(wire, 0)
+
+    def write(self, wire: int, level: int) -> int:
+        vid = self.fresh(level)
+        self.wire_to_val[wire] = vid
+        return vid
+
+    def fresh(self, level: int) -> int:
+        vid = self.n_vals
+        self.n_vals += 1
+        self.val_level.append(level)
+        return vid
+
+
+@dataclasses.dataclass
+class CompiledCircuit:
+    levels: List[Dict[int, Dict[str, np.ndarray]]]  # [level][domain*N_KINDS+kind] -> cols
+    n_vals2: int
+    n_valsz: int
+    m2: int
+    mz: int
+    onl2: int  # gf2 online stream bytes per rep
+    pre2: int
+    onlz: int
+    prez: int
+    n_wit2: int
+    n_witz: int
+    n_inputs2: int
+    n_corrs2: int
+    n_recons2: int
+    n_inputsz: int
+    n_corrsz: int
+    n_reconsz: int
+    # byte offsets of each record in its stream (for extraction/injection)
+    input_slots2: np.ndarray  # (n_inputs2,) online byte offsets
+    corr_slots2: np.ndarray
+    recon_slots2: np.ndarray
+    input_slotsz: np.ndarray
+    corr_slotsz: np.ndarray
+    recon_slotsz: np.ndarray
+
+    @property
+    def depth(self) -> int:
+        return len(self.levels)
+
+
+def _key(domain: int, kind: int) -> int:
+    return domain * N_KINDS + kind
+
+
+GF2, Z64D = 0, 1
+
+
+class _Builder:
+    def __init__(self) -> None:
+        self.rows: Dict[int, Dict[int, List[dict]]] = {}  # level -> key -> rows
+        self.max_level = 0
+
+    def emit(self, level: int, domain: int, kind: int, **cols) -> None:
+        self.rows.setdefault(level, {}).setdefault(_key(domain, kind), []).append(cols)
+        self.max_level = max(self.max_level, level)
+
+
+def compile_program(program: Sequence[CombineOp]) -> CompiledCircuit:
+    """Levelize a whole program (reverie_tpu's compile_program without a
+    cache key or segment carries)."""
+    d2 = _DomState()
+    dz = _DomState()
+    b = _Builder()
+    in_slots2: List[int] = []
+    co_slots2: List[int] = []
+    re_slots2: List[int] = []
+    in_slotsz: List[int] = []
+    co_slotsz: List[int] = []
+    re_slotsz: List[int] = []
+
+    def emit_gate(domain: int, g: Gate) -> None:
+        d = d2 if domain == GF2 else dz
+        ev_in = GF2_EVENT if domain == GF2 else Z64_CORR_EVENT
+        ev_sh = GF2_EVENT if domain == GF2 else Z64_SHARE_EVENT
+        islots = in_slots2 if domain == GF2 else in_slotsz
+        cslots = co_slots2 if domain == GF2 else co_slotsz
+        rslots = re_slots2 if domain == GF2 else re_slotsz
+        op = g.op
+        if op == Op.INPUT:
+            v = d.fresh(0)
+            b.emit(0, domain, G_INPUT, dst=v, tape=d.tape, wit=d.wit, onl=d.onl, rec=d.n_inputs)
+            d.tape += 1
+            d.wit += 1
+            islots.append(d.onl)
+            d.onl += ev_in
+            d.n_inputs += 1
+            d.wire_to_val[g.dst] = v
+        elif op in (Op.ADD, Op.SUB):
+            a, c = d.read(g.src1), d.read(g.src2)
+            lvl = max(d.val_level[a], d.val_level[c])
+            v = d.write(g.dst, lvl + 1)
+            kind = G_ADD if (op == Op.ADD or domain == GF2) else Z_SUB
+            b.emit(lvl + 1, domain, kind, dst=v, a=a, b=c)
+        elif op in (Op.ADDC, Op.SUBC, Op.MULC):
+            a = d.read(g.src1)
+            lvl = d.val_level[a]
+            v = d.write(g.dst, lvl + 1)
+            kind = {Op.ADDC: G_ADDC, Op.SUBC: G_SUBC, Op.MULC: G_MULC}[op]
+            b.emit(lvl + 1, domain, kind, dst=v, a=a, const=g.const)
+        elif op == Op.MUL:
+            a, c = d.read(g.src1), d.read(g.src2)
+            lvl = max(d.val_level[a], d.val_level[c]) + 1
+            v = d.write(g.dst, lvl)
+            b.emit(
+                lvl, domain, G_MUL,
+                dst=v, a=a, b=c,
+                tape_ab=d.tape, tape_new=d.tape + 1,
+                onl=d.onl, pre=d.pre, rec=d.n_recons, corr=d.n_corrs,
+            )
+            d.tape += 2
+            cslots.append(d.pre)
+            rslots.append(d.onl)
+            d.pre += ev_in
+            d.onl += ev_sh
+            d.n_corrs += 1
+            d.n_recons += 1
+        elif op == Op.ASSERT_ZERO:
+            a = d.read(g.src1)
+            lvl = d.val_level[a] + 1
+            b.emit(lvl, domain, G_ASSERT, a=a, onl=d.onl, rec=d.n_recons)
+            rslots.append(d.onl)
+            d.onl += ev_sh
+            d.n_recons += 1
+        elif op == Op.RANDOM:
+            v = d.fresh(0)
+            b.emit(0, domain, G_RANDOM, dst=v, tape=d.tape)
+            d.tape += 1
+            d.wire_to_val[g.dst] = v
+        elif op == Op.CONST:
+            v = d.fresh(0)
+            b.emit(0, domain, G_CONST, dst=v, const=g.const)
+            d.wire_to_val[g.dst] = v
+        else:
+            raise ValueError(f"bad opcode {op}")
+
+    def emit_b2a(dst: int, src: int) -> None:
+        # 1) 64 fresh gf2 bit masks (tape order first, combine.rs:140-151)
+        fresh = []
+        for _ in range(64):
+            v = d2.fresh(0)
+            b.emit(0, GF2, G_RANDOM, dst=v, tape=d2.tape)
+            d2.tape += 1
+            fresh.append(v)
+        # 2) z64 mask + correction -> value r
+        zr = dz.fresh(1)
+        b.emit(1, Z64D, B2A_CORR, dst=zr, tape=dz.tape, bits=list(fresh),
+               pre=dz.pre, corr=dz.n_corrs)
+        dz.tape += 1
+        co_slotsz.append(dz.pre)
+        dz.pre += Z64_CORR_EVENT
+        dz.n_corrs += 1
+        # 3) ripple-carry adder over (fresh, wires[src..src+64])
+        a_ids = fresh
+        b_ids = [d2.read(src + i) for i in range(64)]
+
+        def gf2_mul(x: int, y: int) -> int:
+            lvl = max(d2.val_level[x], d2.val_level[y]) + 1
+            v = d2.fresh(lvl)
+            b.emit(lvl, GF2, G_MUL, dst=v, a=x, b=y,
+                   tape_ab=d2.tape, tape_new=d2.tape + 1,
+                   onl=d2.onl, pre=d2.pre, rec=d2.n_recons, corr=d2.n_corrs)
+            d2.tape += 2
+            co_slots2.append(d2.pre)
+            re_slots2.append(d2.onl)
+            d2.pre += GF2_EVENT
+            d2.onl += GF2_EVENT
+            d2.n_corrs += 1
+            d2.n_recons += 1
+            return v
+
+        def gf2_add(x: int, y: int) -> int:
+            lvl = max(d2.val_level[x], d2.val_level[y]) + 1
+            v = d2.fresh(lvl)
+            b.emit(lvl, GF2, G_ADD, dst=v, a=x, b=y)
+            return v
+
+        res = [0] * 64
+        carry = gf2_mul(a_ids[0], b_ids[0])
+        res[0] = gf2_add(a_ids[0], b_ids[0])
+        for i in range(1, 63):
+            ac = gf2_add(a_ids[i], carry)
+            bc = gf2_add(b_ids[i], carry)
+            ac_bc = gf2_mul(ac, bc)
+            res[i] = gf2_add(ac, b_ids[i])
+            carry = gf2_add(ac_bc, carry)
+        res[63] = gf2_add(carry, gf2_add(a_ids[63], b_ids[63]))
+
+        # 4) 64 bit reconstructions + z64 destination
+        lvl = max(max(d2.val_level[v] for v in res), dz.val_level[zr]) + 1
+        zv = dz.write(dst, lvl)
+        b.emit(lvl, Z64D, B2A_OUT, dst=zv, zr=zr, bits=list(res),
+               onl=d2.onl, rec=d2.n_recons)
+        for _ in range(64):
+            re_slots2.append(d2.onl)
+            d2.onl += GF2_EVENT
+            d2.n_recons += 1
+
+    for cop in program:
+        if cop.kind == Kind.GF2:
+            emit_gate(GF2, cop.gate)
+        elif cop.kind == Kind.Z64:
+            emit_gate(Z64D, cop.gate)
+        elif cop.kind == Kind.B2A:
+            emit_b2a(cop.a, cop.b)
+        # SizeHint: no-op for SSA compilation
+
+    # materialize levels into numpy column arrays
+    levels: List[Dict[int, Dict[str, np.ndarray]]] = []
+    for lvl in range(b.max_level + 1):
+        table: Dict[int, Dict[str, np.ndarray]] = {}
+        for key, rows in b.rows.get(lvl, {}).items():
+            cols: Dict[str, np.ndarray] = {}
+            for name in rows[0]:
+                vals = [r[name] for r in rows]
+                dtype = np.uint64 if name == "const" else np.int32  # bits: (k, 64)
+                cols[name] = np.asarray(vals, dtype=dtype)
+            table[key] = cols
+        if table:
+            levels.append(table)
+
+    return CompiledCircuit(
+        levels=levels,
+        n_vals2=d2.n_vals,
+        n_valsz=dz.n_vals,
+        m2=d2.tape,
+        mz=dz.tape,
+        onl2=d2.onl,
+        pre2=d2.pre,
+        onlz=dz.onl,
+        prez=dz.pre,
+        n_wit2=d2.wit,
+        n_witz=dz.wit,
+        n_inputs2=d2.n_inputs,
+        n_corrs2=d2.n_corrs,
+        n_recons2=d2.n_recons,
+        n_inputsz=dz.n_inputs,
+        n_corrsz=dz.n_corrs,
+        n_reconsz=dz.n_recons,
+        input_slots2=np.asarray(in_slots2, dtype=np.int64),
+        corr_slots2=np.asarray(co_slots2, dtype=np.int64),
+        recon_slots2=np.asarray(re_slots2, dtype=np.int64),
+        input_slotsz=np.asarray(in_slotsz, dtype=np.int64),
+        corr_slotsz=np.asarray(co_slotsz, dtype=np.int64),
+        recon_slotsz=np.asarray(re_slotsz, dtype=np.int64),
+    )

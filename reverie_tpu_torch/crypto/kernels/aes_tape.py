@@ -24,9 +24,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from reverie_tpu.crypto import key_expand_batch
-
 from ... import _build
+from ..prg import key_expand_batch
 
 #: kernel launches made by `aes_ctr_tape_gf2` (CUDA tensors only)
 LAUNCHES = 0
@@ -62,7 +61,7 @@ _PLAIN_CHUNK = 1 << 22
 def round_keys(player_keys: np.ndarray, device: torch.device) -> torch.Tensor:
     """(R, 8, 16) u8 player keys -> (R*8, 11, 16) u8 AES-128 round keys on
     `device` (key order rep-major: key r*8 + p is player p of rep r).  The
-    key schedule runs in the shared host C library."""
+    key schedule runs in the port's host C library (crypto/native.py)."""
     rk = key_expand_batch(np.asarray(player_keys, np.uint8).reshape(-1, 16))
     return torch.from_numpy(rk).to(device)
 

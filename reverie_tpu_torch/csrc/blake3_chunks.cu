@@ -11,9 +11,10 @@
 // word is 4 consecutive rows of one column, little-endian.
 //
 // What bounds it on the H100: at the main path's shape (n = 976 chunks,
-// R = 256) the kernel reads 256 MB, 0.08 ms at 3.35 TB/s, and does ~2.8G
-// 32-bit integer operations (7 rounds x 8 G mixes per 64-byte block),
-// ~0.1 ms of ALU time, so memory and ALU bounds are close.  What it meets
+// R = 256) the kernel reads 256 MB, 0.08 ms at 3.35 TB/s, and needs at
+// least 2.8G 32-bit integer instructions (4.0M compressions x 712,
+// roofline.py), 0.17 ms at the H100's 1,980 MHz: the ALU bound is the
+// larger.  What it meets
 // first is latency: each thread runs 16 dependent compressions behind its
 // own strided loads, and the 250K threads are only ~1.5 waves of the card
 // at 48 registers a thread.

@@ -1,0 +1,12 @@
+"""Measurement probes of the port on the card, each the counterpart of a
+reverie_tpu tool with its CUDA kernel: `r2_measure` (AES keystream planes),
+`r4_bwroof` (copy roof), `r5_u8emit` (u32 -> u8 byte emission) and
+`r4_extract_probe` (pack-shift extraction).  Each has `run(device, ...)`,
+which returns its results (device times only on a CUDA device), and `main`,
+which runs it on the card:
+
+    python -m reverie_tpu_torch.tools.r4_bwroof
+
+`build_time` times the nvcc build of the kernels' library, parallel
+against one nvcc over all sources.
+"""

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from reverie_tpu.circuit.builders import mul_bench_circuit, z64_mul_bench_circuit
+from .circuit.builders import mul_bench_circuit, z64_mul_bench_circuit
 
 
 #: the cells: the GF(2) main path (1M AND gates) and the Z64 one (50k MULs)

@@ -14,6 +14,9 @@ from reverie_tpu.circuit import CombineOp, Gate, Op
 from reverie_tpu.circuit.builders import mul_bench_circuit, wide_and_circuit
 from reverie_tpu.circuit.compile import compile_program
 from reverie_tpu_torch.backend import executor as tex
+from reverie_tpu_torch.circuit.compile import compile_program as port_compile
+
+from test_torch_prove import carry
 
 R = 24
 
@@ -71,9 +74,10 @@ def _inputs(cc, mode, seed):
 @pytest.mark.parametrize("mode", [tex.PROVER, tex.VERIFY_ONL, tex.VERIFY_PRE])
 @pytest.mark.parametrize("name", list(CIRCUITS))
 def test_executor_matches_jax(name, mode):
-    cc = compile_program(CIRCUITS[name]())
+    prog = CIRCUITS[name]()
+    cc = compile_program(prog)
     inp = _inputs(cc, mode, seed=mode + 10 * len(name))
-    got = tex.Executor(cc, mode, R, torch.device("cpu"))(
+    got = tex.Executor(port_compile(carry(prog)), mode, R, torch.device("cpu"))(
         {k: torch.from_numpy(v) for k, v in inp.items()})
     jinp = {("tape2" if k == "tape" else k): jnp.asarray(v) for k, v in inp.items()}
     want = jtpu.Executor(cc, mode, total_reps=R)(jinp)
@@ -87,7 +91,7 @@ def test_executor_matches_jax(name, mode):
 def test_tables_to_device_lowering():
     """Constant and arithmetic columns lower to slices; only irregular
     columns become device index tensors."""
-    cc = compile_program(wide_and_circuit(40, width=16, seed=2)[0])
+    cc = port_compile(carry(wide_and_circuit(40, width=16, seed=2)[0]))
     meta, tables = tex.tables_to_device(cc, torch.device("cpu"))
     kinds = {m[0] for m in meta.values()}
     assert {"arith", "gather"} <= kinds

@@ -1,7 +1,7 @@
-"""Package-level checks of reverie_tpu_torch: it imports without jax, its
-CPU wrappers take the plain versions without launching a kernel, the CUDA
-path never falls back to the CPU, and (on a CUDA card only) each kernel
-equals its plain version byte for byte."""
+"""Package-level checks of reverie_tpu_torch: it imports without jax and
+without reverie_tpu, its CPU wrappers take the plain versions without
+launching a kernel, the CUDA path never falls back to the CPU, and (on a
+CUDA card only) each kernel equals its plain version byte for byte."""
 
 import os
 import subprocess
@@ -12,7 +12,8 @@ import pytest
 import torch
 
 from reverie_tpu_torch import device as tdevice
-from reverie_tpu_torch.crypto.kernels import aes_tape, aes_tape_z64, blake3 as b3
+from reverie_tpu_torch.crypto.kernels import aes_planes, aes_tape, aes_tape_z64, blake3 as b3
+from reverie_tpu_torch.tools import r4_bwroof, r4_extract_probe, r5_u8emit
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -20,13 +21,14 @@ _NO_JAX = """
 import sys
 sys.modules["jax"] = None
 import reverie_tpu_torch
-import reverie_tpu_torch._build, reverie_tpu_torch.device
+import reverie_tpu_torch._build, reverie_tpu_torch.device, reverie_tpu_torch.parity
 import reverie_tpu_torch.backend.executor, reverie_tpu_torch.backend.host
 import reverie_tpu_torch.crypto.kernels.aes_tape, reverie_tpu_torch.crypto.kernels.blake3
-import reverie_tpu_torch.crypto.kernels.aes_tape_z64
+import reverie_tpu_torch.crypto.kernels.aes_tape_z64, reverie_tpu_torch.crypto.kernels.aes_planes
+import reverie_tpu_torch.tools.r2_measure, reverie_tpu_torch.tools.r4_bwroof
+import reverie_tpu_torch.tools.r5_u8emit, reverie_tpu_torch.tools.r4_extract_probe
 import chip_smoke
-import reverie_tpu.circuit.builders, reverie_tpu.proof, reverie_tpu.crypto
-assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules if sys.modules[m] is not None)
+assert not any(m.split(".")[0] in ("jax", "reverie_tpu") for m in sys.modules if sys.modules[m] is not None)
 print("no-jax import ok")
 """
 
@@ -139,3 +141,67 @@ def test_cuda_wrappers_reject_bad_input(cuda_device):
     buf = torch.zeros((1024, 8), dtype=torch.uint8, device=cuda_device)
     with pytest.raises(ValueError):
         b3.chunk_cvs(buf.t(), 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R, B", [(256, 33), (40, 1), (216, 7)])
+def test_planes_kernel_matches_plain(cuda_device, R, B):
+    keys = np.random.RandomState(R).randint(0, 256, (R, 8, 16), dtype=np.uint8)
+    rk = aes_tape.round_keys(keys, cuda_device)
+    n0 = aes_planes.LAUNCHES
+    got = aes_planes.aes_ctr_planes(rk, B)
+    assert aes_planes.LAUNCHES == n0 + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, aes_planes.aes_ctr_planes_ref(rk, B))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, dtype", [(4099, torch.uint8), (1000, torch.int32),
+                                      (3, torch.int64)])
+def test_copy_kernel_matches_plain(cuda_device, n, dtype):
+    x = r4_bwroof.random_tensor((n, 7), dtype, cuda_device, n)
+    n0 = r4_bwroof.LAUNCHES
+    got = r4_bwroof.copy(x)
+    assert r4_bwroof.LAUNCHES == n0 + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, r4_bwroof.copy_ref(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T, perm", [(64, False), (64, True), (1001, True), (1, False)])
+def test_u8emit_kernel_matches_plain(cuda_device, T, perm):
+    w = r4_bwroof.random_tensor((T, 128), torch.int32, cuda_device, T)
+    n0 = r5_u8emit.LAUNCHES
+    got = r5_u8emit.u32_to_u8_rows(w, perm)
+    assert r5_u8emit.LAUNCHES == n0 + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, r5_u8emit.u32_to_u8_rows_ref(w, perm))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, R", [(1001, 256), (1000, 40), (7, 4), (0, 8)])
+def test_pack_shift_kernel_matches_plain(cuda_device, n, R):
+    x = r4_bwroof.random_tensor((n, R), torch.uint8, cuda_device, n + R)
+    sh = torch.from_numpy(np.random.RandomState(R).randint(0, 9, R).astype(np.uint8)).to(
+        cuda_device)
+    n0 = r4_extract_probe.LAUNCHES
+    got = r4_extract_probe.pack_shift(x, sh)
+    assert r4_extract_probe.LAUNCHES == n0 + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, r4_extract_probe.pack_shift_ref(x, sh))
+
+
+@pytest.mark.cuda
+def test_new_cuda_wrappers_reject_bad_input(cuda_device):
+    with pytest.raises(ValueError):  # not contiguous
+        aes_planes.aes_ctr_planes(torch.zeros(11, 32, 16, dtype=torch.uint8,
+                                              device=cuda_device).transpose(0, 1), 2)
+    x = torch.zeros(64, dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError):  # not 16-byte aligned
+        r4_bwroof.copy(x[1:17])
+    with pytest.raises(ValueError):  # not contiguous
+        r5_u8emit.u32_to_u8_rows(torch.zeros(128, 4, dtype=torch.int32,
+                                             device=cuda_device).t())
+    with pytest.raises(ValueError):  # R % 4 != 0
+        r4_extract_probe.pack_shift(torch.zeros(9, 6, dtype=torch.uint8, device=cuda_device),
+                                    torch.zeros(6, dtype=torch.uint8, device=cuda_device))

@@ -1,7 +1,9 @@
 """The port's GF(2) prove / verify slice (reverie_tpu_torch.TorchKKW on the
 CPU, i.e. through the kernels' plain versions) against reverie_tpu: proof
 bytes equal to TpuKKW (JAX on the CPU) and to the NumPy golden prover, and
-the same verdicts as TpuKKW.verify on good, tampered and malformed proofs."""
+the same verdicts as TpuKKW.verify on good, tampered and malformed proofs.
+Programs built with reverie_tpu's classes reach the port as bincode bytes
+(`carry`), and proofs cross as `to_bytes()` (`as_jax_proof`)."""
 
 import copy
 
@@ -10,7 +12,7 @@ import pytest
 import torch
 
 from reverie_tpu.backend.tpu_host import TpuKKW
-from reverie_tpu.circuit import CombineOp, Gate, Op
+from reverie_tpu.circuit import CombineOp, Gate, Op, dumps_program
 from reverie_tpu.circuit.builders import (
     mixed_b2a_circuit,
     mul_bench_circuit,
@@ -21,8 +23,20 @@ from reverie_tpu.proof import Proof
 from reverie_tpu.proof import prove as golden_prove
 from reverie_tpu.proof import verify as golden_verify
 from reverie_tpu_torch import TorchKKW
+from reverie_tpu_torch.circuit import load_program
+from reverie_tpu_torch.proof import Proof as TProof
 
 CPU = torch.device("cpu")
+
+
+def carry(prog):
+    """A reverie_tpu program as the port's own, through bincode bytes."""
+    return load_program(dumps_program(prog))
+
+
+def as_jax_proof(proof):
+    """A port proof as reverie_tpu's, through its bytes."""
+    return Proof.from_bytes(proof.to_bytes())
 
 
 def seeds256(seed=42):
@@ -39,13 +53,13 @@ CIRCUITS = {
 def test_proof_bytes_match_tpu_and_golden(name):
     prog, wit2, witz = CIRCUITS[name]()
     s = seeds256()
-    port = TorchKKW(prog, device=CPU)
+    port = TorchKKW(carry(prog), device=CPU)
     proof = port.prove(wit2, witz, seeds=s)
     got = proof.to_bytes()
     assert got == golden_prove(prog, wit2, witz, seeds=s.reshape(32, 8, 16)).to_bytes()
     assert got == TpuKKW(prog).prove(wit2, witz, seeds=s).to_bytes()
     assert port.verify(proof) is True
-    assert golden_verify(proof, prog)
+    assert golden_verify(as_jax_proof(proof), prog)
 
 
 def random_gf2_program(seed: int, n_gates: int = 60):
@@ -98,7 +112,7 @@ def test_random_gf2_program(seed):
     prover and verify."""
     prog, wit2, witz = random_gf2_program(seed)
     s = seeds256(seed)
-    port = TorchKKW(prog, device=CPU)
+    port = TorchKKW(carry(prog), device=CPU)
     proof = port.prove(wit2, witz, seeds=s)
     assert proof.to_bytes() == golden_prove(
         prog, wit2, witz, seeds=s.reshape(32, 8, 16)).to_bytes()
@@ -119,7 +133,7 @@ def test_assert_then_overwrite_matches_tpu():
         g(Gate(Op.MUL, dst=7, src1=9, src2=1)), g(Gate(Op.ADDC, dst=15, src1=7, const=0)),
     ]
     s = seeds256(3)
-    port = TorchKKW(prog, device=CPU)
+    port = TorchKKW(carry(prog), device=CPU)
     proof = port.prove([True], [], seeds=s)
     assert proof.to_bytes() == TpuKKW(prog).prove([True], [], seeds=s).to_bytes()
     assert port.verify(proof) is True
@@ -240,7 +254,7 @@ MUTATIONS = {f.__name__[3:]: f for f in (
 @pytest.fixture(scope="module")
 def verifiers():
     prog, wit2, witz = mul_bench_circuit(20)
-    port = TorchKKW(prog, device=CPU)
+    port = TorchKKW(carry(prog), device=CPU)
     proof = port.prove(wit2, witz, seeds=seeds256(7))
     return port, TpuKKW(prog), proof
 
@@ -250,7 +264,7 @@ def test_verdicts_match_tpu(verifiers, mutation):
     port, tpu, proof = verifiers
     bad = copy.deepcopy(proof)
     MUTATIONS[mutation](bad)
-    want = tpu.verify(bad)
+    want = tpu.verify(as_jax_proof(bad))
     got = port.verify(bad)
     assert isinstance(got, bool)
     assert got == bool(want)
@@ -263,9 +277,8 @@ def test_tampered_container_bytes_rejected(verifiers):
     for pos in (5, -1):
         blob = bytearray(proof.to_bytes())
         blob[pos] ^= 1
-        bad = Proof.from_bytes(bytes(blob))
-        assert port.verify(bad) is False
-        assert not tpu.verify(bad)
+        assert port.verify(TProof.from_bytes(bytes(blob))) is False
+        assert not tpu.verify(Proof.from_bytes(bytes(blob)))
 
 
 def test_invalid_witness_raises():
@@ -273,7 +286,7 @@ def test_invalid_witness_raises():
         CombineOp.gf2(Gate(Op.INPUT, dst=0)),
         CombineOp.gf2(Gate(Op.ASSERT_ZERO, src1=0)),
     ]
-    port = TorchKKW(prog, device=CPU)
+    port = TorchKKW(carry(prog), device=CPU)
     with pytest.raises(AssertionError):
         port.prove([True], [], seeds=seeds256())
     assert port.verify(port.prove([False], [], seeds=seeds256())) is True
@@ -297,7 +310,7 @@ def test_z64_b2a_and_deep_circuits_prove(make):
     golden prover on the levelized executor, and verify."""
     prog, wit2, witz = make()
     s = seeds256(11)
-    port = TorchKKW(prog, device=CPU)
+    port = TorchKKW(carry(prog), device=CPU)
     proof = port.prove(wit2, witz, seeds=s)
     assert proof.to_bytes() == golden_prove(
         prog, wit2, witz, seeds=s.reshape(32, 8, 16)).to_bytes()
@@ -307,11 +320,11 @@ def test_z64_b2a_and_deep_circuits_prove(make):
 @pytest.mark.parametrize("method", ["prove_many", "prove_batch",
                                     "prove_batch_chunked", "verify_many"])
 def test_out_of_scope_entry_points_raise(method):
-    port = TorchKKW(mul_bench_circuit(4)[0], device=CPU)
+    port = TorchKKW(carry(mul_bench_circuit(4)[0]), device=CPU)
     with pytest.raises(NotImplementedError, match="item 8"):
         getattr(port, method)([])
 
 
 def test_mesh_raises():
     with pytest.raises(NotImplementedError, match="item 12"):
-        TorchKKW(mul_bench_circuit(4)[0], device=CPU, mesh=object())
+        TorchKKW(carry(mul_bench_circuit(4)[0]), device=CPU, mesh=object())

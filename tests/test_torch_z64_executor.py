@@ -14,6 +14,9 @@ from reverie_tpu.circuit import CombineOp, Gate, Op
 from reverie_tpu.circuit.builders import mixed_b2a_circuit, z64_mul_bench_circuit
 from reverie_tpu.circuit.compile import compile_program
 from reverie_tpu_torch.backend import executor as tex
+from reverie_tpu_torch.circuit.compile import compile_program as port_compile
+
+from test_torch_prove import carry
 
 from test_torch_z64_prove import z64_kinds_circuit
 
@@ -82,9 +85,10 @@ def _jax_inputs(inp):
 @pytest.mark.parametrize("mode", [tex.PROVER, tex.VERIFY_ONL, tex.VERIFY_PRE])
 @pytest.mark.parametrize("name", list(CIRCUITS))
 def test_z64_executor_matches_jax(name, mode):
-    cc = compile_program(CIRCUITS[name]())
+    prog = CIRCUITS[name]()
+    cc = compile_program(prog)
     inp = _inputs(cc, mode, seed=mode + 10 * len(name))
-    got = tex.Executor(cc, mode, R, torch.device("cpu"))(
+    got = tex.Executor(port_compile(carry(prog)), mode, R, torch.device("cpu"))(
         {k: torch.from_numpy(v) for k, v in inp.items()})
     want = jtpu.Executor(cc, mode, total_reps=R)(_jax_inputs(inp))
     for key in ("onl2", "pre2", "onlz", "prez", "fail"):
@@ -97,7 +101,7 @@ def test_z64_executor_matches_jax(name, mode):
 def test_b2a_reads_keep_gf2_values_live():
     """B2A gates read GF(2) values through 'bits' and a z64 value through
     'zr': those writes are live, and the arenas cover the rows read."""
-    cc = compile_program(mixed_b2a_circuit()[0])
+    cc = port_compile(carry(mixed_b2a_circuit()[0]))
     dead = tex._dead_dst_columns(cc)
     bits = set()
     zr = set()

@@ -16,12 +16,12 @@ import torch
 from reverie_tpu.backend.tpu_host import TpuKKW
 from reverie_tpu.circuit import CombineOp, Gate, Op, load_program
 from reverie_tpu.circuit.builders import mixed_b2a_circuit, z64_mul_bench_circuit
-from reverie_tpu.proof import Proof
 from reverie_tpu.proof import prove as golden_prove
 from reverie_tpu_torch import TorchKKW
+from reverie_tpu_torch.proof import Proof as TProof
 
 from test_fuzz_differential import random_program
-from test_torch_prove import MUTATIONS, _flip, seeds256
+from test_torch_prove import MUTATIONS, _flip, as_jax_proof, carry, seeds256
 
 CPU = torch.device("cpu")
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
@@ -79,7 +79,7 @@ SHALLOW = {
 def test_shallow_proof_bytes_match_tpu_and_golden(name):
     prog, wit2, witz = SHALLOW[name]()
     s = seeds256(5)
-    port = TorchKKW(prog, device=CPU)
+    port = TorchKKW(carry(prog), device=CPU)
     assert port.cc.mz > 0
     proof = port.prove(wit2, witz, seeds=s)
     got = proof.to_bytes()
@@ -96,7 +96,7 @@ def test_z64_assert_then_overwrite_matches_tpu():
     prog, wit2, witz = z64_kinds_circuit()
     prog = prog + [CombineOp.z64(Gate(Op.ADD, dst=16, src1=13, src2=12))]
     s = seeds256(5)
-    port = TorchKKW(prog, device=CPU)
+    port = TorchKKW(carry(prog), device=CPU)
     proof = port.prove(wit2, witz, seeds=s)
     assert proof.to_bytes() == TpuKKW(prog).prove(wit2, witz, seeds=s).to_bytes()
     assert port.verify(proof) is True
@@ -111,10 +111,10 @@ def test_golden_b2a_blob_reproduced():
     with open(os.path.join(GOLDEN, "b2a_proof.bin"), "rb") as f:
         blob = f.read()
     _, wit2, witz = mixed_b2a_circuit()
-    port = TorchKKW(prog, device=CPU)
+    port = TorchKKW(carry(prog), device=CPU)
     proof = port.prove(wit2, witz, seeds=seeds)
     assert proof.to_bytes() == blob
-    assert port.verify(Proof.from_bytes(blob)) is True
+    assert port.verify(TProof.from_bytes(blob)) is True
 
 
 @pytest.mark.parametrize("seed, n_gates",
@@ -125,7 +125,7 @@ def test_random_mixed_program_matches_golden(seed, n_gates):
     sweep's."""
     prog, wit2, witz = random_program(seed, n_gates)
     seeds = np.random.RandomState(seed + 1).randint(0, 256, (32, 8, 16), dtype=np.uint8)
-    port = TorchKKW(prog, device=CPU)
+    port = TorchKKW(carry(prog), device=CPU)
     assert port.cc.depth > 128
     proof = port.prove(wit2, witz, seeds=seeds.reshape(256, 16))
     assert proof.to_bytes() == golden_prove(prog, wit2, witz, seeds=seeds).to_bytes()
@@ -135,7 +135,7 @@ def test_random_mixed_program_matches_golden(seed, n_gates):
 def test_invalid_z64_witness_raises():
     prog = [CombineOp.z64(Gate(Op.INPUT, dst=0)),
             CombineOp.z64(Gate(Op.ASSERT_ZERO, src1=0))]
-    port = TorchKKW(prog, device=CPU)
+    port = TorchKKW(carry(prog), device=CPU)
     with pytest.raises(AssertionError, match="invalid"):
         port.prove([], [5], seeds=seeds256())
     with pytest.raises(AssertionError, match="too short"):
@@ -200,7 +200,7 @@ ALL_MUTATIONS = {**MUTATIONS, **{"z64_" + k: f for k, f in Z64_MUTATIONS.items()
 @pytest.fixture(scope="module")
 def mixed_verifiers():
     prog, wit2, witz = mixed_circuit()
-    port = TorchKKW(prog, device=CPU)
+    port = TorchKKW(carry(prog), device=CPU)
     proof = port.prove(wit2, witz, seeds=seeds256(9))
     return port, TpuKKW(prog), proof
 
@@ -210,7 +210,7 @@ def test_mixed_verdicts_match_tpu(mixed_verifiers, mutation):
     port, tpu, proof = mixed_verifiers
     bad = copy.deepcopy(proof)
     ALL_MUTATIONS[mutation](bad)
-    want = tpu.verify(bad)
+    want = tpu.verify(as_jax_proof(bad))
     got = port.verify(bad)
     assert isinstance(got, bool)
     assert got == bool(want)
