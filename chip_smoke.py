@@ -8,13 +8,15 @@ prints no result line:
   1. the card: its name, its name and power limit and its maximum SM clock
      from nvidia-smi;
   2. the build of the CUDA kernels (csrc/*.cu, one nvcc per source in
-     parallel, for sm_90a) and of the host C crypto (native/*.c, gcc),
-     timed;
+     parallel, for sm_90a, with each kernel's registers, spills and static
+     shared memory from ptxas -v) and of the host C crypto (native/*.c,
+     gcc), timed;
   3. each of the seven kernels against its plain PyTorch version on the
      card, byte for byte, with its time, the plain version's, a library
      call's where one computes the same function (all from CUDA events) and
-     its bound: the GF(2) tape, the z64 tape at mz = 100,002 for R = 256,
-     then R = 40 with random omits and R = 216, the BLAKE3 chunks, then the
+     its bound: the GF(2) tape at m2 = 2,000,002 and the z64 tape at
+     mz = 100,002, each at the three legs' R (256, 40 with random omits,
+     216) with its launch plan, the BLAKE3 chunks, then the
      per-column hash against the host C blake3; the keystream planes
      (B = 15,626, 2,048 keys), the copy (512 MB in u8 and in u32), the
      u32 -> u8 emission (T = 1,000,001, both orders) and the pack-shift
@@ -111,51 +113,44 @@ def check(name: str, res: dict, got: torch.Tensor, ref: torch.Tensor, line: str)
         raise AssertionError(f"{name} disagrees with its plain version ({line})")
 
 
-def check_aes(dev, rng, m2: int, clock: float) -> dict:
-    from reverie_tpu_torch.crypto.kernels import aes_tape
+def check_tape(dev, rng, name: str, m: int, clock: float) -> dict:
+    """The GF(2) tape (name aes_tape_gf2, m = m2) or the z64 tape
+    (aes_tape_z64, m = mz) at each leg's R: byte-equal to its plain version,
+    its launch plan, and timed with its bound.  The kernels line takes the
+    prove's R = 256."""
+    from reverie_tpu_torch.crypto.kernels import aes_tape, aes_tape_z64
     from reverie_tpu_torch.roofline import AES_BLOCK_INT_OPS
 
+    gf2 = name == "aes_tape_gf2"
+    mod = aes_tape if gf2 else aes_tape_z64
+    kernel = aes_tape.aes_ctr_tape_gf2 if gf2 else aes_tape_z64.aes_ctr_tape_z64
+    plain = aes_tape.aes_ctr_tape_gf2_ref if gf2 else aes_tape_z64.aes_ctr_tape_z64_ref
     res = {}
     for R in REPS:
         keys = rng.randint(0, 256, (R, 8, 16), dtype=np.uint8)
         rk = aes_tape.round_keys(keys, dev)
         omit = None
         if R == 40:  # the online verifier's shape: one omitted player per rep
-            omit = torch.from_numpy(rng.randint(0, 8, R).astype(np.uint8)).to(dev)
-        line = f"m2={m2} R={R} omit={'random' if omit is not None else 'none'}"
-        check("aes_tape_gf2", res, aes_tape.aes_ctr_tape_gf2(rk, m2, omit),
-              aes_tape.aes_ctr_tape_gf2_ref(rk, m2, omit), line)
-        if R == REPS[0]:
-            set_bound(res, m2 * R + R * 8 * KEY_BYTES + R,
-                      -(-m2 // 128) * R * 8 * AES_BLOCK_INT_OPS, clock)
-            log("kernel", f"aes_tape_gf2 {line} " + timed(
-                res, lambda: aes_tape.aes_ctr_tape_gf2(rk, m2, omit),
-                lambda: aes_tape.aes_ctr_tape_gf2_ref(rk, m2, omit)))
-    return res
-
-
-def check_aes_z64(dev, rng, mz: int, clock: float) -> dict:
-    from reverie_tpu_torch.crypto.kernels import aes_tape, aes_tape_z64
-    from reverie_tpu_torch.roofline import AES_BLOCK_INT_OPS
-
-    res = {}
-    for R in REPS:
-        keys = rng.randint(0, 256, (R, 8, 16), dtype=np.uint8)
-        rk = aes_tape.round_keys(keys, dev)
-        omit = None
-        if R == 40:  # the online verifier's shape, with one rep omitting no player
-            om = rng.randint(0, 9, R).astype(np.uint8)
-            om[0] = 8
+            om = rng.randint(0, 8 if gf2 else 9, R).astype(np.uint8)
+            om[0] = 8  # and one rep omitting none
             omit = torch.from_numpy(om).to(dev)
-        line = f"mz={mz} R={R} omit={'random' if omit is not None else 'none'}"
-        check("aes_tape_z64", res, aes_tape_z64.aes_ctr_tape_z64(rk, mz, omit),
-              aes_tape_z64.aes_ctr_tape_z64_ref(rk, mz, omit), line)
+        line = f"{'m2' if gf2 else 'mz'}={m} R={R} omit={'random' if omit is not None else 'none'}"
+        check(name, res, kernel(rk, m, omit), plain(rk, m, omit), line)
+        log("kernel", f"{name} {line} plan {json.dumps(mod.plan(m, R))}")
+        # the function needs no keystream for an omitted player (its tape bit
+        # or word is 0), so the operations count only the other keys
+        live_keys = 8 * R - (0 if omit is None else int((omit < 8).sum()))
+        case = {}
+        if gf2:
+            set_bound(case, m * R + R * 8 * KEY_BYTES + R,
+                      -(-m // 128) * live_keys * AES_BLOCK_INT_OPS, clock)
+        else:
+            set_bound(case, m * 8 * R * 8 + R * 8 * KEY_BYTES + R,
+                      -(-m // 2) * live_keys * AES_BLOCK_INT_OPS, clock)
+        log("kernel", f"{name} {line} " + timed(
+            case, lambda: kernel(rk, m, omit), lambda: plain(rk, m, omit)))
         if R == REPS[0]:
-            set_bound(res, mz * 8 * R * 8 + R * 8 * KEY_BYTES + R,
-                      -(-mz // 2) * R * 8 * AES_BLOCK_INT_OPS, clock)
-            log("kernel", f"aes_tape_z64 {line} " + timed(
-                res, lambda: aes_tape_z64.aes_ctr_tape_z64(rk, mz, omit),
-                lambda: aes_tape_z64.aes_ctr_tape_z64_ref(rk, mz, omit)))
+            res.update(case)
     return res
 
 
@@ -440,9 +435,8 @@ def main() -> int:
     _build.kernels()
     log("build", f"nvcc {' '.join(_build.NVCC_FLAGS)} "
         f"{[s.name for s in _build.sources()]} seconds={time.perf_counter() - t:.3f}")
-    for line in out.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            log("build", line.strip())
+    for row in _build.ptxas_summary(out):
+        log("build", "ptxas " + json.dumps(row))
     t = time.perf_counter()
     native.build()
     native.get_lib()
@@ -452,8 +446,8 @@ def main() -> int:
     from reverie_tpu_torch.circuit.builders import mul_bench_circuit, z64_mul_bench_circuit
 
     rng = np.random.RandomState(2026)
-    checks = {"aes_tape_gf2": check_aes(dev, rng, M2, clock),
-              "aes_tape_z64": check_aes_z64(dev, rng, MZ, clock),
+    checks = {"aes_tape_gf2": check_tape(dev, rng, "aes_tape_gf2", M2, clock),
+              "aes_tape_z64": check_tape(dev, rng, "aes_tape_z64", MZ, clock),
               "blake3_chunk_cvs": check_blake3(dev, rng, T_STREAM, clock),
               "aes_ctr_planes": check_planes(dev, clock),
               "copy": check_copy(dev, clock),

@@ -13,10 +13,12 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import Dict, List
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -99,10 +101,12 @@ def kernels() -> ctypes.CDLL:
             build()
         lib = ctypes.CDLL(str(LIB_PATH))
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.reverie_aes_tape_gf2.argtypes = [vp, vp, vp, i64, i32, i64, vp]
-        lib.reverie_aes_tape_gf2.restype = i32
-        lib.reverie_aes_tape_z64.argtypes = [vp, vp, vp, i64, i32, i64, vp]
-        lib.reverie_aes_tape_z64.restype = i32
+        for launch in (lib.reverie_aes_tape_gf2, lib.reverie_aes_tape_z64):
+            launch.argtypes = [vp, vp, vp, i64, i32, i64, vp]
+            launch.restype = i32
+        for plan in (lib.reverie_aes_tape_gf2_plan, lib.reverie_aes_tape_z64_plan):
+            plan.argtypes = [i64, i32, vp]
+            plan.restype = i32
         lib.reverie_blake3_chunk_cvs.argtypes = [vp, i32, i64, i64, vp, vp]
         lib.reverie_blake3_chunk_cvs.restype = i32
         lib.reverie_aes_ctr_planes.argtypes = [vp, vp, i64, i32, vp]
@@ -117,6 +121,33 @@ def kernels() -> ctypes.CDLL:
         lib.reverie_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
         return _lib
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_PTXAS_FIELDS = {
+    "registers": re.compile(r"Used (\d+) registers"),
+    "spill_stores": re.compile(r"(\d+) bytes spill stores"),
+    "spill_loads": re.compile(r"(\d+) bytes spill loads"),
+    "smem_static": re.compile(r"(\d+) bytes smem"),
+}
+
+
+def ptxas_summary(log: str) -> List[Dict[str, object]]:
+    """Per kernel of a `build(ptxas_verbose=True)` log: its (mangled) name,
+    registers, spill store and load bytes and static shared memory bytes
+    (dynamic shared memory is set at launch, not here)."""
+    rows: List[Dict[str, object]] = []
+    for line in log.splitlines():
+        entry = _PTXAS_ENTRY.search(line)
+        if entry:
+            rows.append({"kernel": entry.group(1), "registers": None, "spill_stores": 0,
+                         "spill_loads": 0, "smem_static": 0})
+            continue
+        for key, pat in _PTXAS_FIELDS.items():
+            m = pat.search(line)
+            if m and rows:
+                rows[-1][key] = int(m.group(1))
+    return rows
 
 
 def check(rc: int, what: str) -> None:

@@ -14,11 +14,13 @@ player's bit is 0.
 
 `aes_ctr_tape_gf2` is the wrapper: a CPU tensor goes to the plain version
 `aes_ctr_tape_gf2_ref` (textbook byte-oriented AES: S-box lookup,
-ShiftRows, MixColumns), a CUDA tensor launches the kernel.
+ShiftRows, MixColumns), a CUDA tensor launches the kernel.  `plan(m2, R)`
+says how the kernel is launched on the card (persistent grid, run length).
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import numpy as np
@@ -172,6 +174,20 @@ def check_launch_args(name: str, round_keys: torch.Tensor,
     if not 0 <= start_block < 2**63:
         raise ValueError(f"{name}: start_block out of range")
     return omit
+
+
+def launch_plan(entry, m: int, R: int) -> dict:
+    """A tape kernel's launch at tape length m and R reps on the current
+    card (`entry` is its C plan function): dynamic shared bytes, resident
+    thread blocks, counter blocks per work item, grid."""
+    plan = (ctypes.c_longlong * 4)()
+    _build.check(entry(m, R, plan), "tape kernel plan")
+    return dict(zip(("smem_dynamic", "resident_blocks", "run", "grid"), plan))
+
+
+def plan(m2: int, R: int) -> dict:
+    """csrc/aes_tape.cu's launch at (m2, R) on the current card."""
+    return launch_plan(_build.kernels().reverie_aes_tape_gf2_plan, m2, R)
 
 
 def aes_ctr_tape_gf2(round_keys: torch.Tensor, m2: int,

@@ -14,7 +14,8 @@ p == omit[r] (omit 8 = none).  Z_2^64 is native int64, which wraps mod 2^64.
 
 `aes_ctr_tape_z64` is the wrapper: a CPU tensor goes to the plain version
 `aes_ctr_tape_z64_ref` (the textbook AES of aes_tape.py), a CUDA tensor
-launches the kernel.
+launches the kernel.  `plan(mz, R)` says how the kernel is launched on the
+card.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from .aes_tape import (
     _counter_blocks,
     aes_encrypt_ref,
     check_launch_args,
+    launch_plan,
 )
 
 #: kernel launches made by `aes_ctr_tape_z64` (CUDA tensors only)
@@ -63,6 +65,11 @@ def aes_ctr_tape_z64_ref(round_keys: torch.Tensor, mz: int,
         hi = min(lo + 2 * nb, mz)
         out[lo:hi] = words[: hi - lo]
     return out
+
+
+def plan(mz: int, R: int) -> dict:
+    """csrc/aes_tape_z64.cu's launch at (mz, R) on the current card."""
+    return launch_plan(_build.kernels().reverie_aes_tape_z64_plan, mz, R)
 
 
 def aes_ctr_tape_z64(round_keys: torch.Tensor, mz: int,

@@ -1,10 +1,43 @@
-// AES-128 core shared by the AES kernels (aes_tape.cu, aes_tape_z64.cu,
-// aes_planes.cu): the S-box, the T-table build in shared memory, and one
-// CTR block in the T-table form (rijndael-alg-fst).  Big-endian column words
-// in and out (FIPS-197 byte order).
+// AES-128 cores shared by the AES kernels, in the T-table form
+// (rijndael-alg-fst), with big-endian column words in and out (FIPS-197
+// byte order).
+//
+// What bounds T-table AES on the H100: the shared-memory table lookups and
+// the instructions that address them.  A CTR block takes 160 data-dependent
+// lookups.  With one 1 KiB table per thread block, 32 random byte indices
+// fall on ~3.16 shared-memory wavefronts per warp lookup instead of 1 (bank
+// conflicts; a model of it is in tests/test_torch_package.py).  Without
+// conflicts, each lookup still takes one wavefront, and an address computed
+// as a byte extract, a scale and an add costs 2-3 issued instructions: ~1,250
+// per block in all against the 242 ALU instructions of roofline.py, so the
+// kernel becomes issue-bound.
+//
+// Two cores:
+//
+//  * The tape core (aes_tape.cu, aes_tape_z64.cu).  The four T-tables are
+//    replicated once per bank in shared memory (128 KiB), so lane l reads
+//    only copy l, in bank l, and every warp lookup is one wavefront.  Entry
+//    x of lane l's copy sits at byte x * 256 + 4l of its table: one byte
+//    permute of the state word is the whole address (`entry_offset`), the
+//    table is the load's immediate offset, and there are no rotations.
+//    That cuts a block to ~650 issued instructions, as many cycles as its
+//    160 lookups take.  The last round's S-box byte is byte 2 of Te0 (Te0[i]
+//    = (2s, s, s, 3s)), so no S-box table is needed.  A thread holds its
+//    key's 44 round-key words in registers (`load_round_keys`, byte-swapped
+//    once) and runs many counter blocks under it, two at a time for ILP
+//    (`aes_ctr_blocks_x32`), in a persistent grid that builds the tables
+//    once per thread block (`persistent_blocks`, `run_length`).  One table
+//    replicated (32 KiB, Te1..Te3 by rotation) and one counter block at a
+//    time were both slower on the H100 (PERF.md).
+//  * The first core (`build_aes_tables`, `aes_ctr_block`): four 1 KiB
+//    T-tables and an S-box per thread block, round keys read from global
+//    memory per block.  The keystream planes kernel (aes_planes.cu, a
+//    probe's kernel) still runs on it.
 
 #pragma once
 
+#include <algorithm>
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -96,6 +129,150 @@ __device__ __forceinline__ void aes_ctr_block(const uint8_t* rk, uint64_t ctr,
            (sbox[(s0 >> 8) & 0xff] << 8) ^ sbox[s1 & 0xff] ^ k[2];
   out[3] = (sbox[s3 >> 24] << 24) ^ (sbox[(s0 >> 16) & 0xff] << 16) ^
            (sbox[(s1 >> 8) & 0xff] << 8) ^ sbox[s2 & 0xff] ^ k[3];
+}
+
+// -- the tape core ------------------------------------------------------------
+
+constexpr int kIlp = 2;        // counter blocks a thread runs interleaved
+constexpr int kTeCopies = 32;  // one copy per bank
+constexpr size_t kTeBytes = 4 * 256 * kTeCopies * 4;  // 128 KiB: one thread block per SM
+constexpr int kTapeThreads = 512;  // threads per block of the tape kernels: 16 warps per SM
+
+// The four replicated tables, Ten = Te0 rotated right by 8n bits, Te0[i] =
+// (2s, s, s, 3s) for s = S-box[i], copy c of an entry in bank c: two 64 KiB
+// halves of 256-byte entry rows, row i of half h holding Te(h)[i] in words
+// 0..31 and Te(h + 2)[i] in words 32..63, so that the byte offset of lane
+// l's copy of entry x, x * 256 + 4l, is one byte permute of the state word
+// (`entry_offset`), and the table is the load's immediate offset.  The 32
+// lanes of a warp build one entry, so each read of the __constant__ S-box
+// is one broadcast address (blockDim is a multiple of 32).  The caller
+// __syncthreads() before the first lookup.
+__device__ __forceinline__ void build_te_x32(uint32_t* te) {
+  for (int w = threadIdx.x; w < 4 * 256 * kTeCopies; w += blockDim.x) {
+    const int n = (w >> 14) + 2 * ((w >> 5) & 1);
+    const int i = (w >> 6) & 0xff;
+    const uint32_t s = kSbox[i];
+    const uint32_t s2 = ((s << 1) ^ ((s & 0x80) ? 0x1b : 0)) & 0xff;
+    const uint32_t v = (s2 << 24) | (s << 16) | (s << 8) | (s2 ^ s);
+    te[w] = __funnelshift_r(v, v, 8 * n);
+  }
+}
+
+// 11 x 16 round-key bytes -> 44 big-endian column words, kept in registers
+__device__ __forceinline__ void load_round_keys(const uint8_t* rk, uint32_t (&k)[44]) {
+  const uint4* v = reinterpret_cast<const uint4*>(rk);
+#pragma unroll
+  for (int i = 0; i < 11; ++i) {
+    const uint4 q = v[i];
+    k[4 * i] = __byte_perm(q.x, 0, 0x0123);
+    k[4 * i + 1] = __byte_perm(q.y, 0, 0x0123);
+    k[4 * i + 2] = __byte_perm(q.z, 0, 0x0123);
+    k[4 * i + 3] = __byte_perm(q.w, 0, 0x0123);
+  }
+}
+
+// x * 256 + lane4 for x = byte k of s (lane4 = 4 * lane < 256)
+template <int k>
+__device__ __forceinline__ uint32_t entry_offset(uint32_t s, uint32_t lane4) {
+  return __byte_perm(s, lane4, 0x6504 | (k << 4));
+}
+
+// Ten[byte k of s] from lane `lane`'s copy of the tables at `te`
+template <int n, int k>
+__device__ __forceinline__ uint32_t te_at(const uint32_t* te, uint32_t lane, uint32_t s) {
+  constexpr uint32_t table = (n & 1) * 65536 + (n >> 1) * 128;
+  return *reinterpret_cast<const uint32_t*>(reinterpret_cast<const char*>(te) + table +
+                                            entry_offset<k>(s, 4 * lane));
+}
+
+// one column of a middle round: Te0[a >> 24] ^ Te1[b >> 16] ^ Te2[c >> 8] ^
+// Te3[d] (bytes) ^ key
+__device__ __forceinline__ uint32_t round_column(const uint32_t* te, uint32_t lane, uint32_t a,
+                                                 uint32_t b, uint32_t c, uint32_t d, uint32_t key) {
+  return te_at<0, 3>(te, lane, a) ^ te_at<1, 2>(te, lane, b) ^ te_at<2, 1>(te, lane, c) ^
+         te_at<3, 0>(te, lane, d) ^ key;
+}
+
+// one column of the last round: S[a >> 24] S[b >> 16] S[c >> 8] S[d]
+// (bytes 3..0) ^ key, the S-box bytes taken from bytes 2 and 1 of Te0 (both
+// are s)
+__device__ __forceinline__ uint32_t last_column(const uint32_t* te, uint32_t lane, uint32_t a,
+                                                uint32_t b, uint32_t c, uint32_t d, uint32_t key) {
+  const uint32_t hi = __byte_perm(te_at<0, 3>(te, lane, a), te_at<0, 2>(te, lane, b), 0x2600);
+  const uint32_t lo = __byte_perm(te_at<0, 1>(te, lane, c), te_at<0, 0>(te, lane, d), 0x0015);
+  return __byte_perm(hi, lo, 0x3254) ^ key;
+}
+
+// kIlp AES-128 blocks of counters ctr[i] (bytes 0..7 zero, 8..15 big-endian
+// ctr) under the round-key words k, on the replicated tables, their rounds
+// interleaved; out[i] as in aes_ctr_block.  `te` is the tables of
+// build_te_x32, lane the caller's lane.
+__device__ __forceinline__ void aes_ctr_blocks_x32(const uint32_t (&k)[44],
+                                                   const uint64_t (&ctr)[kIlp], const uint32_t* te,
+                                                   uint32_t lane, uint32_t (&out)[kIlp][4]) {
+  uint32_t s[kIlp][4];
+#pragma unroll
+  for (int i = 0; i < kIlp; ++i) {
+    s[i][0] = k[0];
+    s[i][1] = k[1];
+    s[i][2] = static_cast<uint32_t>(ctr[i] >> 32) ^ k[2];
+    s[i][3] = static_cast<uint32_t>(ctr[i]) ^ k[3];
+  }
+#pragma unroll
+  for (int rnd = 1; rnd < 10; ++rnd) {
+#pragma unroll
+    for (int i = 0; i < kIlp; ++i) {
+      const uint32_t t0 = round_column(te, lane, s[i][0], s[i][1], s[i][2], s[i][3], k[4 * rnd]);
+      const uint32_t t1 = round_column(te, lane, s[i][1], s[i][2], s[i][3], s[i][0], k[4 * rnd + 1]);
+      const uint32_t t2 = round_column(te, lane, s[i][2], s[i][3], s[i][0], s[i][1], k[4 * rnd + 2]);
+      const uint32_t t3 = round_column(te, lane, s[i][3], s[i][0], s[i][1], s[i][2], k[4 * rnd + 3]);
+      s[i][0] = t0;
+      s[i][1] = t1;
+      s[i][2] = t2;
+      s[i][3] = t3;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kIlp; ++i) {
+    out[i][0] = last_column(te, lane, s[i][0], s[i][1], s[i][2], s[i][3], k[40]);
+    out[i][1] = last_column(te, lane, s[i][1], s[i][2], s[i][3], s[i][0], k[41]);
+    out[i][2] = last_column(te, lane, s[i][2], s[i][3], s[i][0], s[i][1], k[42]);
+    out[i][3] = last_column(te, lane, s[i][3], s[i][0], s[i][1], s[i][2], k[43]);
+  }
+}
+
+// Thread blocks of `kernel` resident on the whole card at once (SMs x
+// blocks per SM), the size of a persistent grid; also lets the kernel take
+// `smem` bytes of dynamic shared memory.  Worked out once per device and
+// kernel: later calls read the cached count.
+template <auto kernel>
+cudaError_t persistent_blocks(int threads, size_t smem, int* blocks) {
+  constexpr int kMaxDevices = 64;
+  static std::atomic<int> cached[kMaxDevices];  // 0: not yet known
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < kMaxDevices && (*blocks = cached[dev].load()) > 0) return cudaSuccess;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  }
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  }
+  *blocks = sms * std::max(per_sm, 1);
+  if (e == cudaSuccess && dev < kMaxDevices) cached[dev].store(*blocks);
+  return e;
+}
+
+// Counter blocks per work item when `units` key groups share `n_blocks`
+// counter blocks among `slots` resident workers: about 4 items per worker,
+// so that the last round of items is short.
+inline long long run_length(long long n_blocks, long long units, long long slots) {
+  const long long target = 4 * slots;
+  const long long run = (n_blocks * units + target - 1) / target;
+  return std::min(std::max(run, 1LL), std::max(n_blocks, 1LL));
 }
 
 }  // namespace

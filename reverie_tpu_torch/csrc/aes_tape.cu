@@ -11,22 +11,31 @@
 //   the omitted player's bit is 0.  The CTR block is a big-endian 128-bit
 //   counter with a zero IV.
 //
-// What bounds it on the H100: the AES rounds, not memory.  The main path's
-// tape (m2 = 2,000,002, R = 256) is 512 MB of stores, 0.15 ms at 3.35 TB/s,
-// but 15,626 x 2,048 = 32M AES blocks at 160 table lookups each, i.e. 5.1G
-// shared-memory lookups with data-dependent bank conflicts, plus 512M
-// one-byte stores issued through the load/store units.
+// What bounds it on the H100: the AES table lookups.  The main path's tape
+// (m2 = 2,000,002, R = 256) is 512 MB of stores, 0.15 ms at 3.35 TB/s, and
+// 15,626 x 2,048 = 32M AES blocks: 242 ALU instructions each (0.46 ms,
+// roofline.py) and 160 shared-memory lookups, 160M warp lookups, 0.61 ms at
+// one wavefront per clock per SM if no lookup meets a bank conflict (one
+// shared 1 KiB table costs ~3.16 wavefronts a lookup).
 //
-// What the design does about it: one thread per (counter block, repetition),
-// neighbouring threads on neighbouring repetitions.  AES uses the four
-// 1 KiB T-tables (S-box and MixColumns folded together) built in shared
-// memory per block, so a round is 16 lookups and 16 XORs (aes_core.cuh,
-// shared with the z64 tape kernel).  The 8 players'
-// keystream stays in 32 registers; each of the 16 byte positions becomes 8
-// tape bytes through one 8x8 bit transpose of a 64-bit word.  Each tape row
-// store is 32 neighbouring bytes per warp, so the stores coalesce.  Ragged
-// final blocks are masked at row m2.  Bitslicing (the TPU design) and
-// wider stores are later work.
+// What the design does about it: the tape core of aes_core.cuh (the four
+// T-tables replicated once per bank, one byte permute per lookup address,
+// round keys in registers, two counter blocks at a time, a persistent grid
+// that builds the tables once per thread block).  A thread block of kThreads
+// keys takes kThreads / 8 reps and a run of counter blocks.  Lane m of warp
+// w holds player 7 - (m & 7) of rep r0 + 4w + (m >> 3), so that bit m of a
+// 32-bit word is bit (7-p) of rep (m >> 3)'s tape byte.  Per counter block,
+// each lane's 128 keystream bits (bit-reversed column words: bit c of word
+// q is tape slot 32q + c) go through a 32 x 32 bit transpose across the warp
+// (5 shuffle stages on 4 words, where one ballot per bit would take 128
+// ballots and selects), after which lane l holds, for slots 32q + l, the 4
+// tape bytes of the warp's 4 reps.  The warps stage their words in shared
+// memory, so that each tape row's bytes of the block's reps leave as one
+// contiguous segment: a warp's 4-byte stores cover whole row segments.  R
+// not a multiple of 4 stores bytes; lanes past R vote zero; a ragged m2 is
+// masked at row m2.  On an H100 it runs at ~1.0 ms against the lookups'
+// 0.61 ms: the shuffles share the lookups' pipe, and a block barrier per
+// counter block holds the warps together (PERF.md).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -35,63 +44,103 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = kTapeThreads;          // kThreads / 8 reps per block
+constexpr int kReps = kThreads / 8;
+constexpr int kWarps = kThreads / 32;             // 4-byte words of a staged row
+constexpr int kSlots = 128;                       // tape slots per counter block
+constexpr int kStageStride = kWarps + 1;          // odd: a warp's column stores hit 32 banks
+constexpr int kStageWords = kSlots * kStageStride;
+constexpr size_t kSmemBytes = kTeBytes + 2 * kStageWords * 4;  // tables, 2 stages
 
-// 8x8 bit-matrix transpose; row i is byte (7-i) of x (the top byte is row
-// 0), column c is bit (7-c) of a row byte (Hacker's Delight 7-3).
-__device__ __forceinline__ uint64_t transpose8x8(uint64_t x) {
-  uint64_t t;
-  t = (x ^ (x >> 7)) & 0x00AA00AA00AA00AAull;
-  x = x ^ t ^ (t << 7);
-  t = (x ^ (x >> 14)) & 0x0000CCCC0000CCCCull;
-  x = x ^ t ^ (t << 14);
-  t = (x ^ (x >> 28)) & 0x00000000F0F0F0F0ull;
-  x = x ^ t ^ (t << 28);
+// 32 x 32 bit transpose across the warp: on return bit m of lane l's word
+// is bit l of lane m's word on entry.
+__device__ __forceinline__ uint32_t warp_transpose32(uint32_t x, int lane) {
+#pragma unroll
+  for (int j = 16; j > 0; j >>= 1) {
+    // the low j bits of every 2j-bit group
+    const uint32_t m = j == 16 ? 0x0000FFFFu : j == 8 ? 0x00FF00FFu : j == 4 ? 0x0F0F0F0Fu
+                     : j == 2 ? 0x33333333u : 0x55555555u;
+    const uint32_t y = __shfl_xor_sync(0xffffffffu, x, j);
+    x = (lane & j) ? ((x & ~m) | ((y >> j) & m)) : ((x & m) | ((y << j) & ~m));
+  }
   return x;
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 aes_tape_gf2_kernel(const uint8_t* __restrict__ round_keys,  // (R*8, 11, 16)
                     const uint8_t* __restrict__ omit,        // (R,), 8 = none
                     uint8_t* __restrict__ out,               // (m2, R)
-                    long long m2, int R, long long n_blocks,
+                    long long m2, int R, long long n_blocks, long long run,
                     unsigned long long start_block) {
-  __shared__ uint32_t te[4][256];
-  __shared__ uint32_t sbox[256];
-  build_aes_tables(te, sbox);
+  extern __shared__ uint32_t smem[];
+  uint32_t* te = smem;
+  uint32_t* stage = smem + kTeBytes / 4;
+  build_te_x32(te);
   __syncthreads();
 
-  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= n_blocks * R) return;
-  const long long b = idx / R;
-  const int r = static_cast<int>(idx - b * R);
-  const uint64_t ctr = start_block + static_cast<uint64_t>(b);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long n_groups = (R + kReps - 1) / kReps;
+  const long long n_items = (n_blocks + run - 1) / run * n_groups;
+  const bool words = (R & 3) == 0;
+  int buf = 0;
 
-  uint32_t ks[8][4];
-#pragma unroll
-  for (int p = 0; p < 8; ++p) {
-    aes_ctr_block(round_keys + (static_cast<size_t>(r) * 8 + p) * 176, ctr, te,
-                  sbox, ks[p]);
-  }
-  const int om = omit[r];
-  const uint8_t keep = om < 8 ? static_cast<uint8_t>(~(0x80u >> om)) : 0xff;
-
-  uint8_t* col = out + r;
-  const long long row0 = b * 128;
-#pragma unroll
-  for (int by = 0; by < 16; ++by) {
-    const int sh = 24 - 8 * (by & 3);
-    uint64_t x = 0;
-#pragma unroll
-    for (int p = 0; p < 8; ++p) {
-      x |= static_cast<uint64_t>((ks[p][by >> 2] >> sh) & 0xff) << (8 * (7 - p));
+  // items are uniform across the thread block, so the __syncthreads below are
+  for (long long item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const long long run_i = item / n_groups;
+    const int r0 = static_cast<int>(item - run_i * n_groups) * kReps;
+    const bool warp_live = r0 + 4 * warp < R;  // uniform across the warp
+    const int r = r0 + 4 * warp + (lane >> 3);
+    const int p = 7 - (lane & 7);
+    uint32_t k[44];
+    uint32_t keep = 0;
+    if (warp_live) {
+      const int rc = r < R ? r : R - 1;  // lanes past R run a valid key, vote 0
+      load_round_keys(round_keys + (static_cast<size_t>(rc) * 8 + p) * 176, k);
+      keep = r < R && omit[r] != p ? 0xffffffffu : 0u;
     }
-    x = transpose8x8(x);
+
+    const long long b0 = run_i * run;
+    const long long b1 = b0 + run < n_blocks ? b0 + run : n_blocks;
+    for (long long b = b0; b < b1; b += kIlp) {
+      uint32_t ks[kIlp][4];
+      if (warp_live) {
+        uint64_t ctr[kIlp];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const long long row = row0 + by * 8 + j;
-      if (row < m2) {
-        col[row * R] = static_cast<uint8_t>(x >> (8 * (7 - j))) & keep;
+        for (int i = 0; i < kIlp; ++i) ctr[i] = start_block + static_cast<unsigned long long>(b + i);
+        aes_ctr_blocks_x32(k, ctr, te, lane, ks);
+      }
+#pragma unroll
+      for (int i = 0; i < kIlp; ++i) {
+        if (b + i >= b1) break;  // uniform across the thread block
+        uint32_t* st = stage + buf * kStageWords;
+        if (warp_live) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            // bit c of brev(ks[q]) is bit (7 - c%8) of keystream byte 4q + c/8: slot 32q + c
+            st[(q * 32 + lane) * kStageStride + warp] =
+                warp_transpose32(__brev(ks[i][q] & keep), lane);
+          }
+        }
+        __syncthreads();
+        // tape rows (b+i)*128 .. +127, the block's reps: kWarps words a row, 32 rows a pass
+        const int w = threadIdx.x % kWarps;
+        const int rr = r0 + 4 * w;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int slot = q * 32 + threadIdx.x / kWarps;
+          const long long s = (b + i) * kSlots + slot;
+          if (s < m2 && rr < R) {
+            const uint32_t v = st[slot * kStageStride + w];
+            uint8_t* dst = out + s * R + rr;
+            if (words) {
+              *reinterpret_cast<uint32_t*>(dst) = v;
+            } else {
+              for (int e = 0; e < 4 && rr + e < R; ++e) dst[e] = static_cast<uint8_t>(v >> (8 * e));
+            }
+          }
+        }
+        buf ^= 1;  // the next block writes the other stage; this one is read before its barrier
       }
     }
   }
@@ -99,16 +148,31 @@ aes_tape_gf2_kernel(const uint8_t* __restrict__ round_keys,  // (R*8, 11, 16)
 
 }  // namespace
 
+// The launch at (m2, R): plan = {dynamic shared bytes, resident thread
+// blocks on the card, counter blocks per work item, grid}.
+extern "C" int reverie_aes_tape_gf2_plan(long long m2, int R, long long* plan) {
+  const long long n_blocks = (m2 + kSlots - 1) / kSlots;
+  int slots = 0;
+  const cudaError_t e = persistent_blocks<aes_tape_gf2_kernel>(kThreads, kSmemBytes, &slots);
+  const long long n_groups = (R + kReps - 1) / kReps;
+  const long long run = run_length(n_blocks, n_groups, slots);
+  plan[0] = static_cast<long long>(kSmemBytes);
+  plan[1] = slots;
+  plan[2] = run;
+  plan[3] = std::min<long long>(slots, (n_blocks + run - 1) / run * n_groups);
+  return static_cast<int>(e);
+}
+
 extern "C" int reverie_aes_tape_gf2(const void* round_keys, const void* omit,
                                     void* out, long long m2, int R,
                                     long long start_block, void* stream) {
-  const long long n_blocks = (m2 + 127) / 128;
-  const long long n_threads = n_blocks * R;
-  const long long grid = (n_threads + kThreads - 1) / kThreads;
-  aes_tape_gf2_kernel<<<static_cast<unsigned int>(grid), kThreads, 0,
+  long long plan[4];
+  const int e = reverie_aes_tape_gf2_plan(m2, R, plan);
+  if (e != 0) return e;
+  aes_tape_gf2_kernel<<<static_cast<unsigned int>(plan[3]), kThreads, kSmemBytes,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(round_keys), static_cast<const uint8_t*>(omit),
-      static_cast<uint8_t*>(out), m2, R, n_blocks,
+      static_cast<uint8_t*>(out), m2, R, (m2 + kSlots - 1) / kSlots, plan[2],
       static_cast<unsigned long long>(start_block));
   return static_cast<int>(cudaGetLastError());
 }

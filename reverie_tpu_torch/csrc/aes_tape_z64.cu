@@ -12,18 +12,24 @@
 //   p == omit[r] (omit 8 = no player omitted).  The CTR block is a
 //   big-endian 128-bit counter with a zero IV.
 //
-// What bounds it on the H100: the AES rounds, as for aes_tape.cu.  The main
-// path's tape (mz = 100,002, R = 256) is 1.64 GB of stores, 0.5 ms at
-// 3.35 TB/s, but 50,001 x 2,048 = 102M AES blocks at 160 table lookups each.
+// What bounds it on the H100: the AES table lookups.  The main path's tape
+// (mz = 100,002, R = 256) is 1.64 GB of stores, 0.5 ms at 3.35 TB/s, and
+// 50,001 x 2,048 = 102M AES blocks: 242 ALU instructions each (1.48 ms on
+// the INT32 lanes, roofline.py) and 160 shared-memory lookups, 512M warp
+// lookups, 1.96 ms at one wavefront per clock per SM if no lookup meets a
+// bank conflict (one shared 1 KiB table costs ~3.16 wavefronts a lookup).
 //
-// What the design does about it: one thread per (counter block b, player p,
-// repetition r), r fastest, running the T-table AES of aes_core.cuh with its
-// tables in shared memory.  A warp's 32 threads then hold 32 neighbouring
-// int64 of one (m, p) row and each of its two stores is one 256-byte
-// coalesced write.  The 16 keystream bytes become the two words by byte
-// swaps of the big-endian column words.  Only ceil(mz/2) blocks run; the
-// second word of the last block is masked at row mz when mz is odd.
-// Bitslicing and wider stores are later work.
+// What the design does about it: the tape core of aes_core.cuh (the four
+// T-tables replicated once per bank, one byte permute per lookup address,
+// round keys in registers, two counter blocks at a time, a persistent grid
+// that builds the tables once per thread block and walks (key warp, counter
+// run) work items).  The 8R keys are numbered j = p*R + r, the order of a
+// tape row, and a warp's 32 lanes take 32 consecutive j: each of a block's
+// two 8-byte stores is one 256-byte coalesced row segment, and every R
+// fills all but the last warp.  An omitted player's lane stores zeros and
+// skips the AES.  The second word of the last block is masked at row mz
+// when mz is odd.  On an H100 it runs at ~2.0 ms, at the lookups' 1.96 ms
+// (PERF.md).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -32,7 +38,8 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = kTapeThreads;
+constexpr int kWarps = kThreads / 32;
 
 // two big-endian column words (keystream bytes 4c..4c+7) -> the
 // little-endian u64 of those 8 bytes
@@ -41,52 +48,84 @@ __device__ __forceinline__ unsigned long long le_word(uint32_t c0, uint32_t c1) 
          (static_cast<unsigned long long>(__byte_perm(c1, 0, 0x0123)) << 32);
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 aes_tape_z64_kernel(const uint8_t* __restrict__ round_keys,  // (R*8, 11, 16)
                     const uint8_t* __restrict__ omit,        // (R,), 8 = none
                     unsigned long long* __restrict__ out,    // (mz, 8, R)
-                    long long mz, int R, long long n_blocks,
+                    long long mz, int R, long long n_blocks, long long run,
                     unsigned long long start_block) {
-  __shared__ uint32_t te[4][256];
-  __shared__ uint32_t sbox[256];
-  build_aes_tables(te, sbox);
+  extern __shared__ uint32_t te[];
+  build_te_x32(te);
   __syncthreads();
 
-  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= n_blocks * 8 * R) return;
-  const long long bp = idx / R;  // b * 8 + p
-  const int r = static_cast<int>(idx - bp * R);
-  const int p = static_cast<int>(bp & 7);
-  const long long b = bp >> 3;
+  const int lane = threadIdx.x & 31;
+  const int n_keys = 8 * R;
+  const long long n_kw = (n_keys + 31) / 32;
+  const long long n_items = (n_blocks + run - 1) / run * n_kw;
+  const size_t row = static_cast<size_t>(n_keys);  // one tape row: (8, R) words
 
-  unsigned long long w0 = 0, w1 = 0;
-  if (omit[r] != p) {
-    uint32_t ks[4];
-    aes_ctr_block(round_keys + (static_cast<size_t>(r) * 8 + p) * 176,
-                  start_block + static_cast<unsigned long long>(b), te, sbox, ks);
-    w0 = le_word(ks[0], ks[1]);
-    w1 = le_word(ks[2], ks[3]);
+  for (long long item = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+       item < n_items; item += static_cast<long long>(gridDim.x) * kWarps) {
+    const long long run_i = item / n_kw;
+    const int j = static_cast<int>(item - run_i * n_kw) * 32 + lane;  // p*R + r
+    if (j >= n_keys) continue;
+    const int p = j / R;
+    const int r = j - p * R;
+    const bool live = omit[r] != p;
+    uint32_t k[44];
+    load_round_keys(round_keys + (static_cast<size_t>(r) * 8 + p) * 176, k);
+
+    const long long b0 = run_i * run;
+    const long long b1 = b0 + run < n_blocks ? b0 + run : n_blocks;
+    for (long long b = b0; b < b1; b += kIlp) {
+      uint32_t ks[kIlp][4] = {};
+      if (live) {
+        uint64_t ctr[kIlp];
+#pragma unroll
+        for (int i = 0; i < kIlp; ++i) ctr[i] = start_block + static_cast<unsigned long long>(b + i);
+        aes_ctr_blocks_x32(k, ctr, te, lane, ks);
+      }
+#pragma unroll
+      for (int i = 0; i < kIlp; ++i) {
+        const long long m = 2 * (b + i);  // tape rows m, m + 1
+        if (b + i < b1) {
+          unsigned long long* dst = out + static_cast<size_t>(m) * row + j;
+          dst[0] = le_word(ks[i][0], ks[i][1]);
+          if (m + 1 < mz) dst[row] = le_word(ks[i][2], ks[i][3]);
+        }
+      }
+    }
   }
-  const long long row = 2 * b;  // word 2b, then 2b + 1
-  const size_t stride = static_cast<size_t>(8) * R;
-  unsigned long long* dst = out + static_cast<size_t>(row) * stride +
-                            static_cast<size_t>(p) * R + r;
-  dst[0] = w0;
-  if (row + 1 < mz) dst[stride] = w1;
 }
 
 }  // namespace
 
+// The launch at (mz, R): plan = {dynamic shared bytes, resident thread
+// blocks on the card, counter blocks per work item, grid}.
+extern "C" int reverie_aes_tape_z64_plan(long long mz, int R, long long* plan) {
+  const long long n_blocks = (mz + 1) / 2;
+  int slots = 0;
+  const cudaError_t e = persistent_blocks<aes_tape_z64_kernel>(kThreads, kTeBytes, &slots);
+  const long long n_kw = (8LL * R + 31) / 32;
+  const long long run = run_length(n_blocks, n_kw, static_cast<long long>(slots) * kWarps);
+  const long long n_warps = (n_blocks + run - 1) / run * n_kw;
+  plan[0] = static_cast<long long>(kTeBytes);
+  plan[1] = slots;
+  plan[2] = run;
+  plan[3] = std::min<long long>(slots, (n_warps + kWarps - 1) / kWarps);
+  return static_cast<int>(e);
+}
+
 extern "C" int reverie_aes_tape_z64(const void* round_keys, const void* omit,
                                     void* out, long long mz, int R,
                                     long long start_block, void* stream) {
-  const long long n_blocks = (mz + 1) / 2;
-  const long long n_threads = n_blocks * 8 * R;
-  const long long grid = (n_threads + kThreads - 1) / kThreads;
-  aes_tape_z64_kernel<<<static_cast<unsigned int>(grid), kThreads, 0,
+  long long plan[4];
+  const int e = reverie_aes_tape_z64_plan(mz, R, plan);
+  if (e != 0) return e;
+  aes_tape_z64_kernel<<<static_cast<unsigned int>(plan[3]), kThreads, kTeBytes,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(round_keys), static_cast<const uint8_t*>(omit),
-      static_cast<unsigned long long*>(out), mz, R, n_blocks,
+      static_cast<unsigned long long*>(out), mz, R, (mz + 1) / 2, plan[2],
       static_cast<unsigned long long>(start_block));
   return static_cast<int>(cudaGetLastError());
 }

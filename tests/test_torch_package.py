@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from reverie_tpu_torch import device as tdevice
+from reverie_tpu_torch import _build, device as tdevice
 from reverie_tpu_torch.crypto.kernels import aes_planes, aes_tape, aes_tape_z64, blake3 as b3
 from reverie_tpu_torch.tools import r4_bwroof, r4_extract_probe, r5_u8emit
 
@@ -66,6 +66,45 @@ def test_default_device_needs_cuda(monkeypatch):
         tdevice.default_device()
 
 
+def test_ptxas_summary_reads_each_kernel():
+    log = "\n".join([
+        "ptxas info    : 0 bytes gmem",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_16kernAEv' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_16kernAEv",
+        "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 80 registers, used 1 barriers, 420 bytes cmem[0]",
+        "ptxas info    : Compiling entry function '_Z5kernBv' for 'sm_90a'",
+        "ptxas info    : Used 30 registers, used 1 barriers, 5120 bytes smem, 400 bytes cmem[0]",
+    ])
+    assert _build.ptxas_summary(log) == [
+        {"kernel": "_ZN12_GLOBAL__N_16kernAEv", "registers": 80, "spill_stores": 8,
+         "spill_loads": 4, "smem_static": 0},
+        {"kernel": "_Z5kernBv", "registers": 30, "spill_stores": 0, "spill_loads": 0,
+         "smem_static": 5120}]
+
+
+def lookup_wavefronts(copies: int, trials: int = 20_000, seed: int = 0) -> float:
+    """Mean shared-memory wavefronts of one warp lookup into a 256-word
+    table held `copies` times (entry x of copy c at word x * copies + c,
+    lane l reading copy l % copies), for uniform random byte indices: the
+    most distinct words any of the 32 banks is asked for (equal words are
+    one broadcast).  A model of the T-table AES kernels' lookups, not a
+    measurement."""
+    rng = np.random.RandomState(seed)
+    words = rng.randint(0, 256, (trials, 32)) * copies + np.arange(32) % copies
+    per_bank = np.zeros((trials, 32), dtype=np.int64)
+    for t, row in enumerate(words):
+        np.add.at(per_bank[t], np.unique(row) % 32, 1)
+    return float(per_bank.max(axis=1).mean())
+
+
+def test_lookup_wavefronts_model():
+    # one table: ~3.16 wavefronts per warp lookup; a copy per bank: 1
+    assert 3.1 < lookup_wavefronts(1) < 3.2
+    assert lookup_wavefronts(16) == pytest.approx(2.0, abs=1e-3)
+    assert lookup_wavefronts(32) == 1.0
+
+
 def test_chip_smoke_fails_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA card")
@@ -84,34 +123,44 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _tape_inputs(seed, R, omit_kind, device):
+    """Round keys of R random reps and an omit vector: None, "random" (0-8)
+    or "every" (rep r omits r % 9, so every value 0-8 occurs)."""
+    rng = np.random.RandomState(seed)
+    rk = aes_tape.round_keys(rng.randint(0, 256, (R, 8, 16), dtype=np.uint8), device)
+    om = {None: None, "random": rng.randint(0, 9, R), "every": np.arange(R) % 9}[omit_kind]
+    return rk, None if om is None else torch.from_numpy(om.astype(np.uint8)).to(device)
+
+
+# the legs' R; R = 3 and 37 leave lanes of a warp (and of a 4-rep word) past
+# R; m = 1 and small ragged m are shorter than one thread's run of counter
+# blocks; start 2**32 - 2 puts the 32-bit carry of the counter inside a run
+TAPE_CASES = [(256, 1000, None, 3), (40, 4097, "random", 3), (216, 129, None, 3),
+              (3, 301, None, 3), (37, 1001, "random", 3), (40, 999, "every", 3),
+              (8, 1, "random", 3), (64, 50_001, None, 2**32 - 2),
+              (256, 7, "random", 2**32 - 2)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("R, m2, with_omit", [(256, 1000, False), (40, 4097, True),
-                                              (216, 129, False)])
-def test_aes_kernel_matches_plain(cuda_device, R, m2, with_omit):
-    rng = np.random.RandomState(R)
-    rk = aes_tape.round_keys(rng.randint(0, 256, (R, 8, 16), dtype=np.uint8), cuda_device)
-    omit = (torch.from_numpy(rng.randint(0, 9, R).astype(np.uint8)).to(cuda_device)
-            if with_omit else None)
+@pytest.mark.parametrize("R, m2, omit_kind, start", TAPE_CASES)
+def test_aes_kernel_matches_plain(cuda_device, R, m2, omit_kind, start):
+    rk, omit = _tape_inputs(R, R, omit_kind, cuda_device)
     n0 = aes_tape.LAUNCHES
-    got = aes_tape.aes_ctr_tape_gf2(rk, m2, omit, start_block=3)
+    got = aes_tape.aes_ctr_tape_gf2(rk, m2, omit, start_block=start)
     assert aes_tape.LAUNCHES == n0 + 1
     torch.cuda.synchronize()
-    assert torch.equal(got, aes_tape.aes_ctr_tape_gf2_ref(rk, m2, omit, start_block=3))
+    assert torch.equal(got, aes_tape.aes_ctr_tape_gf2_ref(rk, m2, omit, start_block=start))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("R, mz, with_omit", [(256, 1000, False), (40, 4097, True),
-                                              (216, 1, True)])
-def test_aes_z64_kernel_matches_plain(cuda_device, R, mz, with_omit):
-    rng = np.random.RandomState(R + 1)
-    rk = aes_tape.round_keys(rng.randint(0, 256, (R, 8, 16), dtype=np.uint8), cuda_device)
-    omit = (torch.from_numpy(rng.randint(0, 9, R).astype(np.uint8)).to(cuda_device)
-            if with_omit else None)
+@pytest.mark.parametrize("R, mz, omit_kind, start", TAPE_CASES)
+def test_aes_z64_kernel_matches_plain(cuda_device, R, mz, omit_kind, start):
+    rk, omit = _tape_inputs(R + 1, R, omit_kind, cuda_device)
     n0 = aes_tape_z64.LAUNCHES
-    got = aes_tape_z64.aes_ctr_tape_z64(rk, mz, omit, start_block=5)
+    got = aes_tape_z64.aes_ctr_tape_z64(rk, mz, omit, start_block=start)
     assert aes_tape_z64.LAUNCHES == n0 + 1
     torch.cuda.synchronize()
-    assert torch.equal(got, aes_tape_z64.aes_ctr_tape_z64_ref(rk, mz, omit, start_block=5))
+    assert torch.equal(got, aes_tape_z64.aes_ctr_tape_z64_ref(rk, mz, omit, start_block=start))
 
 
 @pytest.mark.cuda
