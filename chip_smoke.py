@@ -18,9 +18,9 @@ prints no result line:
      mz = 100,002, each at the three legs' R (256, 40 with random omits,
      216) with its launch plan, the BLAKE3 chunks, then the
      per-column hash against the host C blake3; the keystream planes
-     (B = 15,626, 2,048 keys), the copy (512 MB in u8 and in u32), the
-     u32 -> u8 emission (T = 1,000,001, both orders) and the pack-shift
-     (1,000,002 x 256, random shifts);
+     (B = 15,626, 2,048 keys) with its launch plan, the copy (512 MB in
+     u8 and in u32), the u32 -> u8 emission (T = 1,000,001, both orders)
+     and the pack-shift (1,000,002 x 256, random shifts);
   4. the GF(2) main path: TorchKKW(mul_bench_circuit(1_000_000)).prove,
      then .verify (True), and a proof with one flipped byte in a GF(2)
      online opening (False), with the kernels' launch counts of that run;
@@ -194,6 +194,7 @@ def check_planes(dev, clock: float) -> dict:
     line = f"B={B} keys={K}"
     check("aes_ctr_planes", res, aes_planes.aes_ctr_planes(rk, B),
           aes_planes.aes_ctr_planes_ref(rk, B), line)
+    log("kernel", f"aes_ctr_planes {line} plan {json.dumps(aes_planes.plan(B, K // 32))}")
     set_bound(res, 16 * 8 * B * (K // 32) * 4 + K * KEY_BYTES,
               B * K * AES_BLOCK_INT_OPS, clock)
     log("kernel", f"aes_ctr_planes {line} " + timed(

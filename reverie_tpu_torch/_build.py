@@ -104,7 +104,8 @@ def kernels() -> ctypes.CDLL:
         for launch in (lib.reverie_aes_tape_gf2, lib.reverie_aes_tape_z64):
             launch.argtypes = [vp, vp, vp, i64, i32, i64, vp]
             launch.restype = i32
-        for plan in (lib.reverie_aes_tape_gf2_plan, lib.reverie_aes_tape_z64_plan):
+        for plan in (lib.reverie_aes_tape_gf2_plan, lib.reverie_aes_tape_z64_plan,
+                     lib.reverie_aes_ctr_planes_plan):
             plan.argtypes = [i64, i32, vp]
             plan.restype = i32
         lib.reverie_blake3_chunk_cvs.argtypes = [vp, i32, i64, i64, vp, vp]

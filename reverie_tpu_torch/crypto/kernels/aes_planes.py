@@ -14,7 +14,8 @@ counter with block index b.
 
 `aes_ctr_planes` is the wrapper: a CPU tensor goes to the plain version
 `aes_ctr_planes_ref` (the textbook AES of aes_tape.py), a CUDA tensor
-launches the kernel.
+launches the kernel.  `plan(B, Kw)` says how the kernel is launched on the
+card (persistent grid, run length).
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from ... import _build
-from .aes_tape import _counter_blocks, aes_encrypt_ref
+from .aes_tape import _counter_blocks, aes_encrypt_ref, launch_plan
 
 #: kernel launches made by `aes_ctr_planes` (CUDA tensors only)
 LAUNCHES = 0
@@ -50,6 +51,11 @@ def aes_ctr_planes_ref(round_keys: torch.Tensor, n_blocks: int) -> torch.Tensor:
         words = torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
         out[:, :, b0 : b0 + nb] = words.permute(2, 3, 1, 0)  # (16, 8, nb, Kw)
     return out
+
+
+def plan(n_blocks: int, Kw: int) -> dict:
+    """csrc/aes_planes.cu's launch at (B, Kw) on the current card."""
+    return launch_plan(_build.kernels().reverie_aes_ctr_planes_plan, n_blocks, Kw)
 
 
 def aes_ctr_planes(round_keys: torch.Tensor, n_blocks: int) -> torch.Tensor:

@@ -177,11 +177,12 @@ def check_launch_args(name: str, round_keys: torch.Tensor,
 
 
 def launch_plan(entry, m: int, R: int) -> dict:
-    """A tape kernel's launch at tape length m and R reps on the current
-    card (`entry` is its C plan function): dynamic shared bytes, resident
-    thread blocks, counter blocks per work item, grid."""
+    """An AES kernel's launch on the current card at tape length m and R
+    reps (the planes kernel: B counter blocks and Kw plane words), `entry`
+    its C plan function: dynamic shared bytes, resident thread blocks,
+    counter blocks per work item, grid."""
     plan = (ctypes.c_longlong * 4)()
-    _build.check(entry(m, R, plan), "tape kernel plan")
+    _build.check(entry(m, R, plan), "AES kernel plan")
     return dict(zip(("smem_dynamic", "resident_blocks", "run", "grid"), plan))
 
 

@@ -1,4 +1,4 @@
-// AES-128 cores shared by the AES kernels, in the T-table form
+// The AES-128 core shared by the AES kernels, in the T-table form
 // (rijndael-alg-fst), with big-endian column words in and out (FIPS-197
 // byte order).
 //
@@ -12,27 +12,23 @@
 // per block in all against the 242 ALU instructions of roofline.py, so the
 // kernel becomes issue-bound.
 //
-// Two cores:
-//
-//  * The tape core (aes_tape.cu, aes_tape_z64.cu).  The four T-tables are
-//    replicated once per bank in shared memory (128 KiB), so lane l reads
-//    only copy l, in bank l, and every warp lookup is one wavefront.  Entry
-//    x of lane l's copy sits at byte x * 256 + 4l of its table: one byte
-//    permute of the state word is the whole address (`entry_offset`), the
-//    table is the load's immediate offset, and there are no rotations.
-//    That cuts a block to ~650 issued instructions, as many cycles as its
-//    160 lookups take.  The last round's S-box byte is byte 2 of Te0 (Te0[i]
-//    = (2s, s, s, 3s)), so no S-box table is needed.  A thread holds its
-//    key's 44 round-key words in registers (`load_round_keys`, byte-swapped
-//    once) and runs many counter blocks under it, two at a time for ILP
-//    (`aes_ctr_blocks_x32`), in a persistent grid that builds the tables
-//    once per thread block (`persistent_blocks`, `run_length`).  One table
-//    replicated (32 KiB, Te1..Te3 by rotation) and one counter block at a
-//    time were both slower on the H100 (PERF.md).
-//  * The first core (`build_aes_tables`, `aes_ctr_block`): four 1 KiB
-//    T-tables and an S-box per thread block, round keys read from global
-//    memory per block.  The keystream planes kernel (aes_planes.cu, a
-//    probe's kernel) still runs on it.
+// The core, in aes_tape.cu, aes_tape_z64.cu and aes_planes.cu.  The four
+// T-tables are replicated once per bank in shared memory (128 KiB),
+// so lane l reads only copy l, in bank l, and every warp lookup is one
+// wavefront.  Entry x of lane l's copy sits at byte x * 256 + 4l of its
+// table: one byte permute of the state word is the whole address
+// (`entry_offset`), the table is the load's immediate offset, and there are
+// no rotations.  That cuts a block to ~650 issued instructions, as many
+// cycles as its 160 lookups take.  The last round's S-box byte is byte 2 of
+// Te0 (Te0[i] = (2s, s, s, 3s)), so no S-box table is needed.  A thread
+// holds its key's 44 round-key words in registers (`load_round_keys`,
+// byte-swapped once) and runs many counter blocks under it, two at a time
+// for ILP (`aes_ctr_blocks_x32`), in a persistent grid that builds the
+// tables once per thread block (`persistent_blocks`, `run_length`).  One
+// table replicated (32 KiB, Te1..Te3 by rotation) and one counter block at a
+// time were both slower on the H100 (PERF.md).  `warp_transpose32` turns
+// the 32 lanes' keystream words into bitsliced words for the kernels that
+// pack one bit per key (aes_tape.cu, aes_planes.cu).
 
 #pragma once
 
@@ -61,77 +57,6 @@ __constant__ uint8_t kSbox[256] = {
     0xe1, 0xf8, 0x98, 0x11, 0x69, 0xd9, 0x8e, 0x94, 0x9b, 0x1e, 0x87, 0xe9, 0xce, 0x55, 0x28, 0xdf,
     0x8c, 0xa1, 0x89, 0x0d, 0xbf, 0xe6, 0x42, 0x68, 0x41, 0x99, 0x2d, 0x0f, 0xb0, 0x54, 0xbb, 0x16,
 };
-
-__device__ __forceinline__ uint32_t ror32(uint32_t x, int n) {
-  return (x >> n) | (x << (32 - n));
-}
-
-// The four 1 KiB T-tables (S-box and MixColumns folded together) and the
-// plain S-box as words, built by the block's threads.  The caller
-// __syncthreads() before the first lookup.
-__device__ __forceinline__ void build_aes_tables(uint32_t (*te)[256], uint32_t* sbox) {
-  for (int i = threadIdx.x; i < 256; i += blockDim.x) {
-    const uint32_t s = kSbox[i];
-    const uint32_t s2 = ((s << 1) ^ ((s & 0x80) ? 0x1b : 0)) & 0xff;
-    const uint32_t t = (s2 << 24) | (s << 16) | (s << 8) | (s2 ^ s);
-    te[0][i] = t;
-    te[1][i] = ror32(t, 8);
-    te[2][i] = ror32(t, 16);
-    te[3][i] = ror32(t, 24);
-    sbox[i] = s;
-  }
-}
-
-// 16 round-key bytes -> 4 big-endian column words
-__device__ __forceinline__ void load_round_key(const uint8_t* rk, uint32_t w[4]) {
-  const uint4 v = *reinterpret_cast<const uint4*>(rk);
-  w[0] = __byte_perm(v.x, 0, 0x0123);
-  w[1] = __byte_perm(v.y, 0, 0x0123);
-  w[2] = __byte_perm(v.z, 0, 0x0123);
-  w[3] = __byte_perm(v.w, 0, 0x0123);
-}
-
-// One AES-128 block: counter block `ctr` (bytes 0..7 zero, 8..15 big-endian
-// ctr) under the 11 round keys at `rk` (11 x 16 bytes).  out[c] is column c
-// as a big-endian word: keystream byte 4c + i is (out[c] >> (24 - 8i)) & 0xff.
-__device__ __forceinline__ void aes_ctr_block(const uint8_t* rk, uint64_t ctr,
-                                              const uint32_t (*te)[256],
-                                              const uint32_t* sbox,
-                                              uint32_t out[4]) {
-  uint32_t k[4];
-  load_round_key(rk, k);
-  uint32_t s0 = k[0];
-  uint32_t s1 = k[1];
-  uint32_t s2 = static_cast<uint32_t>(ctr >> 32) ^ k[2];
-  uint32_t s3 = static_cast<uint32_t>(ctr) ^ k[3];
-#pragma unroll
-  for (int rnd = 1; rnd < 10; ++rnd) {
-    load_round_key(rk + 16 * rnd, k);
-    const uint32_t t0 = te[0][s0 >> 24] ^ te[1][(s1 >> 16) & 0xff] ^
-                        te[2][(s2 >> 8) & 0xff] ^ te[3][s3 & 0xff] ^ k[0];
-    const uint32_t t1 = te[0][s1 >> 24] ^ te[1][(s2 >> 16) & 0xff] ^
-                        te[2][(s3 >> 8) & 0xff] ^ te[3][s0 & 0xff] ^ k[1];
-    const uint32_t t2 = te[0][s2 >> 24] ^ te[1][(s3 >> 16) & 0xff] ^
-                        te[2][(s0 >> 8) & 0xff] ^ te[3][s1 & 0xff] ^ k[2];
-    const uint32_t t3 = te[0][s3 >> 24] ^ te[1][(s0 >> 16) & 0xff] ^
-                        te[2][(s1 >> 8) & 0xff] ^ te[3][s2 & 0xff] ^ k[3];
-    s0 = t0;
-    s1 = t1;
-    s2 = t2;
-    s3 = t3;
-  }
-  load_round_key(rk + 160, k);
-  out[0] = (sbox[s0 >> 24] << 24) ^ (sbox[(s1 >> 16) & 0xff] << 16) ^
-           (sbox[(s2 >> 8) & 0xff] << 8) ^ sbox[s3 & 0xff] ^ k[0];
-  out[1] = (sbox[s1 >> 24] << 24) ^ (sbox[(s2 >> 16) & 0xff] << 16) ^
-           (sbox[(s3 >> 8) & 0xff] << 8) ^ sbox[s0 & 0xff] ^ k[1];
-  out[2] = (sbox[s2 >> 24] << 24) ^ (sbox[(s3 >> 16) & 0xff] << 16) ^
-           (sbox[(s0 >> 8) & 0xff] << 8) ^ sbox[s1 & 0xff] ^ k[2];
-  out[3] = (sbox[s3 >> 24] << 24) ^ (sbox[(s0 >> 16) & 0xff] << 16) ^
-           (sbox[(s1 >> 8) & 0xff] << 8) ^ sbox[s2 & 0xff] ^ k[3];
-}
-
-// -- the tape core ------------------------------------------------------------
 
 constexpr int kIlp = 2;        // counter blocks a thread runs interleaved
 constexpr int kTeCopies = 32;  // one copy per bank
@@ -205,8 +130,9 @@ __device__ __forceinline__ uint32_t last_column(const uint32_t* te, uint32_t lan
 
 // kIlp AES-128 blocks of counters ctr[i] (bytes 0..7 zero, 8..15 big-endian
 // ctr) under the round-key words k, on the replicated tables, their rounds
-// interleaved; out[i] as in aes_ctr_block.  `te` is the tables of
-// build_te_x32, lane the caller's lane.
+// interleaved.  out[i][c] is column c of block i as a big-endian word:
+// keystream byte 4c + j is (out[i][c] >> (24 - 8j)) & 0xff.  `te` is the
+// tables of build_te_x32, lane the caller's lane.
 __device__ __forceinline__ void aes_ctr_blocks_x32(const uint32_t (&k)[44],
                                                    const uint64_t (&ctr)[kIlp], const uint32_t* te,
                                                    uint32_t lane, uint32_t (&out)[kIlp][4]) {
@@ -239,6 +165,20 @@ __device__ __forceinline__ void aes_ctr_blocks_x32(const uint32_t (&k)[44],
     out[i][2] = last_column(te, lane, s[i][2], s[i][3], s[i][0], s[i][1], k[42]);
     out[i][3] = last_column(te, lane, s[i][3], s[i][0], s[i][1], s[i][2], k[43]);
   }
+}
+
+// 32 x 32 bit transpose across the warp: on return bit m of lane l's word
+// is bit l of lane m's word on entry.  5 shuffle stages.
+__device__ __forceinline__ uint32_t warp_transpose32(uint32_t x, int lane) {
+#pragma unroll
+  for (int j = 16; j > 0; j >>= 1) {
+    // the low j bits of every 2j-bit group
+    const uint32_t m = j == 16 ? 0x0000FFFFu : j == 8 ? 0x00FF00FFu : j == 4 ? 0x0F0F0F0Fu
+                     : j == 2 ? 0x33333333u : 0x55555555u;
+    const uint32_t y = __shfl_xor_sync(0xffffffffu, x, j);
+    x = (lane & j) ? ((x & ~m) | ((y >> j) & m)) : ((x & m) | ((y << j) & ~m));
+  }
+  return x;
 }
 
 // Thread blocks of `kernel` resident on the whole card at once (SMs x

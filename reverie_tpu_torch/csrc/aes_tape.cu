@@ -52,20 +52,6 @@ constexpr int kStageStride = kWarps + 1;          // odd: a warp's column stores
 constexpr int kStageWords = kSlots * kStageStride;
 constexpr size_t kSmemBytes = kTeBytes + 2 * kStageWords * 4;  // tables, 2 stages
 
-// 32 x 32 bit transpose across the warp: on return bit m of lane l's word
-// is bit l of lane m's word on entry.
-__device__ __forceinline__ uint32_t warp_transpose32(uint32_t x, int lane) {
-#pragma unroll
-  for (int j = 16; j > 0; j >>= 1) {
-    // the low j bits of every 2j-bit group
-    const uint32_t m = j == 16 ? 0x0000FFFFu : j == 8 ? 0x00FF00FFu : j == 4 ? 0x0F0F0F0Fu
-                     : j == 2 ? 0x33333333u : 0x55555555u;
-    const uint32_t y = __shfl_xor_sync(0xffffffffu, x, j);
-    x = (lane & j) ? ((x & ~m) | ((y >> j) & m)) : ((x & m) | ((y << j) & ~m));
-  }
-  return x;
-}
-
 __global__ void __launch_bounds__(kThreads, 1)
 aes_tape_gf2_kernel(const uint8_t* __restrict__ round_keys,  // (R*8, 11, 16)
                     const uint8_t* __restrict__ omit,        // (R,), 8 = none

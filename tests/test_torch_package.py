@@ -105,6 +105,88 @@ def test_lookup_wavefronts_model():
     assert lookup_wavefronts(32) == 1.0
 
 
+def warp_transpose32(x: np.ndarray) -> np.ndarray:
+    """csrc/aes_core.cuh:warp_transpose32 on the uint32 words of 32 lanes,
+    stage by stage (the shuffle of lane l reads lane l ^ j)."""
+    x = x.astype(np.uint32)
+    lane = np.arange(32)
+    for j, m in ((16, 0x0000FFFF), (8, 0x00FF00FF), (4, 0x0F0F0F0F), (2, 0x33333333),
+                 (1, 0x55555555)):
+        m = np.uint32(m)
+        y = x[lane ^ j]
+        x = np.where(lane & j, (x & ~m) | ((y >> j) & m), (x & m) | ((y << j) & ~m))
+    return x
+
+
+def column_words(ks: np.ndarray) -> np.ndarray:
+    """(..., 16) u8 keystream blocks -> (..., 4) big-endian column words."""
+    c = ks.reshape(*ks.shape[:-1], 4, 4).astype(np.uint32)
+    return (c[..., 0] << 24) | (c[..., 1] << 16) | (c[..., 2] << 8) | c[..., 3]
+
+
+#: csrc/aes_planes.cu: after the transpose, lane l of word q holds this plane
+LANE_PLANE = np.array([(3 - (l >> 3)) * 8 + (l & 7) for l in range(32)])
+
+
+def stage_at(plane, w):
+    """csrc/aes_planes.cu:stage_at (16 plane words a work item)."""
+    return plane * 16 + (w ^ ((plane >> 1) & 15))
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_planes_bitslice_model(seed):
+    # lane j runs key 32w + j; its keystream block's 4 column words go
+    # through the warp transpose
+    ks = np.random.RandomState(seed).randint(0, 256, (32, 16), dtype=np.uint8)
+    words = column_words(ks)
+    lane = np.arange(32)
+    got = np.full(128, -1, np.int64)
+    for q in range(4):
+        t = warp_transpose32(words[:, q])
+        # the transpose: bit m of lane l's word is bit l of lane m's word
+        assert np.array_equal((t[:, None] >> lane) & 1, ((words[:, q][None, :] >> lane[:, None]) & 1))
+        got[32 * q + LANE_PLANE] = t
+    # the ballot definition: bit j of plane by*8 + bit is bit `bit` of byte
+    # by of lane j's keystream
+    bits = ((ks[:, :, None] >> np.arange(8)) & 1).reshape(32, 128).astype(np.int64)
+    assert np.array_equal(got, (bits << lane[:, None]).sum(0))
+
+
+def test_planes_stage_banks():
+    # a warp's write (lane l: plane 32q + LANE_PLANE[l], its warp's w) and a
+    # warp's read (thread t: plane 32 * pass + t // 16, w = t % 16) each hit
+    # the 32 banks once, and every (plane, w) has its own word
+    for q in range(4):
+        for w in range(16):
+            assert len(set(stage_at(32 * q + LANE_PLANE, w) % 32)) == 32
+    t = np.arange(512)
+    for p in range(4):
+        addr = stage_at(32 * p + t // 16, t % 16).reshape(16, 32)
+        assert all(len(set(row % 32)) == 32 for row in addr)
+    planes, w = np.meshgrid(np.arange(128), np.arange(16))
+    assert sorted(stage_at(planes, w).ravel()) == list(range(2048))
+
+
+def test_planes_kernel_model_matches_plain():
+    # the kernel's data path (transpose, stage, store) in numpy, on the plain
+    # version's AES, equals the plain version: K = 64 keys, B = 3
+    rk = aes_tape.round_keys(np.random.RandomState(5).randint(0, 256, (8, 8, 16), dtype=np.uint8),
+                             torch.device("cpu"))
+    B, Kw = 3, 2
+    ks = aes_tape.aes_encrypt_ref(rk, aes_tape._counter_blocks(0, B, rk.device)).numpy()
+    out = np.zeros((128, B, Kw), np.uint32)
+    for b in range(B):  # one counter block's 2,048 staged words
+        stage = np.zeros(2048, np.uint32)
+        for w in range(Kw):
+            words = column_words(ks[32 * w: 32 * w + 32, b])
+            for q in range(4):
+                stage[stage_at(32 * q + LANE_PLANE, w)] = warp_transpose32(words[:, q])
+        for w in range(Kw):
+            out[:, b, w] = stage[stage_at(np.arange(128), w)]
+    ref = aes_planes.aes_ctr_planes_ref(rk, B).numpy().view(np.uint32).reshape(128, B, Kw)
+    assert np.array_equal(out, ref)
+
+
 def test_chip_smoke_fails_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA card")
@@ -193,7 +275,12 @@ def test_cuda_wrappers_reject_bad_input(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("R, B", [(256, 33), (40, 1), (216, 7)])
+# Kw = R / 4 plane words in groups of 16: R = 40, 216 and 4 leave the last
+# group 10, 6 and 1 warps; B = 1 and odd B end a run mid-pair, B = 1 and 7
+# are shorter than a pair; R = 256 at B = 4,129 gives several runs per
+# resident block, the last of them one block long
+@pytest.mark.parametrize("R, B", [(256, 33), (40, 1), (216, 7), (4, 1), (4, 3), (40, 999),
+                                  (216, 129), (256, 4129), (256, 1)])
 def test_planes_kernel_matches_plain(cuda_device, R, B):
     keys = np.random.RandomState(R).randint(0, 256, (R, 8, 16), dtype=np.uint8)
     rk = aes_tape.round_keys(keys, cuda_device)
