@@ -31,10 +31,27 @@ prints no result line:
      kernel launched in the prove, the online and the preprocessing verify;
   7. Z64 / B2A parity: tests/golden/b2a_proof.bin reproduced from
      b2a_seeds.bin, and 2,000 Z64 MULs equal to the golden's digest;
-  8. the probes (reverie_tpu_torch/tools: r2_measure at B = 15,626,
+  8. the batch phase, on each main-path circuit: N from largest_batch
+     (device_footprint and the free memory; 8 proofs of 1M ANDs and 4 of
+     50k Z64 MULs where two such batches fit); prove() N times, prove_batch
+     and prove_many of N distinct witnesses and seeds, a first run of each
+     and then two rounds in opposite orders, every proof byte-equal to
+     prove()'s and verified by verify_many, with walls, proofs/s, phase
+     times, the main thread's CPU time, Python's collections and the new
+     pinned host blocks of each run, the host's write rate into fresh and
+     into rewritten memory, the proof size, and the peak memory of a warm
+     prove() and of the batch against device_footprint (at most 1.25x);
+     the 50k-AND and 2,000-MUL parity
+     digests reproduced as proof 0 of a batch of 3; prove_batch_chunked of
+     6 1M-AND proofs at chunk 4 (a ragged second chunk); verify_many of
+     good, tampered, malformed and good proofs ([True, False, False,
+     True]); then the GF(2) and z64 tapes and the chunk CVs at the batch
+     width, past 2**31 bytes, each block of 256 columns equal to the plain
+     version on the same inputs (and to the kernel's launch at R = 256);
+  9. the probes (reverie_tpu_torch/tools: r2_measure at B = 15,626,
      r4_bwroof, r5_u8emit, r4_extract_probe at the tools' shapes), with the
      launches of the planes, copy, emission and pack-shift kernels in them;
-  9. one JSON line of kernels, the nvidia-smi line, and the last line
+ 10. one JSON line of kernels, the nvidia-smi line, and the last line
      {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or reverie_tpu.  Needs the CUDA toolkit (nvcc), gcc
@@ -44,6 +61,8 @@ and one card.
 from __future__ import annotations
 
 import copy
+import functools
+import gc
 import json
 import sys
 import time
@@ -60,12 +79,15 @@ REPS = (256, 40, 216)  # prove, online verify, preprocessing verify
 #: the Z64 main path's sizes (bench.py's z64 cell, BASELINE config 3)
 N_MUL_Z64 = 50_000
 MZ = 2 * N_MUL_Z64 + 2  # z64 tape slots of z64_mul_bench_circuit(N_MUL_Z64)
+ONLZ = 64 * N_MUL_Z64 + 16  # onlz rows of z64_mul_bench_circuit(N_MUL_Z64)
 GOLDEN = Path(__file__).resolve().parent / "tests" / "golden"
 #: the probes' shapes (reverie_tpu's tools)
 PLANES_BLOCKS = 15_626  # r2_measure at the 1M tape: 2,048 keys
 EMIT_T = 1_000_001  # r5_u8emit at the 1M tape
 PACK_N, PACK_R = 1_000_002, 256  # r4_extract_probe
 KEY_BYTES = 176  # AES-128 round keys per key
+#: the batch phase: the most a measured peak may exceed device_footprint by
+PEAK_OVER_FOOTPRINT = 1.25
 
 
 def log(tag: str, msg: str) -> None:
@@ -379,6 +401,264 @@ def golden_b2a(dev) -> None:
         raise AssertionError("the golden B2A proof was not reproduced")
 
 
+def wall(fn):
+    """(fn(), seconds) between two synchronizations of the card."""
+    from reverie_tpu_torch.trace import timed as timed_ms
+
+    out, ms = timed_ms(fn)
+    return out, ms / 1e3
+
+
+#: Python's garbage collections (by generation) and their pause, in ms
+GC = {"collections": [0, 0, 0], "ms": 0.0, "start": 0.0}
+
+
+def gc_clock(phase: str, info: dict) -> None:
+    """gc.callbacks entry that counts collections and their pauses."""
+    if phase == "start":
+        GC["start"] = time.perf_counter()
+    else:
+        GC["collections"][info["generation"]] += 1
+        GC["ms"] += (time.perf_counter() - GC["start"]) * 1e3
+
+
+def host_counters() -> dict:
+    """The main thread's CPU seconds (against the wall: time it ran, not
+    waited or was descheduled), Python's full collections and all its
+    collections' pause ms, and the pinned host allocator's new blocks and
+    the microseconds it spent making them."""
+    stats = torch.cuda.memory.host_memory_stats()
+    return {"thread_cpu_s": time.thread_time(), "gc_full": GC["collections"][2],
+            "gc_ms": GC["ms"], "pinned_allocs": stats.get("num_host_alloc", 0),
+            "pinned_alloc_us": stats.get("host_alloc_time.total", 0)}
+
+
+def host_write_ms_per_mib(mib: int = 256) -> dict:
+    """Host ms per MiB to write fresh memory (a new mapping, each page
+    faulted in) and to write the same pages again."""
+    t = time.perf_counter()
+    a = np.ones(mib << 20, np.uint8)
+    fresh = (time.perf_counter() - t) * 1e3 / mib
+    t = time.perf_counter()
+    a.fill(2)
+    again = (time.perf_counter() - t) * 1e3 / mib
+    return {"fresh": fresh, "again": again}
+
+
+def measured(fn):
+    """(fn(), its wall seconds, the change of host_counters over it)."""
+    c0 = host_counters()
+    out, t = wall(fn)
+    c1 = host_counters()
+    return out, t, {k: c1[k] - c0[k] for k in c0}
+
+
+def peak_within_footprint(what: str, footprint: int, fn):
+    """fn() with torch.cuda.max_memory_allocated over it, which must stay
+    within PEAK_OVER_FOOTPRINT x footprint."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    log("batch", f"{what} peak_bytes={peak} allocated_before={base} "
+        f"device_footprint={footprint} peak/footprint={peak / footprint:.4f}")
+    if peak > PEAK_OVER_FOOTPRINT * footprint:
+        raise AssertionError(f"{what}: peak {peak} B above {PEAK_OVER_FOOTPRINT} x "
+                             f"device_footprint {footprint} B")
+    return out
+
+
+def phase_summary(timings: dict) -> dict:
+    """{phase: [host_ms, device_ms]} of a last_timings report."""
+    return {k: [round(v["host_ms"], 3), round(v["device_ms"], 3)] for k, v in timings.items()}
+
+
+def phase_sum(timings: dict, phase: str, key: str) -> float:
+    """The sum of `key` over the rows of one phase ("hash", "hash[0]", ...)."""
+    return sum(v[key] for k, v in timings.items() if k.split("[")[0] == phase)
+
+
+def distinct_witnesses(rng, wit2, witz, n: int) -> list:
+    """n witnesses of the shapes of (wit2, witz): random bits and words (the
+    bench circuits assert nothing, so each is valid)."""
+    return [([bool(b) for b in rng.randint(0, 2, len(wit2))],
+             [int(v) for v in rng.randint(0, 2**63, len(witz), dtype=np.int64)])
+            for _ in range(n)]
+
+
+def same_bytes(what: str, got: list, want: list) -> None:
+    bad = [i for i, (a, b) in enumerate(zip(got, want)) if a.to_bytes() != b.to_bytes()]
+    if len(got) != len(want) or bad:
+        raise AssertionError(f"{what}: proofs {bad} differ from prove()'s")
+
+
+def batch_cell(dev, tag: str, cell: str, rng) -> dict:
+    """One main-path circuit (trace.CELLS[cell]) through prove() x N,
+    prove_batch and prove_many at the N that largest_batch allows: a first
+    run of each, then two timed rounds in opposite orders, each run with its
+    wall, phases and host counters; every proof equal to prove()'s and
+    verified.  Returns the proofs and the system."""
+    from reverie_tpu_torch import TorchKKW, device_footprint, largest_batch
+    from reverie_tpu_torch.trace import CELLS
+
+    builder, size, most = CELLS[cell]
+    prog, w2, wz = builder(size)
+    kkw = TorchKKW(prog, device=dev)
+    cc = kkw.cc
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    n = largest_batch(cc, free, most)
+    fp = device_footprint(cc, n * 256)
+    log("batch", f"{tag} mem_get_info free={free} total={total} N={n} (at most {most}) "
+        f"device_footprint R={n * 256}: {fp} R=256: {device_footprint(cc, 256)}")
+    if n < 4:
+        raise AssertionError(f"{tag}: two batches of 4 proofs do not fit the card")
+    wits = distinct_witnesses(rng, w2, wz, n)
+    seeds = rng.randint(0, 256, (n, 256, 16), dtype=np.uint8)
+
+    kkw.prove(*wits[0], seeds=seeds[0])  # cold: the R = 256 executor
+    peak_within_footprint(f"{tag} warm prove() R=256", device_footprint(cc, 256),
+                          lambda: kkw.prove(*wits[0], seeds=seeds[0]))
+    modes = {"prove_x_N": lambda: [kkw.prove(*wits[i], seeds=seeds[i]) for i in range(n)],
+             "prove_batch": lambda: kkw.prove_batch(wits, seeds),
+             "prove_many": lambda: kkw.prove_many(wits, seeds)}
+    per = {"prove_x_N": 1, "prove_batch": n, "prove_many": n}  # proofs in last_timings
+    first = {}
+    for mode, fn in modes.items():  # prove_batch's R = N * 256 executor is cold
+        first[mode], t, host = measured(fn)
+        log("batch", f"{tag} {mode} N={n} first wall_s={t:.4f} host={json.dumps(host)} "
+            "phases " + json.dumps(phase_summary(kkw.last_timings)))
+    singles = first["prove_x_N"]
+    log("batch", f"{tag} proof_bytes={len(singles[0].to_bytes())} host_write_ms_per_mib="
+        + json.dumps(host_write_ms_per_mib()))
+    same_bytes(f"{tag} prove_batch", first["prove_batch"], singles)
+    same_bytes(f"{tag} prove_many", first["prove_many"], singles)
+    rows = {mode: [] for mode in modes}
+    for rnd, order in enumerate((list(modes), list(modes)[::-1])):
+        for mode in order:
+            fn = modes[mode]
+            if mode == "prove_batch" and rnd == 0:  # and its peak memory
+                fn = functools.partial(peak_within_footprint,
+                                       f"{tag} warm prove_batch N={n} R={n * 256}", fp, fn)
+            got, t, host = measured(fn)
+            same_bytes(f"{tag} {mode} round {rnd}", got, singles)
+            tm = kkw.last_timings
+            rows[mode].append({
+                "wall_s": t, "proofs_per_s": n / t, "host": host,
+                "hash_ms_per_proof": {k: phase_sum(tm, "hash", k) / per[mode]
+                                      for k in ("host_ms", "device_ms")}})
+            log("batch", f"{tag} {mode} N={n} round={rnd} wall_s={t:.4f} "
+                f"proofs_per_s={n / t:.3f} host={json.dumps(host)} phases "
+                + json.dumps(phase_summary(tm)))
+    verdicts, t = wall(lambda: kkw.verify_many(first["prove_batch"]))
+    log("batch", f"{tag} verify_many of the batch wall_s={t:.4f} verdicts={verdicts}")
+    if verdicts != [True] * n:
+        raise AssertionError(f"{tag}: a batch proof did not verify")
+    log("batch", "summary " + json.dumps({"cell": tag, "N": n, **rows}))
+    return {"kkw": kkw, "wits": wits, "seeds": seeds, "proofs": singles}
+
+
+def batch_parity(dev, name: str, rng) -> None:
+    """A parity case's proof as proof 0 of a batch of 3, against the NumPy
+    golden's digest."""
+    from reverie_tpu_torch import TorchKKW, parity as golden
+
+    case = golden.CASES[name]
+    prog, w2, wz, seeds = golden.inputs(case)
+    wits = [(w2, wz)] + distinct_witnesses(rng, w2, wz, 2)
+    seeds3 = np.concatenate([seeds[None], rng.randint(0, 256, (2, 256, 16), dtype=np.uint8)])
+    got = TorchKKW(prog, device=dev).prove_batch(wits, seeds3)[0].to_bytes()
+    ok = golden.matches(case, got)
+    log("batch", f"{name} as proof 0 of prove_batch N=3 equal_to_numpy_golden_digest={ok}")
+    if not ok:
+        raise AssertionError(f"{name}: proof 0 of a batch differs from the NumPy golden's")
+
+
+def batch_widths(dev, rng, n2: int, nz: int, checks: dict) -> None:
+    """K1 at (m2, n2 * 256), K4 at (mz, nz * 256) and K3 on the z64 cell's
+    onlz rows at nz * 256 columns, each past 2**31 bytes: each block of 256
+    columns against the plain version on the same inputs (the kernels
+    line's max_abs_err), and against the kernel's own launch at R = 256
+    (logged)."""
+    from reverie_tpu_torch.crypto.kernels import aes_tape, aes_tape_z64, blake3 as b3
+
+    def blocks(name, got, kernel, plain, inputs, n, nbytes):
+        """inputs(p): the arguments of block p; nbytes: the kernel's widest
+        tensor (a tape, or K3's stream)."""
+        err = own = 0
+        for p in range(n):
+            block = got[..., p * 256 : (p + 1) * 256]
+            err = max(err, max_abs_err(block, plain(*inputs(p))))
+            own = max(own, max_abs_err(block, kernel(*inputs(p))))
+        log("batch", f"{name} width R={n * 256} bytes={nbytes} over_2^31={nbytes > 2**31} "
+            f"max_abs_err_vs_plain_per_block={err} max_abs_err_vs_{n}_launches_at_R=256={own}")
+        if err or own:
+            raise AssertionError(f"{name} at R={n * 256} differs from its plain version "
+                                 "or its per-proof launches")
+        if nbytes <= 2**31:
+            raise AssertionError(f"{name} at R={n * 256}: {nbytes} B, not past 2**31")
+        checks[name]["max_abs_err"] = max(checks[name]["max_abs_err"], err)
+
+    for name, kernel, plain, m, n in (
+            ("aes_tape_gf2", aes_tape.aes_ctr_tape_gf2, aes_tape.aes_ctr_tape_gf2_ref, M2, n2),
+            ("aes_tape_z64", aes_tape_z64.aes_ctr_tape_z64, aes_tape_z64.aes_ctr_tape_z64_ref,
+             MZ, nz)):
+        rk = aes_tape.round_keys(rng.randint(0, 256, (n * 256, 8, 16), dtype=np.uint8), dev)
+        tape = kernel(rk, m)
+        blocks(name, tape, kernel, plain, lambda p: (rk[p * 2048 : (p + 1) * 2048], m), n,
+               tape.numel() * tape.element_size())
+        del rk, tape
+    gen = torch.Generator(device=dev).manual_seed(6)
+    buf = torch.randint(0, 256, (ONLZ, nz * 256), dtype=torch.uint8, device=dev, generator=gen)
+    k = ONLZ // 1024
+    blocks("blake3_chunk_cvs", b3.chunk_cvs(buf, k), b3.chunk_cvs, b3.chunk_cvs_ref,
+           lambda p: (buf[:, p * 256 : (p + 1) * 256].contiguous(), k), nz, buf.numel())
+
+
+def batch_phase(dev, rng, checks: dict) -> dict:
+    """The batch and pipeline entry points on both main-path circuits,
+    with the kernels' launches counted from 0; then the kernel widths."""
+    from reverie_tpu_torch.proof import Proof
+
+    reset_launches()
+    gf2 = batch_cell(dev, "gf2", "gf2_mul_1M", rng)
+    kkw, wits, seeds, singles = gf2["kkw"], gf2["wits"], gf2["seeds"], gf2["proofs"]
+    # six proofs in chunks of 4: the second chunk is ragged
+    extra = distinct_witnesses(rng, *wits[0], max(0, 6 - len(wits)))
+    wits6 = (wits + extra)[:6]
+    seeds6 = np.concatenate([seeds, rng.randint(0, 256, (len(extra), 256, 16), dtype=np.uint8)])[:6]
+    want = singles[:6] + [kkw.prove(*wits6[i], seeds=seeds6[i]) for i in range(len(singles), 6)]
+    chunked, t = wall(lambda: kkw.prove_batch_chunked(wits6, seeds6, chunk=4))
+    same_bytes("gf2 prove_batch_chunked(6, chunk=4)", chunked, want)
+    log("batch", f"gf2 prove_batch_chunked N=6 chunk=4 wall_s={t:.4f} phases "
+        + json.dumps(phase_summary(kkw.last_timings)))
+    # good, a flipped online recon byte, a flipped byte 40 (the first online omit), good
+    bad = copy.deepcopy(singles[0])
+    o = bad.gf2.online[0]
+    o.recons = bytes([o.recons[0] ^ 1]) + o.recons[1:]
+    blob = bytearray(singles[1].to_bytes())
+    blob[40] ^= 0xFF
+    stream = [singles[0], bad, Proof.from_bytes(bytes(blob)), singles[1]]
+    got, t = wall(lambda: kkw.verify_many(stream))
+    each = [kkw.verify(p) for p in stream]
+    log("batch", f"gf2 verify_many(good, tampered, malformed, good) wall_s={t:.4f} "
+        f"verdicts={got} verify_each={each}")
+    if got != [True, False, False, True] or got != each:
+        raise AssertionError("verify_many's verdicts are wrong")
+    del gf2, kkw, singles, chunked, stream
+    z64 = batch_cell(dev, "z64", "z64_mul_50k", rng)
+    n2, nz = len(wits), len(z64["wits"])
+    del z64
+    batch_parity(dev, "gf2_50k", rng)
+    batch_parity(dev, "z64_2k", rng)
+    launches = launch_counts()
+    log("batch", f"launches={json.dumps(launches)}")
+    batch_widths(dev, rng, n2, nz, checks)
+    return launches
+
+
 def probes(dev) -> dict:
     """Run the four probes at the tools' shapes, counting the launches of
     their kernels from 0."""
@@ -425,6 +705,7 @@ def main() -> int:
     from reverie_tpu_torch.tools._timing import card, max_sm_clock_mhz
 
     dev = default_device()
+    gc.callbacks.append(gc_clock)
     name = torch.cuda.get_device_name(0)
     smi, clock = card(), max_sm_clock_mhz()
     log("card", f"{name} | torch {torch.__version__} cuda {torch.version.cuda} "
@@ -459,6 +740,7 @@ def main() -> int:
     z64 = main_path(dev, "z64", lambda: z64_mul_bench_circuit(N_MUL_Z64), "z64", rng)
     golden_b2a(dev)
     parity(dev, "z64_2k")
+    batch = batch_phase(dev, rng, checks)
     tools = probes(dev)
 
     kernels = []
@@ -466,7 +748,7 @@ def main() -> int:
         c = checks[kname]
         kernels.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": gf2[kname] + z64[kname] + tools[kname],
+            "launches": gf2[kname] + z64[kname] + batch[kname] + tools[kname],
             "max_abs_err": c["max_abs_err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
             "library_ms": c["library_ms"]})

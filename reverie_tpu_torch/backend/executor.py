@@ -232,6 +232,34 @@ def _arena_rows(cc: CompiledCircuit, dead: Dict[tuple, bool]) -> Tuple[int, int]
     return min(cc.n_vals2, hi[0] + 1), min(cc.n_valsz, hi[1] + 1)
 
 
+def stream_bytes(cc: CompiledCircuit, R: int) -> int:
+    """Bytes of the four (rows, R) uint8 streams a run returns (an empty
+    stream is one row)."""
+    return sum(max(n, 1) for n in (cc.onl2, cc.pre2, cc.onlz, cc.prez)) * R
+
+
+def prover_bytes(cc: CompiledCircuit, R: int) -> int:
+    """Device bytes a PROVER run at R lanes holds at its end, the index
+    tables apart (table_bytes):
+
+      inputs    tape (m2, R) uint8 (the tape kernel does not pad m2),
+                tapez (mz, 8, R) int64, wit2 (n_wit2, R) uint8, witz
+                (n_witz, R) int64
+      arenas    mask2 + corr2 (L2, R) uint8, maskz (Lz, 8, R) and corrz
+                (Lz, R) int64
+      streams   three times over: each level's parts, their concatenation
+                and one level's temporaries"""
+    L2, Lz = _arena_rows(cc, _dead_dst_columns(cc))
+    inputs = cc.m2 * R + cc.mz * 8 * R * 8 + cc.n_wit2 * R + cc.n_witz * R * 8
+    return inputs + 2 * L2 * R + Lz * R * (8 * 8 + 8) + 3 * stream_bytes(cc, R)
+
+
+def table_bytes(cc: CompiledCircuit) -> int:
+    """Bytes of the device index and constant tables (tables_to_device)."""
+    _, tables = tables_to_device(cc, torch.device("meta"))
+    return sum(t.numel() * t.element_size() for t in tables.values())
+
+
 class Executor:
     """Eager executor for one compiled circuit in one role.
 

@@ -1,19 +1,27 @@
 """Host orchestration of the prove / verify path on one device.
 
 Port of reverie_tpu/backend/tpu_host.py's `TpuKKW` (`_gf2_tape`,
-`_z64_tape`, `_hash_fn`, `prove`, `_prove_dispatch`, `_prove_challenge`,
-`_prove_assemble`, `_extract_gf2_dispatch`, `_extract_z64_dispatch`,
-`_parse_gf2_buf`, `_parse_z64_buf`, `verify`, `_verify_dispatch`,
-`_verify_finish`) and of its helpers `make_gf2_extractor` and
-`make_z64_extractor` in their gather forms, `_pack_rows_device`,
-`_stack_streams`, `_u64s_from_stream`, `build_online_injection_packed` and
-`make_online_unpacker`, for circuits over GF(2), Z_2^64 and B2A bridges.
+`_z64_tape`, `_hash_fn`, `prove`, `prove_batch`, `prove_batch_chunked`,
+`prove_many`, `_prove_dispatch`, `_prove_challenge`, `_prove_assemble`,
+`_batch_dispatch`, `_batch_challenge`, `_batch_assemble`,
+`_extract_gf2_dispatch`, `_extract_z64_dispatch`, `_parse_gf2_buf`,
+`_parse_z64_buf`, `verify`, `verify_many`, `_verify_dispatch` with its
+REVERIE_DEBUG omitted-lane checks, `_verify_finish`), of its
+`device_footprint`, re-derived for the port's tensors, and of its helpers
+`make_gf2_extractor` and `make_z64_extractor` in their gather forms,
+`_pack_rows_device`, `_stack_streams`, `_u64s_from_stream`,
+`build_online_injection_packed` and `make_online_unpacker`, for circuits
+over GF(2), Z_2^64 and B2A bridges.  One proof is a batch of one: the
+single and batch paths, and reverie_tpu's two sets of pipeline stages, are
+one set of stages here, over N * 256 proof-major lanes.
 
 The device runs the mask tapes (CUDA kernels), the levelized executor, the
 transcript hashes (CUDA chunk kernel + torch tail), and the extraction of
 the opened repetitions.  The host runs seed expansion, the Fiat-Shamir
 challenge, the blake3 of the rep hashes and proof assembly, as in the
-reference.
+reference.  Each stage ends in an asynchronous device -> host pull that the
+next stage waits on, so that in a pipeline one proof's host work overlaps
+the next one's device work.
 """
 
 from __future__ import annotations
@@ -46,6 +54,9 @@ from .executor import (
     Executor,
     _classify,
     event_rows,
+    prover_bytes,
+    stream_bytes,
+    table_bytes,
     take,
 )
 
@@ -231,16 +242,85 @@ def online_injection(cc: CompiledCircuit, openings2: List[OpenOnline],
 
 
 # ---------------------------------------------------------------------------
-# The proof system
+# Asynchronous pulls, seeds and the device footprint
 # ---------------------------------------------------------------------------
 
 
-def _not_ported(name: str, item: int):
-    def method(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"TorchKKW.{name} is not ported yet (ROADMAP Queue 1 item {item})")
-    method.__name__ = name
-    return method
+class _Pull:
+    """A device -> host copy in flight.  On CUDA: a non_blocking copy into a
+    pinned host tensor, on the compute stream, with an event recorded after
+    it; `numpy()` waits on that event before it reads.  On the CPU the same
+    code is a plain copy.  The source tensor may be dropped at once: the
+    caching allocator hands its memory only to later work of the same
+    stream."""
+
+    def __init__(self, t: torch.Tensor):
+        cuda = t.device.type == "cuda"
+        self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=cuda)
+        self._host.copy_(t, non_blocking=cuda)
+        self._event = None
+        if cuda:
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(t.device))
+
+    def numpy(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.numpy()
+
+
+def _seeds(seeds: Optional[np.ndarray], n: int) -> np.ndarray:
+    """(n, total_reps, 16) uint8 rep seeds, fresh random ones where None."""
+    R = PARAMS.total_reps
+    if seeds is None:
+        seeds = np.frombuffer(os.urandom(n * R * KEY_SIZE), dtype=np.uint8)
+    return np.ascontiguousarray(seeds, dtype=np.uint8).reshape(n, R, KEY_SIZE)
+
+
+def device_footprint(cc: CompiledCircuit, R: int) -> int:
+    """Peak device bytes of a prove at R lanes (R = N * 256 for a batch of
+    N proofs): the larger of the executor's end (executor.prover_bytes:
+    tapes, witness columns, arenas, streams) and the hash (the streams, once
+    the tapes and arenas are freed, and the largest transient of one
+    stream's hash, blake3.hash_columns_transient_bytes), plus the index
+    tables.  The round keys are freed before the executor runs.  The port
+    runs every depth on the levelized executor, so there is no scan
+    branch."""
+    hashing = stream_bytes(cc, R) + max(
+        b3.hash_columns_transient_bytes(n, R) for n in (cc.onl2, cc.pre2, cc.onlz, cc.prez))
+    return max(prover_bytes(cc, R), hashing) + table_bytes(cc)
+
+
+def largest_batch(cc: CompiledCircuit, free_bytes: int, most: int) -> int:
+    """The most proofs N <= most such that two batches of N fit in
+    free_bytes by device_footprint (prove_batch_chunked at chunk N holds
+    about two); 0 if not even one proof does."""
+    return max((n for n in range(1, most + 1)
+                if 2 * device_footprint(cc, n * 256) <= free_bytes), default=0)
+
+
+def _check_omitted_lanes(tape: torch.Tensor, tapez: torch.Tensor,
+                         omit: np.ndarray, omitz: np.ndarray) -> None:
+    """REVERIE_DEBUG: the online verifier's tapes are zero at each rep's
+    omitted player (verifier/online.rs:141-160), one device reduction per
+    domain; a tape kernel that ignores the omit then fails loudly."""
+    dev = tape.device
+    bit = np.where(omit < 8, 0x80 >> np.clip(omit, 0, 7), 0).astype(np.uint8)
+    if bool((tape & torch.as_tensor(bit, device=dev)[None, :]).any()):
+        raise AssertionError(
+            "REVERIE_DEBUG: gf2 tape is nonzero at the omitted player's bit lane")
+    cols = np.nonzero(omitz < 8)[0]
+    if cols.size and tapez.shape[0]:
+        sel = tapez[:, torch.as_tensor(omitz[cols], device=dev),
+                    torch.as_tensor(cols, device=dev)]
+        if bool(sel.any()):
+            raise AssertionError(
+                "REVERIE_DEBUG: z64 tape is nonzero at the omitted player's lane")
+
+
+# ---------------------------------------------------------------------------
+# The proof system
+# ---------------------------------------------------------------------------
 
 
 def check_program(program: Sequence[CombineOp]) -> None:
@@ -262,13 +342,20 @@ class TorchKKW:
     """Compile a circuit once; prove and verify on one device.
 
     `device` defaults to the CUDA device (raising without one); the CPU
-    device runs the kernels' plain PyTorch versions.  After each prove or
-    verify, `last_timings` holds the PhaseTimer report of that call."""
+    device runs the kernels' plain PyTorch versions.
 
-    prove_many = _not_ported("prove_many", 8)
-    prove_batch = _not_ported("prove_batch", 8)
-    prove_batch_chunked = _not_ported("prove_batch_chunked", 8)
-    verify_many = _not_ported("verify_many", 8)
+    Entry points: `prove` and `verify` (one proof); `prove_batch` (N proofs
+    as one device batch of N * 256 lanes); `prove_batch_chunked` (that
+    batch in chunks, pipelined); `prove_many` (one proof after another,
+    pipelined); `verify_many` (pipelined verification).  Each proof is
+    byte-equal to `prove`'s with the same seeds, and each verdict equal to
+    `verify`'s.
+
+    After each call, `last_timings` holds that call's PhaseTimer report:
+    one row per phase after `prove`, `verify` and `prove_batch`; one row
+    per phase and chunk or proof, "<phase>[<i>]", after
+    `prove_batch_chunked`, `prove_many` and `verify_many` of more than one
+    chunk or proof."""
 
     def __init__(self, program: Sequence[CombineOp],
                  device: Optional[torch.device] = None, mesh=None):
@@ -330,67 +417,140 @@ class TorchKKW:
     # -- proving ------------------------------------------------------------
     def prove(self, wit_gf2, wit_z64, seeds: Optional[np.ndarray] = None) -> Proof:
         """`seeds` (total_reps, 16) makes the proof deterministic."""
-        timer = PhaseTimer(self.device)
-        st = self._prove_dispatch(wit_gf2, wit_z64, seeds, timer)
-        with timer.phase("challenge"):
-            self._prove_challenge(st)
-        with timer.phase("extract_pull"):
-            proof = self._prove_assemble(st)
-        self.last_timings = timer.report()
-        return proof
+        return self.prove_batch([(wit_gf2, wit_z64)], seeds)[0]
 
-    def _prove_dispatch(self, wit_gf2, wit_z64, seeds, timer: PhaseTimer) -> dict:
+    def prove_batch(self, witnesses, seeds: Optional[np.ndarray] = None) -> List[Proof]:
+        """Prove N statements of this circuit in one device batch.
+        `witnesses`: [(wit_gf2, wit_z64)] * N; `seeds`: (N, total_reps, 16)
+        makes the proofs deterministic.  The N * 256 repetitions are one
+        lane axis, proof-major (lane p * 256 + r is rep r of proof p): one
+        tape per domain, one executor run and one hash of every stream; the
+        challenges are per proof on the host, and one extraction gathers all
+        N * 40 opened lanes.  Peak device memory is about
+        device_footprint(cc, N * 256)."""
+        return self._prove_pipeline(witnesses, seeds, max(len(witnesses), 1))
+
+    def prove_batch_chunked(self, witnesses, seeds: Optional[np.ndarray] = None,
+                            chunk: int = 64) -> List[Proof]:
+        """prove_batch in chunks of `chunk` statements, software-pipelined:
+        the device runs chunk i + 1 while chunk i's challenge, pulls and
+        assembly run on the host.  Peak device memory is about two chunks'
+        footprint, since chunk i's streams stay live (awaiting its challenge
+        and extraction) while chunk i + 1 runs: size `chunk` so that
+        2 * device_footprint(cc, chunk * 256) fits the card."""
+        if chunk < 1:
+            raise ValueError("prove_batch_chunked: chunk must be at least 1")
+        return self._prove_pipeline(witnesses, seeds, chunk)
+
+    def prove_many(self, jobs, seeds: Optional[np.ndarray] = None) -> List[Proof]:
+        """Prove statements one after another, software-pipelined: proof
+        i + 1's device work is queued before proof i's challenge, pulls and
+        assembly run on the host.  `jobs`: [(wit_gf2, wit_z64)] * N;
+        `seeds`: (N, total_reps, 16).  While the BLAKE3 tail keeps the host
+        busy launching kernels there is little device work to overlap: on
+        an H100 this ran within the run-to-run spread of N prove() calls
+        (PERF.md §5); prove_batch is the faster way to prove many
+        statements of one circuit."""
+        return self._prove_pipeline(jobs, seeds, 1)
+
+    def _prove_pipeline(self, witnesses, seeds, width: int) -> List[Proof]:
+        """Prove in groups of `width` statements through the three-stage
+        pipeline: dispatch group g, then the challenge of group g - 1, then
+        the assembly of group g - 2.  A group's state goes once its proofs
+        are assembled."""
+        n = len(witnesses)
+        seeds = _seeds(seeds, n)
+        bounds = [(lo, min(lo + width, n)) for lo in range(0, n, width)]
+        k = len(bounds)
+        timer = PhaseTimer(self.device)
+        states: List[Optional[dict]] = [None] * k
+        proofs: List[Proof] = []
+        for g, (lo, hi) in enumerate(bounds):
+            states[g] = self._prove_dispatch(witnesses[lo:hi], seeds[lo:hi], lo, timer,
+                                             "" if k == 1 else f"[{g}]")
+            if g >= 1:
+                self._prove_challenge(states[g - 1])
+            if g >= 2:
+                proofs += self._prove_assemble(states[g - 2])
+                states[g - 2] = None
+        if k:
+            self._prove_challenge(states[k - 1])
+        for g in range(max(k - 2, 0), k):
+            proofs += self._prove_assemble(states[g])
+            states[g] = None
+        self.last_timings = timer.report()
+        return proofs
+
+    def _prove_dispatch(self, witnesses, seeds: np.ndarray, first: int,
+                        timer: PhaseTimer, tag: str) -> dict:
+        """Pipeline stage 1 for N statements (the first numbered `first`):
+        seed expansion, both tapes, the executor and the transcript hashes
+        on N * 256 lanes, then the asynchronous pull of the rep hashes and
+        fail flags."""
         cc, dev = self.cc, self.device
-        R = PARAMS.total_reps
-        if seeds is None:
-            seeds = np.frombuffer(os.urandom(R * KEY_SIZE), dtype=np.uint8)
-        seeds = np.ascontiguousarray(seeds, dtype=np.uint8).reshape(R, KEY_SIZE)
-        wit2 = np.asarray([1 if b else 0 for b in wit_gf2], dtype=np.uint8)
-        witz = np.asarray([int(v) & 0xFFFF_FFFF_FFFF_FFFF for v in wit_z64],
-                          dtype=np.uint64).view(np.int64)
-        if len(wit2) < cc.n_wit2 or len(witz) < cc.n_witz:
-            raise AssertionError("witness is too short")
-        with timer.phase("expand_seeds"):
-            player_keys = expand_seeds(seeds).reshape(R, 8, KEY_SIZE)
-        with timer.phase("tape_gf2"):
+        N, R = len(witnesses), PARAMS.total_reps
+        wit2 = np.zeros((cc.n_wit2, N), dtype=np.uint8)
+        witz = np.zeros((cc.n_witz, N), dtype=np.int64)
+        for p, (wit_gf2, wit_z64) in enumerate(witnesses):
+            w2 = np.asarray([1 if b else 0 for b in wit_gf2], dtype=np.uint8)
+            wz = np.asarray([int(v) & 0xFFFF_FFFF_FFFF_FFFF for v in wit_z64],
+                            dtype=np.uint64).view(np.int64)
+            if len(w2) < cc.n_wit2 or len(wz) < cc.n_witz:
+                raise AssertionError(f"witness {first + p} is too short")
+            wit2[:, p], witz[:, p] = w2[: cc.n_wit2], wz[: cc.n_witz]
+        with timer.phase("expand_seeds" + tag):
+            player_keys = expand_seeds(seeds.reshape(N * R, KEY_SIZE)).reshape(
+                N * R, 8, KEY_SIZE)
+        with timer.phase("tape_gf2" + tag):
             tape = self._gf2_tape(player_keys)
-        with timer.phase("tape_z64"):
+        with timer.phase("tape_z64" + tag):
             tapez = self._z64_tape(player_keys)
-        with timer.phase("execute"):
-            # one witness column uploaded per domain; broadcast to R on device
-            w2 = torch.from_numpy(wit2[: cc.n_wit2]).to(dev)
-            wz = torch.from_numpy(witz[: cc.n_witz]).to(dev)
-            out = self._executor(PROVER, R)(
-                {"tape": tape, "tapez": tapez,
-                 "wit2": w2[:, None].expand(cc.n_wit2, R),
-                 "witz": wz[:, None].expand(cc.n_witz, R)})
-        with timer.phase("hash"):
+        with timer.phase("execute" + tag):
+            # one witness column uploaded per proof, repeated over its 256
+            # lanes on the device
+            inp = {"tape": tape, "tapez": tapez,
+                   "wit2": torch.from_numpy(wit2).to(dev).repeat_interleave(R, dim=1),
+                   "witz": torch.from_numpy(witz).to(dev).repeat_interleave(R, dim=1)}
+            del tape, tapez  # the tapes go with the executor's inputs
+            out = self._executor(PROVER, N * R)(inp)
+            del inp
+        with timer.phase("hash" + tag):
             rep_h, ho2, hoz = self._hash_fn(out)
-            # one device -> host pull: hashes + per-rep fail flags
-            dbuf = torch.cat([rep_h.reshape(-1), ho2.reshape(-1), hoz.reshape(-1),
-                              out["fail"].to(torch.uint8)]).cpu().numpy()
-        return dict(seeds=seeds, player_keys=player_keys, out=out, dbuf=dbuf)
+            pull = _Pull(torch.cat([rep_h.reshape(-1), ho2.reshape(-1), hoz.reshape(-1),
+                                    out["fail"].to(torch.uint8)]))
+        return dict(N=N, first=first, seeds=seeds, player_keys=player_keys, out=out,
+                    pull=pull, timer=timer, tag=tag)
 
     def _prove_challenge(self, st: dict) -> None:
-        R = PARAMS.total_reps
-        buf = st.pop("dbuf")
-        rep_h = buf[: R * 32].reshape(R, 32)
-        st["ho2"] = buf[R * 32 : 2 * R * 32].reshape(R, 32)
-        st["hoz"] = buf[2 * R * 32 : 3 * R * 32].reshape(R, 32)
-        if buf[3 * R * 32 :].any():
-            raise AssertionError("witness is invalid (AssertZero failed)")
-        comm = blake3(rep_h.tobytes())
-        open_map = challenge_to_opening(comm, PARAMS)
-        omit = np.full(R, 8, dtype=np.int64)
-        for rep, p in open_map.items():
-            omit[rep] = p
-        cols = np.nonzero(omit < 8)[0]
-        out = st.pop("out")
-        g2 = extract_gf2(self.cc, out["onl2"], out["pre2"], cols, omit[cols])
-        gz = extract_z64(self.cc, out["onlz"], out["prez"], cols, omit[cols])
-        # one flat buffer, pulled once: [gf2 openings | z64 openings]
-        st["xbuf"], st["n_g2"] = torch.cat([g2, gz]), g2.numel()
-        st.update(comm=comm, omit=omit, K=len(cols))
+        """Pipeline stage 2: wait for the hash pull; per statement, the
+        commitment and the Fiat-Shamir challenge on the host (raising
+        before any extraction if a witness failed an AssertZero); then one
+        extraction of all opened lanes and its asynchronous pull."""
+        N, R = st["N"], PARAMS.total_reps
+        RT = N * R
+        with st["timer"].phase("challenge" + st["tag"]):
+            buf = st.pop("pull").numpy()
+            rep_h = buf[: RT * 32].reshape(N, R, 32)
+            st["ho2"] = buf[RT * 32 : 2 * RT * 32].reshape(N, R, 32)
+            st["hoz"] = buf[2 * RT * 32 : 3 * RT * 32].reshape(N, R, 32)
+            failed = buf[3 * RT * 32 :].reshape(N, R).any(axis=1)
+            if failed.any():
+                raise AssertionError(f"witness {st['first'] + int(np.argmax(failed))} "
+                                     "is invalid (AssertZero failed)")
+            comms = [blake3(rep_h[p].tobytes()) for p in range(N)]
+            omits = np.full((N, R), 8, dtype=np.int64)
+            for p in range(N):
+                for rep, player in challenge_to_opening(comms[p], PARAMS).items():
+                    omits[p, rep] = player
+            omit = omits.reshape(RT)
+            cols = np.nonzero(omit < 8)[0]
+            out = st.pop("out")
+            g2 = extract_gf2(self.cc, out["onl2"], out["pre2"], cols, omit[cols])
+            gz = extract_z64(self.cc, out["onlz"], out["prez"], cols, omit[cols])
+            del out
+            # one flat buffer, pulled once: [gf2 openings | z64 openings]
+            st["xpull"], st["n_g2"] = _Pull(torch.cat([g2, gz])), g2.numel()
+        st.update(comms=comms, omits=omits, K=len(cols))
 
     def _parse_gf2_buf(self, buf: np.ndarray, K: int):
         """Pulled GF(2) extraction buffer -> per-rep (recons, corrs,
@@ -417,42 +577,61 @@ class TorchKKW:
         return [(rec[j].tobytes(), cor[j].tobytes(), inp[j].tobytes())
                 for j in range(K)]
 
-    def _prove_assemble(self, st: dict) -> Proof:
-        R = PARAMS.total_reps
-        buf = st["xbuf"].cpu().numpy()
-        n_g2 = st["n_g2"]
-        open2 = self._parse_gf2_buf(buf[:n_g2], st["K"])
-        openz = self._parse_z64_buf(buf[n_g2:], st["K"])
-        seeds, player_keys, omit = st["seeds"], st["player_keys"], st["omit"]
-        ho2, hoz = st["ho2"], st["hoz"]
-        p2 = ProofSingle([], [])
-        pz = ProofSingle([], [])
-        j = 0
-        for r in range(R):
-            if omit[r] < 8:
-                ks = player_keys[r].copy()
-                ks[omit[r]] = 0
-                p2.online.append(OpenOnline(int(omit[r]), ks.tobytes(), *open2[j]))
-                pz.online.append(OpenOnline(int(omit[r]), ks.tobytes(), *openz[j]))
-                j += 1
-            else:
-                p2.preprocessing.append(
-                    OpenPreprocessing(seeds[r].tobytes(), ho2[r].tobytes()))
-                pz.preprocessing.append(
-                    OpenPreprocessing(seeds[r].tobytes(), hoz[r].tobytes()))
-        return Proof(st["comm"], p2, pz)
+    def _prove_assemble(self, st: dict) -> List[Proof]:
+        """Pipeline stage 3: wait for the openings' pull and assemble the N
+        proofs; the opened lanes come in lane order, proof by proof."""
+        R, K = PARAMS.total_reps, st["K"]
+        with st["timer"].phase("extract_pull" + st["tag"]):
+            buf = st["xpull"].numpy()
+            open2 = self._parse_gf2_buf(buf[: st["n_g2"]], K)
+            openz = self._parse_z64_buf(buf[st["n_g2"] :], K)
+            proofs, j = [], 0
+            for p in range(st["N"]):
+                seeds, omit = st["seeds"][p], st["omits"][p]
+                keys = st["player_keys"][p * R : (p + 1) * R]
+                ho2, hoz = st["ho2"][p], st["hoz"][p]
+                p2, pz = ProofSingle([], []), ProofSingle([], [])
+                for r in range(R):
+                    if omit[r] < 8:
+                        ks = keys[r].copy()
+                        ks[omit[r]] = 0
+                        p2.online.append(OpenOnline(int(omit[r]), ks.tobytes(), *open2[j]))
+                        pz.online.append(OpenOnline(int(omit[r]), ks.tobytes(), *openz[j]))
+                        j += 1
+                    else:
+                        p2.preprocessing.append(
+                            OpenPreprocessing(seeds[r].tobytes(), ho2[r].tobytes()))
+                        pz.preprocessing.append(
+                            OpenPreprocessing(seeds[r].tobytes(), hoz[r].tobytes()))
+                proofs.append(Proof(st["comms"][p], p2, pz))
+        return proofs
 
     # -- verification -------------------------------------------------------
     def verify(self, proof: Proof, strict_zero_check: bool = True) -> bool:
-        timer = PhaseTimer(self.device)
-        st = self._verify_dispatch(proof, timer)
-        ok = st is not False and self._verify_finish(st, strict_zero_check)
-        self.last_timings = timer.report()
-        return ok
+        return self.verify_many([proof], strict_zero_check)[0]
 
-    def _verify_dispatch(self, proof: Proof, timer: PhaseTimer):
-        """Both re-executions (online, preprocessing) and their hashes;
-        False for a malformed proof."""
+    def verify_many(self, proofs: Sequence[Proof],
+                    strict_zero_check: bool = True) -> List[bool]:
+        """Verify a stream of proofs, software-pipelined: proof i + 1's
+        injection and uploads overlap proof i's device work and pulls.
+        Returns the verdicts in order, each equal to `verify`'s; a
+        malformed proof gives False in its place."""
+        timer = PhaseTimer(self.device)
+        results: List[bool] = []
+        prev = None
+        for i, proof in enumerate(proofs):
+            st = self._verify_dispatch(proof, timer, "" if len(proofs) == 1 else f"[{i}]")
+            if i >= 1:
+                results.append(prev is not False and self._verify_finish(prev, strict_zero_check))
+            prev = st
+        if proofs:
+            results.append(prev is not False and self._verify_finish(prev, strict_zero_check))
+        self.last_timings = timer.report()
+        return results
+
+    def _verify_dispatch(self, proof: Proof, timer: PhaseTimer, tag: str):
+        """Both re-executions (online, preprocessing), their hashes and
+        the asynchronous pulls of those; False for a malformed proof."""
         cc, dev = self.cc, self.device
         if not proof.gf2.check_format(PARAMS.online_reps, PARAMS.preprocessing_reps):
             return False
@@ -465,19 +644,23 @@ class TorchKKW:
 
         # ---- online re-execution (the opened reps as one batch) -----------
         Ro = PARAMS.online_reps
-        with timer.phase("onl_inject"):
+        with timer.phase("onl_inject" + tag):
             inj, omit, omitz = online_injection(cc, proof.gf2.online,
                                                 proof.z64.online, dev)
             player_keys, player_keysz = keys(proof.gf2.online), keys(proof.z64.online)
-        with timer.phase("onl_tape"):
+        with timer.phase("onl_tape" + tag):
             tape = self._gf2_tape(player_keys, omit)
             tapez = self._z64_tape(player_keysz, omitz)
-        with timer.phase("onl_exec"):
+            if os.environ.get("REVERIE_DEBUG"):
+                _check_omitted_lanes(tape, tapez, omit, omitz)
+        with timer.phase("onl_exec" + tag):
             out = self._executor(VERIFY_ONL, Ro)({"tape": tape, "tapez": tapez, **inj})
-        with timer.phase("onl_hash"):
+            del tape, tapez, inj
+        with timer.phase("onl_hash" + tag):
             rep_h, _, _ = self._hash_fn(out)
-            dbuf_onl = torch.cat([rep_h.reshape(-1),
-                                  out["fail"].to(torch.uint8)]).cpu().numpy()
+            # pulled under the preprocessing leg's device work
+            pull_onl = _Pull(torch.cat([rep_h.reshape(-1), out["fail"].to(torch.uint8)]))
+            del out
 
         # ---- preprocessing re-execution -----------------------------------
         Rp = PARAMS.preprocessing_reps
@@ -490,36 +673,39 @@ class TorchKKW:
                 np.frombuffer(p.comm_online, dtype=np.uint8) for p in openings
             ])).to(dev)
 
-        with timer.phase("pre_tape"):
+        with timer.phase("pre_tape" + tag):
             pk2 = expand_seeds(seeds(proof.gf2.preprocessing)).reshape(Rp, 8, KEY_SIZE)
             pkz = expand_seeds(seeds(proof.z64.preprocessing)).reshape(Rp, 8, KEY_SIZE)
             tape = self._gf2_tape(pk2)
             tapez = self._z64_tape(pkz)
-        with timer.phase("pre_exec"):
+        with timer.phase("pre_exec" + tag):
             out = self._executor(VERIFY_PRE, Rp)({"tape": tape, "tapez": tapez})
-        with timer.phase("pre_hash"):
+            del tape, tapez
+        with timer.phase("pre_hash" + tag):
             rep_h, _, _ = self._hash_fn(out, comms(proof.gf2.preprocessing),
                                         comms(proof.z64.preprocessing))
-            hashes_pre = rep_h.cpu().numpy()
-        return dict(dbuf_onl=dbuf_onl, hashes_pre=hashes_pre, comm=proof.comm)
+            pull_pre = _Pull(rep_h)
+        return dict(pull_onl=pull_onl, pull_pre=pull_pre, comm=proof.comm,
+                    timer=timer, tag=tag)
 
     def _verify_finish(self, st: dict, strict_zero_check: bool = True) -> bool:
-        """Reorder the rep hashes per the challenge and compare the
-        commitment."""
+        """Wait for the hash pulls, reorder the rep hashes per the
+        challenge and compare the commitment."""
         Ro = PARAMS.online_reps
-        buf = st["dbuf_onl"]
-        hashes_online = buf[: Ro * 32].reshape(Ro, 32)
-        if strict_zero_check and buf[Ro * 32 :].any():
-            return False
-        hashes_pre = st["hashes_pre"]
-        open_map = challenge_to_opening(st["comm"], PARAMS)
-        ordered = np.zeros((PARAMS.total_reps, 32), dtype=np.uint8)
-        io_ = ip = 0
-        for i in range(PARAMS.total_reps):
-            if i in open_map:
-                ordered[i] = hashes_online[io_]
-                io_ += 1
-            else:
-                ordered[i] = hashes_pre[ip]
-                ip += 1
-        return blake3(ordered.tobytes()) == st["comm"]
+        with st["timer"].phase("finish" + st["tag"]):
+            buf = st["pull_onl"].numpy()
+            hashes_online = buf[: Ro * 32].reshape(Ro, 32)
+            if strict_zero_check and buf[Ro * 32 :].any():
+                return False
+            hashes_pre = st["pull_pre"].numpy()
+            open_map = challenge_to_opening(st["comm"], PARAMS)
+            ordered = np.zeros((PARAMS.total_reps, 32), dtype=np.uint8)
+            io_ = ip = 0
+            for i in range(PARAMS.total_reps):
+                if i in open_map:
+                    ordered[i] = hashes_online[io_]
+                    io_ += 1
+                else:
+                    ordered[i] = hashes_pre[ip]
+                    ip += 1
+            return blake3(ordered.tobytes()) == st["comm"]

@@ -229,6 +229,20 @@ def hash_columns(buf: torch.Tensor, T: int) -> torch.Tensor:
     return _rows_to_bytes(_tree_reduce(cvs))
 
 
+def hash_columns_transient_bytes(T: int, R: int) -> int:
+    """Device bytes of hash_columns' largest transient on a (T, R) stream
+    (on CUDA the chunk kernel allocates only its CVs), as the CPU allocation
+    trace measures its tensors (tests/test_torch_footprint.py).  Per column:
+    one compression holds ~184 int64 words (the 112-word message stack, 16
+    message words, the chaining value and the G mixes' rows), 1,472 bytes;
+    the tail chunk's padded bytes become int64 words, ~15 bytes per byte; the
+    first tree level holds 832 bytes per chunk (the chunk CVs as int32 and
+    twice as int64, and half a compression)."""
+    n = max(1, -(-T // CHUNK_LEN))
+    tail = 64 * max(1, -(-(T - (n - 1) * CHUNK_LEN) // 64))
+    return R * max(1472, 15 * tail, 832 * n)
+
+
 def hash_pair_columns(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a, b: (R, 32) uint8 -> (R, 32) uint8, blake3(a_r || b_r) per row (one
     64-byte root block)."""

@@ -1,14 +1,18 @@
-"""Profile one warm prove and one warm verify of each main path on the card.
+"""Profile warm proves and verifies of each main path on the card.
 
     python -m reverie_tpu_torch.trace [--out DIR]
 
-For each cell, `TorchKKW(mul_bench_circuit(1_000_000))` (GF(2)) and
-`TorchKKW(z64_mul_bench_circuit(50_000))` (Z_2^64), runs a prove and a
-verify once cold, then profiles a warm prove and a warm verify, each under
-its own `torch.profiler` window (activities CPU and CUDA). For each leg it
-prints the wall time, the device's busy time (the union of its kernel,
-memcpy and memset intervals), the idle share 1 - busy / wall, and the device
-time by kernel name (the top names and the port's own kernels), as one JSON
+For each cell, `TorchKKW(mul_bench_circuit(1_000_000))` (GF(2), batches of
+up to 8) and `TorchKKW(z64_mul_bench_circuit(50_000))` (Z_2^64, up to 4),
+the batch being the largest of which two fit the free device memory by
+`device_footprint` (`largest_batch`), runs each leg once cold, then profiles it warm under its own
+`torch.profiler` window (activities CPU and CUDA). The legs: a prove, a
+verify, a `prove_batch` and a `prove_many` of the cell's N proofs. For
+each leg it prints the wall time, the device's busy time (the union of its
+kernel, memcpy and memset intervals), the idle share 1 - busy / wall, the
+device time by kernel name (the top names and the port's own kernels) and
+the host time by CUDA runtime call (launches, allocations, copies, waits:
+whether a leg's host time goes to launching or to waiting), as one JSON
 line. With --out it also writes each leg's Chrome trace there. The wall time
 inside a window includes the profiler's own overhead, so the idle share is
 given against both it and the same leg's unprofiled wall time. Needs a CUDA
@@ -30,9 +34,10 @@ from torch.profiler import ProfilerActivity, profile
 from .circuit.builders import mul_bench_circuit, z64_mul_bench_circuit
 
 
-#: the cells: the GF(2) main path (1M AND gates) and the Z64 one (50k MULs)
-CELLS = {"gf2_mul_1M": (mul_bench_circuit, 1_000_000),
-         "z64_mul_50k": (z64_mul_bench_circuit, 50_000)}
+#: the cells: the GF(2) main path (1M AND gates) and the Z64 one (50k MULs),
+#: with the most proofs of their batch legs (chip_smoke.py's batch phase too)
+CELLS = {"gf2_mul_1M": (mul_bench_circuit, 1_000_000, 8),
+         "z64_mul_50k": (z64_mul_bench_circuit, 50_000, 4)}
 TOP = 15  # kernel names listed by device time
 
 #: the port's own kernels, always listed by `by_kernel`
@@ -70,6 +75,18 @@ def by_kernel(events, top: int) -> list:
             for n, (c, us) in keep]
 
 
+def host_api(events, top: int) -> list:
+    """Host time by CUDA runtime call (the host events named cuda*): the
+    `top` names with the most time."""
+    agg = {}
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith("cuda"):
+            calls, us = agg.get(e.name, (0, 0.0))
+            agg[e.name] = (calls + 1, us + e.time_range.end - e.time_range.start)
+    rows = sorted(agg.items(), key=lambda kv: -kv[1][1])[:top]
+    return [{"name": n, "calls": c, "host_ms": us / 1e3} for n, (c, us) in rows]
+
+
 def timed(fn):
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -88,24 +105,32 @@ def main(argv=None) -> int:
     dev = default_device()
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)
-    for cell, (builder, n) in CELLS.items():
-        profile_cell(cell, builder(n), dev, args.out)
+    for cell, (builder, n, most) in CELLS.items():
+        profile_cell(cell, builder(n), most, dev, args.out)
     return 0
 
 
-def profile_cell(cell: str, circuit, dev, out) -> None:
-    from reverie_tpu_torch import TorchKKW
+def profile_cell(cell: str, circuit, most: int, dev, out) -> None:
+    from reverie_tpu_torch import TorchKKW, largest_batch
 
     prog, w2, wz = circuit
     kkw = TorchKKW(prog, device=dev)
-    seeds = np.random.RandomState(2026).randint(0, 256, (256, 16), dtype=np.uint8)
-    proof = kkw.prove(w2, wz, seeds=seeds)  # cold: builds, allocates
+    torch.cuda.empty_cache()
+    n_proofs = largest_batch(kkw.cc, torch.cuda.mem_get_info(dev)[0], most)
+    if n_proofs < 1:
+        raise RuntimeError(f"{cell}: two proofs do not fit the card")
+    seeds = np.random.RandomState(2026).randint(0, 256, (n_proofs, 256, 16), dtype=np.uint8)
+    proof = kkw.prove(w2, wz, seeds=seeds[0])
     if kkw.verify(proof) is not True:
         raise AssertionError(f"{cell}: the proof did not verify")
 
-    legs = {"prove": lambda: kkw.prove(w2, wz, seeds=seeds),
-            "verify": lambda: kkw.verify(proof)}
+    jobs = [(w2, wz)] * n_proofs
+    legs = {"prove": lambda: kkw.prove(w2, wz, seeds=seeds[0]),
+            "verify": lambda: kkw.verify(proof),
+            f"prove_batch_{n_proofs}": lambda: kkw.prove_batch(jobs, seeds),
+            f"prove_many_{n_proofs}": lambda: kkw.prove_many(jobs, seeds)}
     for leg, fn in legs.items():
+        fn()  # cold: builds, allocates
         _, plain_wall = timed(fn)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             _, wall = timed(fn)
@@ -121,7 +146,7 @@ def profile_cell(cell: str, circuit, dev, out) -> None:
             "device_busy_ms": busy, "device_idle_share": 1 - busy / wall,
             "device_idle_share_of_unprofiled_wall": 1 - busy / plain_wall,
             "phases": kkw.last_timings, "n_device_events": len(_device_events(events)),
-            "by_kernel": by_kernel(events, TOP),
+            "by_kernel": by_kernel(events, TOP), "host_api": host_api(events, TOP),
         }), flush=True)
 
 

@@ -257,6 +257,36 @@ def test_blake3_kernel_matches_plain(cuda_device, R, n, base):
     assert torch.equal(got, b3.chunk_cvs_ref(buf, n, base))
 
 
+# batch widths R = N * 256 whose outputs or inputs pass 2**31 bytes: the
+# GF(2) tape at 8 proofs (2.25 GB), the z64 tape at 4 proofs (2.62 GB), the
+# chunk CVs of 8 proofs' columns (a 2.25 GB stream); each equals the
+# per-proof launches at R = 256, column block by column block
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["aes_tape_gf2", "aes_tape_z64"])
+def test_tape_kernels_at_batch_width(cuda_device, kernel):
+    n, m = (8, 1_100_000) if kernel == "aes_tape_gf2" else (4, 40_000)
+    fn = aes_tape.aes_ctr_tape_gf2 if kernel == "aes_tape_gf2" else aes_tape_z64.aes_ctr_tape_z64
+    rk, omit = _tape_inputs(n, n * 256, "random", cuda_device)
+    got = fn(rk, m, omit)
+    assert got.numel() * got.element_size() > 2**31
+    for p in range(n):
+        part = fn(rk[p * 2048 : (p + 1) * 2048], m, omit[p * 256 : (p + 1) * 256])
+        assert torch.equal(got[..., p * 256 : (p + 1) * 256], part), p
+
+
+@pytest.mark.cuda
+def test_blake3_kernel_at_batch_width(cuda_device):
+    n, T = 8, 1_100_000
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    buf = torch.randint(0, 256, (T, n * 256), dtype=torch.uint8, device=cuda_device,
+                        generator=gen)
+    assert buf.numel() > 2**31
+    got = b3.chunk_cvs(buf, T // 1024, 3)
+    for p in range(n):
+        part = b3.chunk_cvs(buf[:, p * 256 : (p + 1) * 256].contiguous(), T // 1024, 3)
+        assert torch.equal(got[..., p * 256 : (p + 1) * 256], part), p
+
+
 @pytest.mark.cuda
 def test_cuda_wrappers_reject_bad_input(cuda_device):
     rk = torch.zeros((16, 11, 16), dtype=torch.uint8, device=cuda_device)

@@ -317,14 +317,6 @@ def test_z64_b2a_and_deep_circuits_prove(make):
     assert port.verify(proof) is True
 
 
-@pytest.mark.parametrize("method", ["prove_many", "prove_batch",
-                                    "prove_batch_chunked", "verify_many"])
-def test_out_of_scope_entry_points_raise(method):
-    port = TorchKKW(carry(mul_bench_circuit(4)[0]), device=CPU)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        getattr(port, method)([])
-
-
 def test_mesh_raises():
     with pytest.raises(NotImplementedError, match="item 12"):
         TorchKKW(carry(mul_bench_circuit(4)[0]), device=CPU, mesh=object())

@@ -1,5 +1,6 @@
 """The profiler summary of reverie_tpu_torch.trace: device busy time as the
-union of device intervals, and device time by kernel name."""
+union of device intervals, device time by kernel name, and host time by
+CUDA runtime call."""
 
 from types import SimpleNamespace
 
@@ -18,6 +19,9 @@ def ev(name, start, end, device=CUDA):
 
 EVENTS = [
     ev("aten::add", 0.0, 100.0, CPU),  # host op: never device time
+    ev("cudaLaunchKernel", 1.0, 3.0, CPU),
+    ev("cudaLaunchKernel", 4.0, 6.0, CPU),
+    ev("cudaHostAlloc", 7.0, 47.0, CPU),
     ev("add_kernel", 10.0, 20.0),
     ev("add_kernel", 15.0, 30.0),  # overlaps the one before
     ev("(anonymous namespace)::blake3_chunk_cvs_kernel(...)", 50.0, 51.0),
@@ -41,3 +45,10 @@ def test_by_kernel_lists_the_top_names_and_the_ports_kernels(top):
         1, pytest.approx(0.001))
     assert ("xor_kernel" in by_name) == (top == 3)
     assert "aten::add" not in by_name
+
+
+def test_host_api_sums_the_runtime_calls():
+    rows = trace.host_api(EVENTS, 5)
+    assert rows == [{"name": "cudaHostAlloc", "calls": 1, "host_ms": pytest.approx(0.04)},
+                    {"name": "cudaLaunchKernel", "calls": 2, "host_ms": pytest.approx(0.004)}]
+    assert trace.host_api(EVENTS, 1)[0]["name"] == "cudaHostAlloc"
