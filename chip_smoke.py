@@ -31,7 +31,21 @@ prints no result line:
      kernel launched in the prove, the online and the preprocessing verify;
   7. Z64 / B2A parity: tests/golden/b2a_proof.bin reproduced from
      b2a_seeds.bin, and 2,000 Z64 MULs equal to the golden's digest;
-  8. the batch phase, on each main-path circuit: N from largest_batch
+  8. the SHA-256 phase, on reverie_tpu's SHA-256 preimage statement
+     (parity.sha256_bench; 5,198 levels, pure GF(2), so TorchKKW runs it on
+     the wave executor): the wave kernel (csrc/scan_gf2.cu) against its
+     plain version byte for byte on the statement's wave tables in each
+     role (R = 256, 40 with random omits and online inputs, 216) and at one
+     chunk of 64 proofs (R = 16,384, the arena past 2**31 bytes), each
+     timed with its bound, and the dependency chain alone; the levelized
+     Executor on the same inputs (equal streams and fail, its time and the
+     torch ops it dispatches); then TorchKKW's prove (equal to the golden's
+     committed digest), verify, a tampered proof (False) and the wave
+     kernel launched in each leg's executor; prove_batch_chunked of 512
+     proofs at chunk 64 (bench.py's config 5), proofs 0, 63, 64 and 511
+     equal to prove()'s, verify_many of 8, proofs/s, per-proof hash and the
+     peak memory against device_footprint (at most 1.25x);
+  9. the batch phase, on each main-path circuit: N from largest_batch
      (device_footprint and the free memory; 8 proofs of 1M ANDs and 4 of
      50k Z64 MULs where two such batches fit); prove() N times, prove_batch
      and prove_many of N distinct witnesses and seeds, a first run of each
@@ -48,10 +62,10 @@ prints no result line:
      True]); then the GF(2) and z64 tapes and the chunk CVs at the batch
      width, past 2**31 bytes, each block of 256 columns equal to the plain
      version on the same inputs (and to the kernel's launch at R = 256);
-  9. the probes (reverie_tpu_torch/tools: r2_measure at B = 15,626,
+ 10. the probes (reverie_tpu_torch/tools: r2_measure at B = 15,626,
      r4_bwroof, r5_u8emit, r4_extract_probe at the tools' shapes), with the
      launches of the planes, copy, emission and pack-shift kernels in them;
- 10. one JSON line of kernels, the nvidia-smi line, and the last line
+ 11. one JSON line of kernels, the nvidia-smi line, and the last line
      {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or reverie_tpu.  Needs the CUDA toolkit (nvcc), gcc
@@ -70,6 +84,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 #: the GF(2) main path's sizes (bench config 4: 1M AND gates, 256 reps)
 N_MUL = 1_000_000
@@ -283,12 +298,13 @@ def check_pack_shift(dev, clock: float) -> dict:
 
 def counters() -> dict:
     """The module that counts each kernel's launches (its LAUNCHES)."""
+    from reverie_tpu_torch.backend import scan
     from reverie_tpu_torch.crypto.kernels import aes_planes, aes_tape, aes_tape_z64, blake3 as b3
     from reverie_tpu_torch.tools import r4_bwroof, r4_extract_probe, r5_u8emit
 
     return {"aes_tape_gf2": aes_tape, "aes_tape_z64": aes_tape_z64,
             "blake3_chunk_cvs": b3, "aes_ctr_planes": aes_planes, "copy": r4_bwroof,
-            "u32_to_u8_rows": r5_u8emit, "pack_shift": r4_extract_probe}
+            "u32_to_u8_rows": r5_u8emit, "pack_shift": r4_extract_probe, "scan_gf2": scan}
 
 
 def reset_launches() -> None:
@@ -300,10 +316,11 @@ def launch_counts() -> dict:
     return {name: mod.LAUNCHES for name, mod in counters().items()}
 
 
-def main_path(dev, tag: str, make, domain: str, rng) -> dict:
+def main_path(dev, tag: str, make, domain: str, rng, executor_kernel: str = "") -> dict:
     """Prove and verify one circuit, cold then warm, through TorchKKW; a
     proof with one flipped recon byte in a `domain` online opening must
-    not verify.  Returns the kernels' launch counts of the run."""
+    not verify; with `executor_kernel`, each leg's executor phase must have
+    launched it.  Returns the kernels' launch counts of the run."""
     from reverie_tpu_torch import TorchKKW
     from reverie_tpu_torch.proof import Proof
 
@@ -343,15 +360,18 @@ def main_path(dev, tag: str, make, domain: str, rng) -> dict:
 
     tape = "aes_tape_gf2" if domain == "gf2" else "aes_tape_z64"
     per_leg = {
-        "prove": (prove_t["tape_" + domain], prove_t["hash"]),
-        "verify_online": (verify_t["onl_tape"], verify_t["onl_hash"]),
-        "verify_preprocessing": (verify_t["pre_tape"], verify_t["pre_hash"]),
+        "prove": (prove_t["tape_" + domain], prove_t["execute"], prove_t["hash"]),
+        "verify_online": (verify_t["onl_tape"], verify_t["onl_exec"], verify_t["onl_hash"]),
+        "verify_preprocessing": (verify_t["pre_tape"], verify_t["pre_exec"],
+                                 verify_t["pre_hash"]),
     }
-    for leg, (tp, hsh) in per_leg.items():
+    for leg, (tp, ex, hsh) in per_leg.items():
         a, b = tp["launches"][tape], hsh["launches"]["blake3_chunk_cvs"]
-        log(tag, f"{leg} {tape}_launches={a} blake3_chunk_cvs_launches={b}")
-        if a < 1 or b < 1:
-            raise AssertionError(f"{tag} {leg} did not launch both kernels")
+        c = ex["launches"][executor_kernel] if executor_kernel else 1
+        log(tag, f"{leg} {tape}_launches={a} blake3_chunk_cvs_launches={b}"
+            + (f" {executor_kernel}_launches={c}" if executor_kernel else ""))
+        if a < 1 or b < 1 or c < 1:
+            raise AssertionError(f"{tag} {leg} did not launch every kernel of its path")
 
     bad = copy.deepcopy(proof)
     o = getattr(bad, domain).online[0]
@@ -373,7 +393,7 @@ def parity(dev, name: str) -> None:
     t = time.perf_counter()
     got = TorchKKW(prog, device=dev).prove(w2, wz, seeds=seeds).to_bytes()
     ok = golden.matches(case, got)
-    log("parity", f"{case.builder}({case.n}) seeds=RandomState({case.seed}) "
+    log("parity", f"{case.builder}{case.args} seeds=RandomState({case.seed}) "
         f"proof_bytes={len(got)} equal_to_numpy_golden_digest={ok} "
         f"port_s={time.perf_counter() - t:.3f}")
     if not ok:
@@ -399,6 +419,208 @@ def golden_b2a(dev) -> None:
         f"equal={got == blob} verify={ok} port_s={time.perf_counter() - t:.3f}")
     if got != blob or ok is not True:
         raise AssertionError("the golden B2A proof was not reproduced")
+
+
+#: the SHA-256 cell (trace.CELLS["sha256_1block"]): prove_batch_chunked of
+#: this many chunks of its `most` (64) proofs, bench.py's config-5 shape
+SHA256_CHUNKS = 8
+#: the roles' names and the wave kernel's widths in each: a prove, the online
+#: verify (random omits), the preprocessing verify
+ROLES = {0: "prove", 1: "verify_online", 2: "verify_preprocessing"}
+WAVE_WIDTHS = ((0, 256), (1, 40), (2, 216))
+
+
+class OpCount(TorchDispatchMode):
+    """Counts the torch ops dispatched inside a `with` block (each one a
+    kernel launch or more on the card, views apart)."""
+
+    n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+def event_ms(fn):
+    """(fn(), its stream ms from CUDA events): one run."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def wave_inputs(dev, rng, cc, mode: int, R: int):
+    """Random inputs of the wave kernel in one role at R lanes, made on the
+    card: a tape; 0/1 witness bits (prove); or a tape that is 0 at each
+    rep's omitted player's bit, as the GF(2) tape kernel makes it with its
+    omit, 0/1 input and correction records and the recon bits at that bit
+    (online verify)."""
+    gen = torch.Generator(device=dev).manual_seed(int(rng.randint(2**31)))
+
+    def rows(n: int, high: int) -> torch.Tensor:
+        return torch.randint(0, high, (n, R), dtype=torch.uint8, device=dev, generator=gen)
+
+    tape, xin, co2, re2 = rows(cc.m2, 256), None, None, None
+    if mode == 0:
+        xin = rows(cc.n_wit2, 2)
+    elif mode == 1:
+        bit = torch.from_numpy((0x80 >> rng.randint(0, 8, R)).astype(np.uint8)).to(dev)
+        tape &= ~bit[None, :]
+        xin, co2 = rows(cc.n_inputs2, 2), rows(cc.n_corrs2, 2)
+        re2 = rows(cc.n_recons2, 2) * bit[None, :]
+    return tape, xin, co2, re2
+
+
+def chain_ms(dev, n_waves: int, W: int) -> float:
+    """The wave kernel's dependency chain alone: n_waves waves of W slots
+    at R = 256 (one proof), each with one live slot (an ADDC of the value
+    the wave before made) and W - 1 NOP slots; mean CUDA-event ms."""
+    from reverie_tpu_torch.backend import scan
+    from reverie_tpu_torch.circuit.compile import _NOP, G_ADDC
+    from reverie_tpu_torch.tools._timing import cuda_ms
+
+    t = np.zeros((n_waves, W, len(scan.SLOT_COLS)), dtype=np.int32)
+    t[..., 0] = _NOP
+    t[..., 1] = n_waves + 1  # the trash row of build_waves
+    t[:, 0, 0], t[:, 0, 11] = G_ADDC, 1
+    t[:, 0, 1] = np.arange(1, n_waves + 1)
+    t[:, 0, 2] = np.arange(n_waves)
+    table = torch.from_numpy(t).to(dev)
+    tape = torch.zeros((1, 256), dtype=torch.uint8, device=dev)
+    return cuda_ms(lambda: scan.wave_gf2(table, 0, tape, None, None, None, n_waves + 1, 0, 0),
+                   dev)
+
+
+def check_waves(dev, rng, cc, clock: float) -> dict:
+    """The wave kernel (W1) on the SHA-256 tables, byte-equal to its plain
+    version on the same inputs in each role at its width and at one chunk
+    of proofs (R = 64 * 256, the arena past 2**31 bytes; the plain version
+    at the full width), each timed (CUDA events: the kernel the mean of 5,
+    the plain version one run) with its bound; the dependency chain alone
+    (chain_ms); and the levelized Executor, built directly, on the same
+    inputs in each role: equal streams and fail, its warm ms and the torch
+    ops it dispatches.  The kernels line takes the prove's R = 256."""
+    from reverie_tpu_torch.backend import scan
+    from reverie_tpu_torch.backend.executor import Executor
+    from reverie_tpu_torch.roofline import wave_gf2_work
+    from reverie_tpu_torch.tools._timing import cuda_ms
+    from reverie_tpu_torch.trace import CELLS
+
+    wv = scan.waves(cc)
+    n_waves, W = wv.op.shape
+    log("sha256", f"waves n_waves={n_waves} W={W} nop_share={float((wv.op == 127).mean()):.4f} "
+        f"table_bytes={scan.table_bytes(cc)}")
+    rows = {0: cc.m2 + cc.n_wit2, 1: cc.m2 + cc.n_inputs2 + cc.n_corrs2 + cc.n_recons2,
+            2: cc.m2}
+    chunk_r = CELLS["sha256_1block"].most * 256
+    res = {"max_abs_err": 0}
+    for mode, R in (*WAVE_WIDTHS, (0, chunk_r)):
+        table = torch.from_numpy(scan.wave_table(wv, mode)).to(dev)
+        inputs = wave_inputs(dev, rng, cc, mode, R)
+        args = (table, mode, *inputs, cc.n_vals2, cc.onl2, cc.pre2)
+        got = scan.wave_gf2(*args)
+        want, plain_ms = event_ms(lambda: scan.wave_gf2_ref(*args))
+        arena = cc.n_vals2 * R * 2
+        line = (f"{ROLES[mode]} R={R} n_vals2={cc.n_vals2} arena_bytes={arena} "
+                f"over_2^31={arena > 2**31} fail={int(got[2].sum())}/{R}")
+        for name, g, w in zip(("onl2", "pre2", "fail"), got, want):
+            check("scan_gf2", res, g.to(torch.uint8), w.to(torch.uint8), f"{line} {name}")
+        del want
+        case = {"plain_ms": plain_ms, "library_ms": None}
+        set_bound(case, *wave_gf2_work(wv.op, mode, R, rows[mode], cc.onl2, cc.pre2), clock)
+        case["ms"] = cuda_ms(lambda: scan.wave_gf2(*args), dev)
+        log("sha256", f"scan_gf2 {line} kernel_ms={case['ms']:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms=null bound_ms={case['bound_ms']:.4f} ({case['bound_by']})")
+        if R == WAVE_WIDTHS[0][1]:
+            res.update(case)
+        if R != chunk_r:  # the levelized executor on the same inputs
+            inp = dict(zip(("tape", "wit2" if mode == 0 else "in2", "co2", "re2"), inputs))
+            ex = Executor(cc, mode, R, dev)
+            with OpCount() as ops:
+                lev = ex({k: v for k, v in inp.items() if v is not None})
+            torch.cuda.synchronize()
+            _, lev_s = wall(lambda: ex({k: v for k, v in inp.items() if v is not None}))
+            same = all(torch.equal(a, b) for a, b in zip(
+                got, (lev["onl2"], lev["pre2"], lev["fail"])))
+            log("sha256", f"levelized Executor {ROLES[mode]} R={R} equal_to_kernel={same} "
+                f"warm_ms={lev_s * 1e3:.3f} torch_ops={ops.n} against kernel_ms="
+                f"{case['ms']:.4f} launches=1")
+            if not same:
+                raise AssertionError(f"the levelized Executor and the wave kernel disagree "
+                                     f"({ROLES[mode]} R={R})")
+            del ex, lev
+        del table, inputs, args, got
+    ms = chain_ms(dev, n_waves, W)
+    res["chain_ms"] = ms
+    log("sha256", f"scan_gf2 chain n_waves={n_waves} W={W} R=256 one live slot per wave "
+        f"kernel_ms={ms:.4f} us_per_wave={ms * 1e3 / n_waves:.4f}")
+    return res
+
+
+def sha256_batch(dev, rng) -> None:
+    """prove_batch_chunked of SHA256_CHUNKS chunks of the SHA-256 cell's
+    proofs (its one witness, distinct seeds): proofs 0, 63, 64 and 511
+    byte-equal to prove() with the same seeds, verify_many of one chunk's
+    first 8, proofs/s, per-proof hash, and the peak memory at most
+    PEAK_OVER_FOOTPRINT x device_footprint of one chunk."""
+    from reverie_tpu_torch import TorchKKW, device_footprint, largest_batch
+    from reverie_tpu_torch.trace import CELLS
+
+    cell = CELLS["sha256_1block"]
+    chunk = cell.most
+    n = SHA256_CHUNKS * chunk
+    prog, w2, wz = cell.make()
+    kkw = TorchKKW(prog, device=dev)
+    torch.cuda.empty_cache()
+    free, _ = torch.cuda.mem_get_info()
+    fp = device_footprint(kkw.cc, chunk * 256)
+    if largest_batch(kkw.cc, free, chunk) < chunk:
+        raise AssertionError(f"sha256: two chunks of {chunk} proofs do not fit the card")
+    seeds = rng.randint(0, 256, (n, 256, 16), dtype=np.uint8)
+    jobs = [(w2, wz)] * n
+    kkw.prove_batch(jobs[:chunk], seeds[:chunk])  # cold: the chunk's executor
+    proofs, t = wall(lambda: peak_within_footprint(
+        f"sha256 prove_batch_chunked N={n} chunk={chunk}", fp,
+        lambda: kkw.prove_batch_chunked(jobs, seeds, chunk=chunk)))
+    tm = kkw.last_timings
+    log("sha256", f"prove_batch_chunked N={n} chunk={chunk} R={chunk * 256} wall_s={t:.4f} "
+        f"proofs_per_s={n / t:.3f} hash_ms_per_proof="
+        f"{phase_sum(tm, 'hash', 'device_ms') / n:.4f} (device) "
+        f"{phase_sum(tm, 'hash', 'host_ms') / n:.4f} (host) execute_ms_per_chunk="
+        f"{phase_sum(tm, 'execute', 'device_ms') / SHA256_CHUNKS:.4f} phases "
+        + json.dumps(phase_summary({k: v for k, v in tm.items() if k.endswith("[0]")})))
+    picks = [0, chunk - 1, chunk, n - 1]
+    same_bytes(f"sha256 prove_batch_chunked proofs {picks}", [proofs[i] for i in picks],
+               [kkw.prove(w2, wz, seeds=seeds[i]) for i in picks])
+    k = min(8, chunk)
+    verdicts, t = wall(lambda: kkw.verify_many(proofs[chunk : chunk + k]))
+    log("sha256", f"proofs {picks} equal to prove()'s; verify_many of chunk 1's first {k} "
+        f"wall_s={t:.4f} verdicts={verdicts}")
+    if verdicts != [True] * k:
+        raise AssertionError("sha256: a chunked proof did not verify")
+
+
+def sha256_phase(dev, rng, clock: float):
+    """The SHA-256 statement (parity.sha256_bench: 5,198 levels, pure GF(2),
+    on the wave executor): the wave kernel against its plain version and
+    the levelized Executor (check_waves); then, with the launches counted
+    from 0, its main path (TorchKKW prove, verify, a tampered proof, the
+    wave kernel in every leg's executor), the golden's digest, and the
+    chunked batch.  Returns (W1's check, the launch counts)."""
+    from reverie_tpu_torch.circuit.compile import compile_program
+    from reverie_tpu_torch.parity import sha256_bench
+
+    prog, _, _ = sha256_bench()
+    res = check_waves(dev, rng, compile_program(prog), clock)
+    reset_launches()
+    main_path(dev, "sha256", sha256_bench, "gf2", rng, executor_kernel="scan_gf2")
+    parity(dev, "sha256_1block")
+    sha256_batch(dev, rng)
+    launches = launch_counts()
+    log("sha256", f"launches={json.dumps(launches)}")
+    return res, launches
 
 
 def wall(fn):
@@ -503,8 +725,8 @@ def batch_cell(dev, tag: str, cell: str, rng) -> dict:
     from reverie_tpu_torch import TorchKKW, device_footprint, largest_batch
     from reverie_tpu_torch.trace import CELLS
 
-    builder, size, most = CELLS[cell]
-    prog, w2, wz = builder(size)
+    most = CELLS[cell].most
+    prog, w2, wz = CELLS[cell].make()
     kkw = TorchKKW(prog, device=dev)
     cc = kkw.cc
     torch.cuda.empty_cache()
@@ -691,6 +913,8 @@ KERNELS = (  # name, source, replaces (file:line of every TPU function)
     ("pack_shift", "reverie_tpu_torch/csrc/pack_shift.cu",
      "tools/r4_extract_probe.py:143, tools/r4_extract_probe.py:308, "
      "tools/r4_extract_probe.py:331"),
+    ("scan_gf2", "reverie_tpu_torch/csrc/scan_gf2.cu",
+     "reverie_tpu/backend/tpu_scan.py:247 _scan_trace_fast2 (lax.scan body; XLA, no Pallas)"),
 )
 
 
@@ -705,6 +929,7 @@ def main() -> int:
     from reverie_tpu_torch.tools._timing import card, max_sm_clock_mhz
 
     dev = default_device()
+    started = time.perf_counter()
     gc.callbacks.append(gc_clock)
     name = torch.cuda.get_device_name(0)
     smi, clock = card(), max_sm_clock_mhz()
@@ -740,6 +965,7 @@ def main() -> int:
     z64 = main_path(dev, "z64", lambda: z64_mul_bench_circuit(N_MUL_Z64), "z64", rng)
     golden_b2a(dev)
     parity(dev, "z64_2k")
+    checks["scan_gf2"], sha = sha256_phase(dev, rng, clock)
     batch = batch_phase(dev, rng, checks)
     tools = probes(dev)
 
@@ -748,12 +974,13 @@ def main() -> int:
         c = checks[kname]
         kernels.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": gf2[kname] + z64[kname] + batch[kname] + tools[kname],
+            "launches": gf2[kname] + z64[kname] + sha[kname] + batch[kname] + tools[kname],
             "max_abs_err": c["max_abs_err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
             "library_ms": c["library_ms"]})
         if kernels[-1]["launches"] < 1:
             raise AssertionError(f"{kname} was not launched on its path")
+    log("done", f"seconds={time.perf_counter() - started:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

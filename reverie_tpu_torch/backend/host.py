@@ -15,7 +15,9 @@ over GF(2), Z_2^64 and B2A bridges.  One proof is a batch of one: the
 single and batch paths, and reverie_tpu's two sets of pipeline stages, are
 one set of stages here, over N * 256 proof-major lanes.
 
-The device runs the mask tapes (CUDA kernels), the levelized executor, the
+The device runs the mask tapes (CUDA kernels), the executor (the levelized
+torch one, or for pure-GF(2) circuits deeper than SCAN_DEPTH_THRESHOLD
+levels the wave executor of scan.py, one CUDA kernel launch per call), the
 transcript hashes (CUDA chunk kernel + torch tail), and the extraction of
 the opened repetitions.  The host runs seed expansion, the Fiat-Shamir
 challenge, the blake3 of the rep hashes and proof assembly, as in the
@@ -34,7 +36,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..circuit.compile import CompiledCircuit, compile_program
+from ..circuit.compile import CompiledCircuit, _circuit_has_z64, compile_program
 from ..circuit.ir import CombineOp, Gate, Kind, Op
 from ..crypto import blake3, expand_seeds
 from ..crypto.kernels import aes_tape, aes_tape_z64, blake3 as b3
@@ -47,6 +49,7 @@ from ..proof.container import (
     ProofSingle,
 )
 from ..device import default_device
+from . import scan
 from .executor import (
     PROVER,
     VERIFY_ONL,
@@ -61,10 +64,23 @@ from .executor import (
 )
 
 
+#: circuits deeper than this many levels, and pure GF(2), run on the wave
+#: executor (reverie_tpu/backend/tpu_host.py:71-72)
+SCAN_DEPTH_THRESHOLD = 128
+
+
+def uses_waves(cc: CompiledCircuit) -> bool:
+    """True when TorchKKW runs cc on the wave executor (scan.ScanExecutor):
+    deeper than SCAN_DEPTH_THRESHOLD and pure GF(2).  Circuits with z64 or
+    B2A gates, of any depth, run levelized until the z64 side of the waves
+    is ported."""
+    return cc.depth > SCAN_DEPTH_THRESHOLD and not _circuit_has_z64(cc)
+
+
 def launch_counts() -> Dict[str, int]:
     """The kernels' launch counters, by kernel."""
     return {"aes_tape_gf2": aes_tape.LAUNCHES, "aes_tape_z64": aes_tape_z64.LAUNCHES,
-            "blake3_chunk_cvs": b3.LAUNCHES}
+            "blake3_chunk_cvs": b3.LAUNCHES, "scan_gf2": scan.LAUNCHES}
 
 
 class PhaseTimer:
@@ -279,15 +295,17 @@ def _seeds(seeds: Optional[np.ndarray], n: int) -> np.ndarray:
 
 def device_footprint(cc: CompiledCircuit, R: int) -> int:
     """Peak device bytes of a prove at R lanes (R = N * 256 for a batch of
-    N proofs): the larger of the executor's end (executor.prover_bytes:
+    N proofs): the larger of the executor's peak (its own prover_bytes:
     tapes, witness columns, arenas, streams) and the hash (the streams, once
     the tapes and arenas are freed, and the largest transient of one
-    stream's hash, blake3.hash_columns_transient_bytes), plus the index
-    tables.  The round keys are freed before the executor runs.  The port
-    runs every depth on the levelized executor, so there is no scan
-    branch."""
+    stream's hash, blake3.hash_columns_transient_bytes), plus the
+    executor's index or wave tables.  The round keys are freed before the
+    executor runs.  The executor is the one TorchKKW picks (uses_waves):
+    the levelized one (executor.py) or the wave executor (scan.py)."""
     hashing = stream_bytes(cc, R) + max(
         b3.hash_columns_transient_bytes(n, R) for n in (cc.onl2, cc.pre2, cc.onlz, cc.prez))
+    if uses_waves(cc):
+        return max(scan.prover_bytes(cc, R), hashing) + scan.table_bytes(cc)
     return max(prover_bytes(cc, R), hashing) + table_bytes(cc)
 
 
@@ -366,13 +384,18 @@ class TorchKKW:
         check_program(program)
         self.device = default_device() if device is None else torch.device(device)
         self.cc = compile_program(program)
-        self._executors: Dict[tuple, Executor] = {}
+        self._executors: Dict[tuple, object] = {}
         self.last_timings: Dict[str, dict] = {}
 
-    def _executor(self, mode: int, R: int) -> Executor:
+    def _executor(self, mode: int, R: int):
+        """The executor of one role at R lanes, built once: the wave
+        executor (scan.ScanExecutor) for pure-GF(2) circuits deeper than
+        SCAN_DEPTH_THRESHOLD levels, the levelized Executor otherwise
+        (uses_waves).  Every entry point takes its executors here."""
         key = (mode, R)
         if key not in self._executors:
-            self._executors[key] = Executor(self.cc, mode, R, self.device)
+            make = scan.ScanExecutor if uses_waves(self.cc) else Executor
+            self._executors[key] = make(self.cc, mode, R, self.device)
         return self._executors[key]
 
     def _omit_tensor(self, omit: Optional[np.ndarray]) -> Optional[torch.Tensor]:

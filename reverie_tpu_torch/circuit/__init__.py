@@ -1,3 +1,4 @@
+from . import dsl, sha256
 from .bincode import dump_program, dumps_program, load_program
 from .ir import CombineOp, Gate, Kind, Op, Program
 
@@ -7,7 +8,9 @@ __all__ = [
     "Kind",
     "Op",
     "Program",
+    "dsl",
     "dump_program",
     "dumps_program",
     "load_program",
+    "sha256",
 ]

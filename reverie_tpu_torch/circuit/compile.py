@@ -1,10 +1,12 @@
 """Circuit compiler: a composite program -> static-level gate tables.
 
-The port's copy of the levelized part of reverie_tpu/circuit/compile.py
-(the compiled-kind constants, `_DomState`, `CompiledCircuit`, `_Builder`,
-`compile_program`).  Left out: the pickle disk cache (`cache_key`) and the
-segment carry plumbing (`carry_in`, `out_val_map`) with `compile_segments`
-and `build_waves`, which belong to the streaming and scan slices.
+The port's copy of reverie_tpu/circuit/compile.py: the compiled-kind
+constants, `_DomState`, `CompiledCircuit`, `_Builder`, `compile_program`,
+and the wave packing of the scan executor (`WaveTable`, `_NOP`,
+`_circuit_has_z64`, `build_waves`, z64 columns included).  Left out: the
+pickle disk cache (`cache_key`) and the segment carry plumbing
+(`carry_in`, `out_val_map`) with `compile_segments`, which belong to the
+streaming slice.
 
   * SSA conversion: the mutable wire arena becomes an immutable value arena
     (each gate output is a fresh value id), so gates within a level are
@@ -28,7 +30,7 @@ land in their program-order positions.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -112,6 +114,10 @@ class CompiledCircuit:
     input_slotsz: np.ndarray
     corr_slotsz: np.ndarray
     recon_slotsz: np.ndarray
+    #: build_waves(self, W) by wave width W, built on first use
+    #: (backend/scan.py `waves`)
+    wave_tables: Dict[int, WaveTable] = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
 
     @property
     def depth(self) -> int:
@@ -323,3 +329,268 @@ def compile_program(program: Sequence[CombineOp]) -> CompiledCircuit:
         corr_slotsz=np.asarray(co_slotsz, dtype=np.int64),
         recon_slotsz=np.asarray(re_slotsz, dtype=np.int64),
     )
+
+
+@dataclasses.dataclass
+class WaveTable:
+    """Uniform (n_waves, W) gate tables for lax.scan execution.
+
+    Every slot carries a unified gate encoding; unused fields point at trash
+    rows (dst = n_vals, onl/pre = stream length) so the scan body is fully
+    uniform.  Each wave carries W GF2 slots plus (when the circuit has z64 or
+    B2A ops) Wz z64-side slots; B2A_CORR/B2A_OUT are z64-side slots that
+    additionally index the GF2 arenas/streams through the b* columns.
+    """
+
+    op: np.ndarray  # (n, W) int32 opcode (G_*)
+    dst: np.ndarray
+    a: np.ndarray
+    b: np.ndarray
+    t0: np.ndarray  # tape index (INPUT/RANDOM mask, MUL mask_ab)
+    t1: np.ndarray  # MUL mask_new
+    wit: np.ndarray  # witness index (INPUT)
+    inrec: np.ndarray  # input record index (INPUT)
+    rec: np.ndarray  # recon record index (MUL/ASSERT)
+    corr: np.ndarray  # correction record index (MUL)
+    onl: np.ndarray  # online byte slot (or trash)
+    pre: np.ndarray  # preprocess byte slot (or trash)
+    cbit: np.ndarray  # constant bit
+
+    # -- z64-side slot columns; None when the circuit is pure GF2 ----------
+    zop: Optional[np.ndarray] = None  # (n, Wz) opcode (G_* | Z_SUB | B2A_*)
+    zdst: Optional[np.ndarray] = None  # z64 value slot (trash = n_valsz)
+    za: Optional[np.ndarray] = None
+    zb: Optional[np.ndarray] = None
+    zt0: Optional[np.ndarray] = None  # z64 tape row (INPUT/RANDOM/B2A_CORR/MUL ab)
+    zt1: Optional[np.ndarray] = None  # z64 tape row (MUL new)
+    zwit: Optional[np.ndarray] = None  # z64 witness index (INPUT)
+    zinrec: Optional[np.ndarray] = None  # z64 input record (INPUT)
+    zrec: Optional[np.ndarray] = None  # z64 recon record (MUL/ASSERT)
+    zcorr: Optional[np.ndarray] = None  # z64 correction record (MUL/B2A_CORR)
+    zzr: Optional[np.ndarray] = None  # z64 'r' value slot (B2A_OUT)
+    zclo: Optional[np.ndarray] = None  # (n, Wz) uint32 const low word
+    zchi: Optional[np.ndarray] = None
+    zonl: Optional[np.ndarray] = None  # (n, Wz, 64) onlz byte rows (trash-padded)
+    zpre: Optional[np.ndarray] = None  # (n, Wz, 8) prez byte rows
+    bbits: Optional[np.ndarray] = None  # (n, Wz, 64) gf2 value slots (B2A bits)
+    brec: Optional[np.ndarray] = None  # (n, Wz, 64) gf2 recon records (B2A_OUT)
+    bonl: Optional[np.ndarray] = None  # (n, Wz, 64) gf2 onl byte rows (B2A_OUT)
+
+    @property
+    def n_waves(self) -> int:
+        return self.op.shape[0]
+
+    @property
+    def has_z64(self) -> bool:
+        return self.zop is not None
+
+
+_NOP = 127  # opcode for padding slots
+
+
+_GF2_COLS = ("op", "dst", "a", "b", "t0", "t1", "wit", "inrec", "rec",
+             "corr", "onl", "pre", "cbit")
+_Z64_SCALAR_COLS = ("zop", "zdst", "za", "zb", "zt0", "zt1", "zwit",
+                    "zinrec", "zrec", "zcorr", "zzr", "zclo", "zchi")
+_Z64_VEC_COLS = ("zonl", "zpre", "bbits", "brec", "bonl")
+
+
+def _circuit_has_z64(cc: CompiledCircuit) -> bool:
+    for lvl_tables in cc.levels:
+        for key in lvl_tables:
+            if key // N_KINDS != GF2:
+                return True
+    return False
+
+
+def build_waves(cc: CompiledCircuit, W: int = 256, Wz: int = 0) -> WaveTable:
+    """Pack the levelized gates into fixed-width waves.
+
+    A gate lands in the first non-full wave strictly after the waves that
+    produced its operands (SSA guarantees correctness for any such packing;
+    z64/B2A slots additionally wait for their GF2 dependencies).  Each wave
+    has W GF2 slots and, when the circuit has z64/B2A ops, Wz z64 slots.
+    """
+    has_z = _circuit_has_z64(cc)
+    if has_z and Wz <= 0:
+        nz = sum(
+            len(next(iter(cols.values())))
+            for lvl in cc.levels
+            for key, cols in lvl.items()
+            if key // N_KINDS != GF2
+        )
+        mean = max(1, nz // max(1, cc.depth))
+        Wz = 4
+        while Wz < min(64, 2 * mean):
+            Wz *= 2
+
+    waves: List[Dict[str, List]] = []
+    fill: List[int] = []
+    fillz: List[int] = []
+    wave_of_val = np.full(max(cc.n_vals2, 1), -1, dtype=np.int64)
+    wave_of_valz = np.full(max(cc.n_valsz, 1), -1, dtype=np.int64)
+    trash_dst = cc.n_vals2
+    trash_onl = cc.onl2
+    trash_pre = cc.pre2
+    trash_dstz = cc.n_valsz
+    trash_onlz = cc.onlz
+    trash_prez = cc.prez
+
+    def new_wave() -> int:
+        waves.append({k: [] for k in
+                      _GF2_COLS + _Z64_SCALAR_COLS + _Z64_VEC_COLS})
+        fill.append(0)
+        fillz.append(0)
+        return len(waves) - 1
+
+    def place(w_min: int, z: bool, cols: dict) -> int:
+        f = fillz if z else fill
+        cap = Wz if z else W
+        w = max(w_min, 0)
+        while True:
+            while w >= len(waves):
+                new_wave()
+            if f[w] < cap:
+                break
+            w += 1
+        tbl = waves[w]
+        names = (_Z64_SCALAR_COLS + _Z64_VEC_COLS) if z else _GF2_COLS
+        for k in names:
+            tbl[k].append(cols.get(k, 0))
+        f[w] += 1
+        return w
+
+    for lvl_tables in cc.levels:
+        for key, cols in sorted(lvl_tables.items()):
+            domain, kind = divmod(key, N_KINDS)
+            n = len(next(iter(cols.values())))
+            for i in range(n):
+                g = {
+                    k: (v[i] if k == "bits" else int(v[i]))
+                    for k, v in cols.items()
+                }
+                if domain == GF2:
+                    deps = [
+                        wave_of_val[g[dk]] for dk in ("a", "b") if dk in g
+                    ]
+                    w_min = (max(deps) + 1) if deps else 0
+                    row = dict(
+                        op=kind,
+                        dst=g.get("dst", trash_dst),
+                        a=g.get("a", 0),
+                        b=g.get("b", 0),
+                        t0=g.get("tape", g.get("tape_ab", 0)),
+                        t1=g.get("tape_new", 0),
+                        wit=g.get("wit", 0),
+                        inrec=g.get("rec", 0) if kind == G_INPUT else 0,
+                        rec=g.get("rec", 0) if kind in (G_MUL, G_ASSERT) else 0,
+                        corr=g.get("corr", 0),
+                        onl=g.get("onl", trash_onl)
+                        if kind in (G_MUL, G_ASSERT, G_INPUT) else trash_onl,
+                        pre=g.get("pre", trash_pre) if kind == G_MUL else trash_pre,
+                        cbit=int(g.get("const", 0)) & 1,
+                    )
+                    w = place(w_min, False, row)
+                    if "dst" in g:
+                        wave_of_val[g["dst"]] = w
+                else:
+                    deps = [
+                        wave_of_valz[g[dk]] for dk in ("a", "b", "zr") if dk in g
+                    ]
+                    if "bits" in g:
+                        deps.extend(wave_of_val[int(v)] for v in g["bits"])
+                    w_min = (max(deps) + 1) if deps else 0
+                    const = int(g.get("const", 0))
+                    # z64 online event rows: MUL/ASSERT share events are 64
+                    # bytes, INPUT correction events 8; unused rows -> trash
+                    if kind in (G_MUL, G_ASSERT):
+                        zonl = list(range(g["onl"], g["onl"] + 64))
+                    elif kind == G_INPUT:
+                        zonl = list(range(g["onl"], g["onl"] + 8)) + [trash_onlz] * 56
+                    else:
+                        zonl = [trash_onlz] * 64
+                    if kind in (G_MUL, B2A_CORR):
+                        zpre = list(range(g["pre"], g["pre"] + 8))
+                    else:
+                        zpre = [trash_prez] * 8
+                    if kind in (B2A_CORR, B2A_OUT):
+                        bbits = [int(v) for v in g["bits"]]
+                    else:
+                        bbits = [trash_dst] * 64
+                    if kind == B2A_OUT:
+                        brec = list(range(g["rec"], g["rec"] + 64))
+                        bonl = list(range(g["onl"], g["onl"] + 64))
+                    else:
+                        brec = [0] * 64
+                        bonl = [trash_onl] * 64
+                    row = dict(
+                        zop=kind,
+                        zdst=g.get("dst", trash_dstz),
+                        za=g.get("a", 0),
+                        zb=g.get("b", 0),
+                        zt0=g.get("tape", g.get("tape_ab", 0)),
+                        zt1=g.get("tape_new", 0),
+                        zwit=g.get("wit", 0),
+                        zinrec=g.get("rec", 0) if kind == G_INPUT else 0,
+                        zrec=g.get("rec", 0) if kind in (G_MUL, G_ASSERT) else 0,
+                        zcorr=g.get("corr", 0),
+                        zzr=g.get("zr", 0),
+                        zclo=const & 0xFFFFFFFF,
+                        zchi=(const >> 32) & 0xFFFFFFFF,
+                        zonl=zonl, zpre=zpre, bbits=bbits, brec=brec, bonl=bonl,
+                    )
+                    w = place(w_min, True, row)
+                    if "dst" in g:
+                        wave_of_valz[g["dst"]] = w
+
+    # pad every wave to W / Wz with NOP slots
+    for tbl, cnt, cntz in zip(waves, fill, fillz):
+        for _ in range(W - cnt):
+            tbl["op"].append(_NOP)
+            tbl["dst"].append(trash_dst)
+            for k in ("a", "b", "t0", "t1", "wit", "inrec", "rec", "corr", "cbit"):
+                tbl[k].append(0)
+            tbl["onl"].append(trash_onl)
+            tbl["pre"].append(trash_pre)
+        if has_z:
+            for _ in range(Wz - cntz):
+                tbl["zop"].append(_NOP)
+                tbl["zdst"].append(trash_dstz)
+                for k in ("za", "zb", "zt0", "zt1", "zwit", "zinrec", "zrec",
+                          "zcorr", "zzr", "zclo", "zchi"):
+                    tbl[k].append(0)
+                tbl["zonl"].append([trash_onlz] * 64)
+                tbl["zpre"].append([trash_prez] * 8)
+                tbl["bbits"].append([trash_dst] * 64)
+                tbl["brec"].append([0] * 64)
+                tbl["bonl"].append([trash_onl] * 64)
+
+    def arr(name, dtype=np.int32):
+        return np.asarray([tbl[name] for tbl in waves], dtype=dtype)
+
+    wt = WaveTable(
+        op=arr("op"), dst=arr("dst"), a=arr("a"), b=arr("b"),
+        t0=arr("t0"), t1=arr("t1"), wit=arr("wit"), inrec=arr("inrec"),
+        rec=arr("rec"), corr=arr("corr"), onl=arr("onl"), pre=arr("pre"),
+        cbit=arr("cbit"),
+    )
+    if has_z:
+        wt.zop = arr("zop")
+        wt.zdst = arr("zdst")
+        wt.za = arr("za")
+        wt.zb = arr("zb")
+        wt.zt0 = arr("zt0")
+        wt.zt1 = arr("zt1")
+        wt.zwit = arr("zwit")
+        wt.zinrec = arr("zinrec")
+        wt.zrec = arr("zrec")
+        wt.zcorr = arr("zcorr")
+        wt.zzr = arr("zzr")
+        wt.zclo = arr("zclo", np.uint32)
+        wt.zchi = arr("zchi", np.uint32)
+        wt.zonl = arr("zonl")
+        wt.zpre = arr("zpre")
+        wt.bbits = arr("bbits")
+        wt.brec = arr("brec")
+        wt.bonl = arr("bonl")
+    return wt

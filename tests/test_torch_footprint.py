@@ -2,8 +2,10 @@
 really holds: the peak of live tensor bytes over `TorchKKW.prove_batch` on
 the CPU, from the profiler's allocation trace, with each CUDA kernel's
 plain version replaced by an allocation of its output (the kernels allocate
-nothing else; the plain versions' working sets exist only on the CPU).  The
-circuits and the 25% tolerance are tests/test_footprint.py's."""
+nothing else; the plain versions' working sets exist only on the CPU; the
+wave kernel allocates its arena and its outputs).  The circuits and the 25%
+tolerance are tests/test_footprint.py's, with a deep GF(2) circuit for the
+wave executor beside them."""
 
 import numpy as np
 import pytest
@@ -11,9 +13,11 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from reverie_tpu_torch import TorchKKW, device_footprint, largest_batch
+from reverie_tpu_torch.backend import host, scan
 from reverie_tpu_torch.circuit.builders import (
     mixed_b2a_circuit,
     mul_bench_circuit,
+    wide_and_circuit,
     z64_mul_bench_circuit,
 )
 from reverie_tpu_torch.crypto.kernels import aes_tape, aes_tape_z64, blake3 as b3
@@ -22,6 +26,7 @@ CIRCUITS = {
     "gf2": lambda: mul_bench_circuit(3000),
     "z64": lambda: z64_mul_bench_circuit(300),
     "mixed_b2a": mixed_b2a_circuit,
+    "deep_gf2": lambda: wide_and_circuit(3000, width=16, seed=1),  # the wave executor
 }
 
 
@@ -47,17 +52,29 @@ def kernel_outputs_only(monkeypatch):
     monkeypatch.setattr(b3, "chunk_cvs", lambda buf, n, base=0: torch.zeros(
         (8, n, buf.shape[1]), dtype=torch.int32))
 
+    def wave_gf2(table, mode, tape, xin, co2, re2, n_vals, n_onl, n_pre):
+        R = tape.shape[1]
+        out = (torch.zeros((max(n_onl, 1), R), dtype=torch.uint8),
+               torch.zeros((max(n_pre, 1), R), dtype=torch.uint8),
+               torch.zeros((R,), dtype=torch.bool))
+        torch.empty((n_vals, R), dtype=torch.int16).zero_()  # the arena, while it runs
+        return out
+
+    monkeypatch.setattr(scan, "wave_gf2", wave_gf2)
+
 
 @pytest.mark.parametrize("n", [1, 2])
 @pytest.mark.parametrize("name", list(CIRCUITS))
 def test_footprint_tracks_a_prove(kernel_outputs_only, name, n):
     prog, wit2, witz = CIRCUITS[name]()
     port = TorchKKW(prog, device=torch.device("cpu"))
+    assert host.uses_waves(port.cc) == (name == "deep_gf2")
     seeds = np.random.RandomState(n).randint(0, 256, (n, 256, 16), dtype=np.uint8)
     peak = live_peak(lambda: port.prove_batch([(wit2, witz)] * n, seeds))
-    # the index tables come from numpy without a copy on the CPU
+    # the index or wave tables come from numpy without a copy on the CPU
     (ex,) = port._executors.values()
-    peak += sum(t.numel() * t.element_size() for t in ex.tables.values())
+    tables = [ex.table] if isinstance(ex, scan.ScanExecutor) else ex.tables.values()
+    peak += sum(t.numel() * t.element_size() for t in tables)
     pred = device_footprint(port.cc, n * 256)
     assert abs(pred - peak) <= 0.25 * peak, (pred, peak)
 
@@ -77,3 +94,21 @@ def test_largest_batch_fits_two_batches(n, most, want):
     assert largest_batch(cc, free, most) == want
     # a byte less, and n proofs no longer fit twice
     assert largest_batch(cc, free - 1, most) == min(n - 1, most)
+
+
+def test_chunked_sha256_peak_within_the_smokes_limit(kernel_outputs_only):
+    """prove_batch_chunked keeps the chunk before alive (its streams await
+    their challenge) while the next runs: on the SHA-256 statement, at
+    chunk 1, the peak stays within chip_smoke.py's limit of the one-chunk
+    footprint."""
+    import chip_smoke
+    from reverie_tpu_torch.parity import sha256_bench
+
+    prog, wit2, witz = sha256_bench()
+    port = TorchKKW(prog, device=torch.device("cpu"))
+    seeds = np.random.RandomState(3).randint(0, 256, (3, 256, 16), dtype=np.uint8)
+    peak = live_peak(lambda: port.prove_batch_chunked([(wit2, witz)] * 3, seeds, chunk=1))
+    (ex,) = port._executors.values()
+    peak += ex.table.numel() * ex.table.element_size()
+    fp = device_footprint(port.cc, 256)
+    assert fp <= peak <= chip_smoke.PEAK_OVER_FOOTPRINT * fp, (peak, fp)

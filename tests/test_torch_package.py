@@ -12,6 +12,9 @@ import pytest
 import torch
 
 from reverie_tpu_torch import _build, device as tdevice
+from reverie_tpu_torch.backend import executor as tex, scan
+from reverie_tpu_torch.circuit import CombineOp, Gate, Op
+from reverie_tpu_torch.circuit.compile import _NOP, G_ASSERT, compile_program
 from reverie_tpu_torch.crypto.kernels import aes_planes, aes_tape, aes_tape_z64, blake3 as b3
 from reverie_tpu_torch.tools import r4_bwroof, r4_extract_probe, r5_u8emit
 
@@ -23,6 +26,7 @@ sys.modules["jax"] = None
 import reverie_tpu_torch
 import reverie_tpu_torch._build, reverie_tpu_torch.device, reverie_tpu_torch.parity
 import reverie_tpu_torch.backend.executor, reverie_tpu_torch.backend.host
+import reverie_tpu_torch.backend.scan, reverie_tpu_torch.circuit.sha256
 import reverie_tpu_torch.crypto.kernels.aes_tape, reverie_tpu_torch.crypto.kernels.blake3
 import reverie_tpu_torch.crypto.kernels.aes_tape_z64, reverie_tpu_torch.crypto.kernels.aes_planes
 import reverie_tpu_torch.tools.r2_measure, reverie_tpu_torch.tools.r4_bwroof
@@ -185,6 +189,102 @@ def test_planes_kernel_model_matches_plain():
             out[:, b, w] = stage[stage_at(np.arange(128), w)]
     ref = aes_planes.aes_ctr_planes_ref(rk, B).numpy().view(np.uint32).reshape(128, B, Kw)
     assert np.array_equal(out, ref)
+
+
+#: opcodes of a random wave slot (circuit/compile.py G_*), NOP (127) apart
+_WAVE_KINDS = (0, 1, 2, 3, 4, 5, 7, 8)
+
+
+def random_waves(seed: int, n_waves: int, W: int, mode: int, nop_wave: int = -1):
+    """A random pure-GF(2) wave table in scan.wave_table's layout, as
+    build_waves would pack it: every operand made in an earlier wave (or
+    value 0), fresh dst values, distinct event rows, unused rows at the
+    trash rows, NOP slots mixed in (every slot of wave `nop_wave`), and
+    ASSERT_ZERO slots in the middle wave and at the end.  -> (table, sizes) where sizes are the rows of the
+    arena, the streams and the inputs."""
+    rng = np.random.RandomState(seed)
+    m2, n_x, n_rec, n_corr = 50, 6, 30, 20
+    avail, masked, n_vals, n_onl, n_pre = [0], [], 1, 0, 0
+    slots = []
+    asserts = {(n_waves // 2, 0), (n_waves - 1, W - 1)}
+    for w in range(n_waves):
+        made, made_masked = [], []
+        for j in range(W):
+            if w == nop_wave or ((w, j) not in asserts and rng.rand() < 0.2):
+                slots.append([_NOP, -1, 0, 0, 0, 0, 0, 0, 0, -2, -3, 0])
+                continue
+            op = G_ASSERT if (w, j) in asserts else int(rng.choice(_WAVE_KINDS))
+            a, b = (int(v) for v in rng.choice(avail, 2))
+            if op == G_ASSERT and masked:  # a value with a random mask: it
+                a = int(rng.choice(masked))  # fails in about half the reps
+            row = [op, -1, a, b, int(rng.randint(m2)), int(rng.randint(m2)),
+                   int(rng.randint(n_x)), int(rng.randint(n_rec)), int(rng.randint(n_corr)),
+                   -2, -3, int(rng.randint(2))]
+            if op != G_ASSERT:
+                row[1] = n_vals
+                made.append(n_vals)
+                if op in (0, 5, 7):  # INPUT, MUL, RANDOM
+                    made_masked.append(n_vals)
+                n_vals += 1
+            if op in (0, 5, G_ASSERT):  # INPUT, MUL, ASSERT_ZERO: an onl event
+                row[9], n_onl = n_onl, n_onl + 1
+            if op == 5:  # MUL: a pre event
+                row[10], n_pre = n_pre, n_pre + 1
+            slots.append(row)
+        avail += made
+        masked += made_masked
+    table = np.asarray(slots, dtype=np.int64).reshape(n_waves, W, len(scan.SLOT_COLS))
+    table[..., 1][table[..., 1] == -1] = n_vals  # the trash rows of build_waves
+    table[..., 9][table[..., 9] == -2] = n_onl
+    table[..., 10][table[..., 10] == -3] = n_pre
+    if mode == tex.VERIFY_PRE:
+        table[..., 6] = 0
+    sizes = dict(n_vals=n_vals, n_onl=n_onl, n_pre=n_pre, m2=m2, n_x=n_x, n_rec=n_rec,
+                 n_corr=n_corr)
+    return table.astype(np.int32), sizes
+
+
+def wave_inputs(seed: int, mode: int, R: int, sizes: dict, device):
+    """The kernel's inputs at R lanes: a random tape, and random 0/1 witness
+    bits (PROVER) or 0/1 input and correction records and recon bytes at
+    each rep's omitted player's bit (VERIFY_ONL)."""
+    rng = np.random.RandomState(seed)
+
+    def rows(n, high=2):
+        return torch.from_numpy(rng.randint(0, high, (n, R)).astype(np.uint8)).to(device)
+
+    tape = rows(sizes["m2"], 256)
+    xin = co2 = re2 = None
+    if mode == tex.PROVER:
+        xin = rows(sizes["n_x"])
+    elif mode == tex.VERIFY_ONL:
+        xin, co2 = rows(sizes["n_x"]), rows(sizes["n_corr"])
+        omit = rng.randint(0, 8, R)
+        re2 = torch.from_numpy((rng.randint(0, 2, (sizes["n_rec"], R)) << (7 - omit)).astype(
+            np.uint8)).to(device)
+    return tape, xin, co2, re2
+
+
+def run_waves(fn, table, mode, inputs, sizes):
+    return fn(table, mode, *inputs, sizes["n_vals"], sizes["n_onl"], sizes["n_pre"])
+
+
+@pytest.mark.parametrize("mode", [tex.PROVER, tex.VERIFY_ONL, tex.VERIFY_PRE])
+def test_random_waves_fail_some_reps_on_cpu(mode):
+    """The random tables of the wave-kernel tests, through the wrapper on
+    the CPU (the plain version, no launch): their ASSERT_ZERO slots fail in
+    some reps and pass in others, and every stream row is an event."""
+    table, sizes = random_waves(4, 30, 40, mode, nop_wave=3)
+    n0 = scan.LAUNCHES
+    onl, pre, fail = run_waves(scan.wave_gf2, torch.from_numpy(table), mode,
+                               wave_inputs(4, mode, 256, sizes, torch.device("cpu")), sizes)
+    assert scan.LAUNCHES == n0
+    assert onl.shape == (sizes["n_onl"], 256) and pre.shape == (sizes["n_pre"], 256)
+    if mode == tex.VERIFY_PRE:
+        assert not bool(fail.any()) and not bool(onl.any())
+    else:
+        assert 0 < int(fail.sum()) < 256
+    assert bool((pre == 0xFF).any()) and bool(((pre == 0) | (pre == 0xFF)).all())
 
 
 def test_chip_smoke_fails_without_cuda():
@@ -371,3 +471,86 @@ def test_new_cuda_wrappers_reject_bad_input(cuda_device):
     with pytest.raises(ValueError):  # R % 4 != 0
         r4_extract_probe.pack_shift(torch.zeros(9, 6, dtype=torch.uint8, device=cuda_device),
                                     torch.zeros(6, dtype=torch.uint8, device=cuda_device))
+
+
+# (R, n_waves, W, nop_wave): R = 3 and 37 leave lanes of a 32-rep block
+# past R, R = 40 and 216 are the verifiers' widths, 512 two proofs; one wave;
+# an all-NOP wave; W = 13 below and W = 40 and 64 above the kernel's 32 slot
+# threads (40 not a multiple of them)
+WAVE_CASES = [(3, 1, 5, -1), (37, 40, 13, 7), (40, 60, 40, 0), (216, 30, 40, 29),
+              (256, 100, 32, 50), (512, 80, 64, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R, n_waves, W, nop_wave", WAVE_CASES)
+@pytest.mark.parametrize("mode", [tex.PROVER, tex.VERIFY_ONL, tex.VERIFY_PRE])
+def test_wave_kernel_matches_plain(cuda_device, mode, R, n_waves, W, nop_wave):
+    table, sizes = random_waves(R + W, n_waves, W, mode, nop_wave)
+    table = torch.from_numpy(table).to(cuda_device)
+    inputs = wave_inputs(R, mode, R, sizes, cuda_device)
+    n0 = scan.LAUNCHES
+    got = run_waves(scan.wave_gf2, table, mode, inputs, sizes)
+    assert scan.LAUNCHES == n0 + 1
+    torch.cuda.synchronize()
+    want = run_waves(scan.wave_gf2_ref, table, mode, inputs, sizes)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if mode == tex.PROVER and R >= 37:  # a failing ASSERT_ZERO in some reps only
+        assert 0 < int(got[2].sum()) < R
+
+
+def deep_chain(depth: int):
+    """A GF(2) program `depth` levels deep over the port's own gates: a chain
+    of MUL, ADDC and MULC from two inputs and a random, with a passing
+    ASSERT_ZERO of x + x on the way."""
+    g = CombineOp.gf2
+    prog = [g(Gate(Op.INPUT, dst=0)), g(Gate(Op.INPUT, dst=1)), g(Gate(Op.RANDOM, dst=2))]
+    for i in range(depth):
+        op = (Op.MUL, Op.ADDC, Op.MULC)[i % 3]
+        src2 = {"src2": (1, 2)[i % 2]} if op == Op.MUL else {"const": 1}
+        prog.append(g(Gate(op, dst=3 + i, src1=2 + i if i else 0, **src2)))
+    prog += [g(Gate(Op.ADD, dst=3 + depth, src1=2 + depth, src2=2 + depth)),
+             g(Gate(Op.ASSERT_ZERO, src1=3 + depth))]
+    return prog
+
+
+@pytest.mark.cuda
+def test_scan_executor_on_cuda_never_takes_the_plain_version(cuda_device, monkeypatch):
+    """ScanExecutor on the card is one launch per call, equal to the CPU
+    executor's outputs, and never calls wave_gf2_ref."""
+    cc = compile_program(deep_chain(200))
+    assert cc.depth > 128
+    rng = np.random.RandomState(2)
+    inp = {"tape": rng.randint(0, 256, (cc.m2, 256), dtype=np.uint8),
+           "wit2": rng.randint(0, 2, (cc.n_wit2, 256), dtype=np.uint8)}
+    want = scan.ScanExecutor(cc, tex.PROVER, 256, torch.device("cpu"))(
+        {k: torch.from_numpy(v) for k, v in inp.items()})
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("the plain version ran on the card")
+
+    monkeypatch.setattr(scan, "wave_gf2_ref", no_plain)
+    ex = scan.ScanExecutor(cc, tex.PROVER, 256, cuda_device)
+    n0 = scan.LAUNCHES
+    got = ex({k: torch.from_numpy(v).to(cuda_device) for k, v in inp.items()})
+    assert scan.LAUNCHES == n0 + 1
+    for key in ("onl2", "pre2", "onlz", "prez", "fail"):
+        assert torch.equal(got[key].cpu(), want[key]), key
+
+
+@pytest.mark.cuda
+def test_wave_kernel_rejects_bad_input(cuda_device):
+    table, sizes = random_waves(1, 4, 8, tex.PROVER)
+    table = torch.from_numpy(table).to(cuda_device)
+    tape, xin, _, _ = wave_inputs(1, tex.PROVER, 64, sizes, cuda_device)
+    args = (sizes["n_vals"], sizes["n_onl"], sizes["n_pre"])
+    with pytest.raises(ValueError):  # the table off the card
+        scan.wave_gf2(table.cpu(), tex.PROVER, tape, xin, None, None, *args)
+    with pytest.raises(ValueError):  # a table of another type
+        scan.wave_gf2(table.to(torch.int64), tex.PROVER, tape, xin, None, None, *args)
+    with pytest.raises(ValueError):  # a tape that is not contiguous
+        scan.wave_gf2(table, tex.PROVER, tape.t().contiguous().t(), xin, None, None, *args)
+    with pytest.raises(ValueError):  # a witness of another width
+        scan.wave_gf2(table, tex.PROVER, tape, xin[:, :32].contiguous(), None, None, *args)
+    with pytest.raises(ValueError):
+        scan.wave_gf2(table, 3, tape, xin, None, None, *args)

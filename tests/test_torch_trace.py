@@ -12,8 +12,8 @@ from reverie_tpu_torch import trace
 CUDA, CPU = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
 
 
-def ev(name, start, end, device=CUDA):
-    return SimpleNamespace(name=name, device_type=device,
+def ev(name, start, end, device=CUDA, annotation=False):
+    return SimpleNamespace(name=name, device_type=device, is_user_annotation=annotation,
                            time_range=SimpleNamespace(start=start, end=end))
 
 
@@ -27,6 +27,7 @@ EVENTS = [
     ev("(anonymous namespace)::blake3_chunk_cvs_kernel(...)", 50.0, 51.0),
     ev("xor_kernel", 60.0, 64.0),
     ev("xor_kernel", 70.0, 74.0),
+    ev("ProfilerStep*", 0.0, 100.0, annotation=True),  # the step's span on the card
 ]
 
 
@@ -44,7 +45,7 @@ def test_by_kernel_lists_the_top_names_and_the_ports_kernels(top):
     assert by_name["(anonymous namespace)::blake3_chunk_cvs_kernel(...)"] == (
         1, pytest.approx(0.001))
     assert ("xor_kernel" in by_name) == (top == 3)
-    assert "aten::add" not in by_name
+    assert "aten::add" not in by_name and "ProfilerStep*" not in by_name
 
 
 def test_host_api_sums_the_runtime_calls():
@@ -52,3 +53,30 @@ def test_host_api_sums_the_runtime_calls():
     assert rows == [{"name": "cudaHostAlloc", "calls": 1, "host_ms": pytest.approx(0.04)},
                     {"name": "cudaLaunchKernel", "calls": 2, "host_ms": pytest.approx(0.004)}]
     assert trace.host_api(EVENTS, 1)[0]["name"] == "cudaHostAlloc"
+
+
+def test_traced_launches_counts_each_wrappers_kernels():
+    """A leg's trace is whole when it holds as many kernels of each wrapper
+    as the wrapper counted; host events of the same name do not count."""
+    events = EVENTS + [ev("void (anonymous namespace)::scan_gf2_kernel<0>(...)", 80.0, 90.0),
+                       ev("void (anonymous namespace)::scan_gf2_kernel<1>(...)", 91.0, 92.0),
+                       ev("scan_gf2_kernel", 93.0, 94.0, CPU)]
+    launched = {"aes_tape_gf2": 1, "blake3_chunk_cvs": 1, "scan_gf2": 2}
+    assert trace.traced_launches(events, launched) == {
+        "aes_tape_gf2": 0, "blake3_chunk_cvs": 1, "scan_gf2": 2}
+
+
+def test_cells_are_the_smokes_cells():
+    """One definition of the cells for trace.py and chip_smoke.py: the
+    SHA-256 cell is the wave executor's, in chunks of 64, and the smoke's
+    chunked batch is 512 proofs of it (bench.py's config 5)."""
+    import chip_smoke
+    from reverie_tpu_torch.backend import host
+    from reverie_tpu_torch.circuit.compile import compile_program
+
+    cell = trace.CELLS["sha256_1block"]
+    prog, wit2, witz = cell.make()
+    assert host.uses_waves(compile_program(prog)) and (len(wit2), witz) == (512, [])
+    assert (cell.most, cell.many) == (64, False)
+    assert chip_smoke.SHA256_CHUNKS * cell.most == 512
+    assert [c.most for k, c in trace.CELLS.items() if c.many] == [8, 4]
