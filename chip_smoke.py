@@ -33,21 +33,25 @@ prints no result line:
      b2a_seeds.bin, and 2,000 Z64 MULs equal to the golden's digest;
   8. the SHA-256 phase, on reverie_tpu's SHA-256 preimage statement
      (parity.sha256_bench; 5,198 levels, pure GF(2), so TorchKKW runs it on
-     the wave executor): the wave kernel (csrc/scan_gf2.cu) against its
-     plain version byte for byte on the statement's wave tables in each
-     role (R = 256, 40 with random omits and online inputs, 216) and at one
-     chunk of 64 proofs (R = 16,384, the arena past 2**31 bytes), each
-     timed with its bound, and the dependency chain alone; the levelized
+     the wave executor): the wave kernel (csrc/scan_gf2.cu) through the
+     executors' slot-allocated programs against its plain version on the
+     SSA tables, byte for byte, in each role (R = 256, 40 with random omits
+     and online inputs, 216) and at one chunk of 64 proofs (R = 16,384),
+     each timed with its bound and its launch plan (reps and shared memory
+     per block, resident blocks, slots in shared memory and spilled), the
+     three block widths at R = 256 and 16,384, the dependency chain alone,
+     and a spill case (the two-block statement at 32 reps a block); the
+     kernel's ptxas registers and spills; the levelized
      Executor on the same inputs (equal streams and fail, its time and the
      torch ops it dispatches); then TorchKKW's prove (equal to the golden's
      committed digest), verify, a tampered proof (False) and the wave
      kernel launched in each leg's executor; prove_batch_chunked of 512
      proofs at chunk 64 (bench.py's config 5), proofs 0, 63, 64 and 511
      equal to prove()'s, verify_many of 8, proofs/s, per-proof hash and the
-     peak memory against device_footprint (at most 1.25x);
+     peak memory against pipeline_footprint (at most 1.25x);
   9. the batch phase, on each main-path circuit: N from largest_batch
-     (device_footprint and the free memory; 8 proofs of 1M ANDs and 4 of
-     50k Z64 MULs where two such batches fit); prove() N times, prove_batch
+     (pipeline_footprint and the free memory; 8 proofs of 1M ANDs and 4 of
+     50k Z64 MULs where a chunk of that many fits); prove() N times, prove_batch
      and prove_many of N distinct witnesses and seeds, a first run of each
      and then two rounds in opposite orders, every proof byte-equal to
      prove()'s and verified by verify_many, with walls, proofs/s, phase
@@ -487,21 +491,41 @@ def chain_ms(dev, n_waves: int, W: int) -> float:
     t[:, 0, 0], t[:, 0, 11] = G_ADDC, 1
     t[:, 0, 1] = np.arange(1, n_waves + 1)
     t[:, 0, 2] = np.arange(n_waves)
-    table = torch.from_numpy(t).to(dev)
+    prog = scan.wave_program(t, 0, dev, 256)
     tape = torch.zeros((1, 256), dtype=torch.uint8, device=dev)
-    return cuda_ms(lambda: scan.wave_gf2(table, 0, tape, None, None, None, n_waves + 1, 0, 0),
-                   dev)
+    return cuda_ms(lambda: scan.wave_run(prog, 0, tape, None, None, None, 0, 0), dev)
 
 
-def check_waves(dev, rng, cc, clock: float) -> dict:
-    """The wave kernel (W1) on the SHA-256 tables, byte-equal to its plain
-    version on the same inputs in each role at its width and at one chunk
-    of proofs (R = 64 * 256, the arena past 2**31 bytes; the plain version
-    at the full width), each timed (CUDA events: the kernel the mean of 5,
-    the plain version one run) with its bound; the dependency chain alone
-    (chain_ms); and the levelized Executor, built directly, on the same
-    inputs in each role: equal streams and fail, its warm ms and the torch
-    ops it dispatches.  The kernels line takes the prove's R = 256."""
+def wave_plan_line(prog, mode: int, R: int) -> str:
+    """The launch of a WaveProgram at R lanes: reps and threads per block,
+    shared memory per block, resident blocks per SM and on the card, and
+    its slots in shared memory and spilled."""
+    from reverie_tpu_torch.backend import scan
+
+    per_sm = scan.resident_blocks(prog, mode, R)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = -(-R // prog.plan.reps)
+    return (f"reps_per_block={prog.plan.reps} threads={prog.plan.reps // 4 * prog.plan.threads_y} "
+            f"slots_per_thread={prog.plan.k} chunk_waves={prog.plan.chunk} "
+            f"chunk_fields={prog.plan.fields} smem_bytes_per_block={prog.smem_bytes} "
+            f"blocks={blocks} resident_blocks={per_sm * sms} ({per_sm}/SM) "
+            f"rounds={-(-blocks // (per_sm * sms))} shared_slots={prog.n_shared} "
+            f"spilled_slots={prog.n_spill}")
+
+
+def check_waves(dev, rng, cc, clock: float, ptxas: list) -> dict:
+    """The wave kernel (W1) on the SHA-256 tables, through the programs the
+    executors run (scan.circuit_program: slots, launch plan), byte-equal to
+    its plain version on the SSA table and the same inputs in each role at
+    its width and at one chunk of proofs (R = 64 * 256), each timed (CUDA
+    events: the kernel the mean of 5, the plain version one run) with its
+    bound and its launch plan; at R = 256 and 16,384 each block width (32,
+    16, 8 reps) timed, equal to the plan's; the dependency chain alone
+    (chain_ms); a spill case (the two-block SHA-256 statement at 32 reps a
+    block, its live set past shared memory); and the levelized Executor,
+    built directly, on the same inputs in each role: equal streams and
+    fail, its warm ms and the torch ops it dispatches.  The kernels line
+    takes the prove's R = 256."""
     from reverie_tpu_torch.backend import scan
     from reverie_tpu_torch.backend.executor import Executor
     from reverie_tpu_torch.roofline import wave_gf2_work
@@ -511,30 +535,45 @@ def check_waves(dev, rng, cc, clock: float) -> dict:
     wv = scan.waves(cc)
     n_waves, W = wv.op.shape
     log("sha256", f"waves n_waves={n_waves} W={W} nop_share={float((wv.op == 127).mean()):.4f} "
-        f"table_bytes={scan.table_bytes(cc)}")
+        f"table_bytes={scan.table_bytes(cc)} live_set={scan.live_set(scan.wave_table(wv, 0))}")
+    for row in ptxas:
+        if "scan_gf2" in row["kernel"]:
+            log("sha256", "ptxas " + json.dumps(row))
     rows = {0: cc.m2 + cc.n_wit2, 1: cc.m2 + cc.n_inputs2 + cc.n_corrs2 + cc.n_recons2,
             2: cc.m2}
     chunk_r = CELLS["sha256_1block"].most * 256
     res = {"max_abs_err": 0}
     for mode, R in (*WAVE_WIDTHS, (0, chunk_r)):
-        table = torch.from_numpy(scan.wave_table(wv, mode)).to(dev)
+        prog = scan.circuit_program(cc, mode, dev, R)
         inputs = wave_inputs(dev, rng, cc, mode, R)
-        args = (table, mode, *inputs, cc.n_vals2, cc.onl2, cc.pre2)
-        got = scan.wave_gf2(*args)
-        want, plain_ms = event_ms(lambda: scan.wave_gf2_ref(*args))
-        arena = cc.n_vals2 * R * 2
-        line = (f"{ROLES[mode]} R={R} n_vals2={cc.n_vals2} arena_bytes={arena} "
-                f"over_2^31={arena > 2**31} fail={int(got[2].sum())}/{R}")
+        args = (prog, mode, *inputs, cc.onl2, cc.pre2)
+        got = scan.wave_run(*args)
+        ssa = torch.from_numpy(scan.wave_table(wv, mode)).to(dev)
+        want, plain_ms = event_ms(lambda: scan.wave_gf2_ref(
+            ssa, mode, *inputs, cc.n_vals2, cc.onl2, cc.pre2))
+        line = f"{ROLES[mode]} R={R} fail={int(got[2].sum())}/{R}"
         for name, g, w in zip(("onl2", "pre2", "fail"), got, want):
             check("scan_gf2", res, g.to(torch.uint8), w.to(torch.uint8), f"{line} {name}")
-        del want
+        del want, ssa
         case = {"plain_ms": plain_ms, "library_ms": None}
         set_bound(case, *wave_gf2_work(wv.op, mode, R, rows[mode], cc.onl2, cc.pre2), clock)
-        case["ms"] = cuda_ms(lambda: scan.wave_gf2(*args), dev)
+        case["ms"] = cuda_ms(lambda: scan.wave_run(*args), dev)
         log("sha256", f"scan_gf2 {line} kernel_ms={case['ms']:.4f} plain_ms={plain_ms:.4f} "
-            f"library_ms=null bound_ms={case['bound_ms']:.4f} ({case['bound_by']})")
+            f"library_ms=null bound_ms={case['bound_ms']:.4f} ({case['bound_by']}) "
+            f"us_per_wave={case['ms'] * 1e3 / n_waves:.4f} {wave_plan_line(prog, mode, R)}")
         if R == WAVE_WIDTHS[0][1]:
             res.update(case)
+        if mode == 0 and R in (256, chunk_r):  # each block width, equal to the plan's
+            for reps in scan.REPS_PER_BLOCK:
+                other = scan.circuit_program(cc, mode, dev, R, reps=reps)
+                oargs = (other, *args[1:])
+                same = all(torch.equal(a, b) for a, b in zip(scan.wave_run(*oargs), got))
+                ms = cuda_ms(lambda: scan.wave_run(*oargs), dev)
+                log("sha256", f"scan_gf2 block width {ROLES[mode]} R={R} equal_to_plan={same} "
+                    f"kernel_ms={ms:.4f} us_per_wave={ms * 1e3 / n_waves:.4f} "
+                    f"{wave_plan_line(other, mode, R)}")
+                if not same:
+                    raise AssertionError(f"W1 at {reps} reps a block disagrees (R={R})")
         if R != chunk_r:  # the levelized executor on the same inputs
             inp = dict(zip(("tape", "wit2" if mode == 0 else "in2", "co2", "re2"), inputs))
             ex = Executor(cc, mode, R, dev)
@@ -551,21 +590,57 @@ def check_waves(dev, rng, cc, clock: float) -> dict:
                 raise AssertionError(f"the levelized Executor and the wave kernel disagree "
                                      f"({ROLES[mode]} R={R})")
             del ex, lev
-        del table, inputs, args, got
+        del prog, inputs, args, got
     ms = chain_ms(dev, n_waves, W)
     res["chain_ms"] = ms
     log("sha256", f"scan_gf2 chain n_waves={n_waves} W={W} R=256 one live slot per wave "
         f"kernel_ms={ms:.4f} us_per_wave={ms * 1e3 / n_waves:.4f}")
+    spill_case(dev, rng, res)
     return res
+
+
+def spill_case(dev, rng, res: dict) -> None:
+    """The two-block SHA-256 statement (sha256_long_preimage_statement,
+    its 4,786 live values past a 32-rep block's shared memory) at R = 256
+    and 32 reps a block, so that its longest-lived values spill to the
+    kernel's global arena: byte-equal to the plain version, timed."""
+    import hashlib
+
+    from reverie_tpu_torch.backend import scan
+    from reverie_tpu_torch.circuit.compile import compile_program
+    from reverie_tpu_torch.circuit.sha256 import sha256_long_preimage_statement
+    from reverie_tpu_torch.tools._timing import cuda_ms
+
+    prog2, _ = sha256_long_preimage_statement(hashlib.sha256(b"two blocks").digest(), 2)
+    cc2 = compile_program(prog2)
+    wv2 = scan.waves(cc2)
+    prog = scan.circuit_program(cc2, 0, dev, 256, reps=32)
+    if not prog.n_spill:
+        raise AssertionError("the spill case did not spill")
+    inputs = wave_inputs(dev, rng, cc2, 0, 256)
+    args = (prog, 0, *inputs, cc2.onl2, cc2.pre2)
+    got = scan.wave_run(*args)
+    ssa = torch.from_numpy(scan.wave_table(wv2, 0)).to(dev)
+    want, plain_ms = event_ms(lambda: scan.wave_gf2_ref(
+        ssa, 0, *inputs, cc2.n_vals2, cc2.onl2, cc2.pre2))
+    line = (f"two-block prove R=256 n_waves={wv2.op.shape[0]} "
+            f"live_set={scan.live_set(ssa.cpu().numpy())}")
+    for name, g, w in zip(("onl2", "pre2", "fail"), got, want):
+        check("scan_gf2", res, g.to(torch.uint8), w.to(torch.uint8), f"{line} {name}")
+    ms = cuda_ms(lambda: scan.wave_run(*args), dev)
+    log("sha256", f"scan_gf2 spill {line} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"us_per_wave={ms * 1e3 / wv2.op.shape[0]:.4f} {wave_plan_line(prog, 0, 256)}")
 
 
 def sha256_batch(dev, rng) -> None:
     """prove_batch_chunked of SHA256_CHUNKS chunks of the SHA-256 cell's
     proofs (its one witness, distinct seeds): proofs 0, 63, 64 and 511
     byte-equal to prove() with the same seeds, verify_many of one chunk's
-    first 8, proofs/s, per-proof hash, and the peak memory at most
-    PEAK_OVER_FOOTPRINT x device_footprint of one chunk."""
-    from reverie_tpu_torch import TorchKKW, device_footprint, largest_batch
+    first 8, proofs/s, host counters (Python's collections and their
+    pauses), per-proof hash, and the peak memory at most
+    PEAK_OVER_FOOTPRINT x pipeline_footprint of one chunk (its
+    device_footprint and the chunk before's streams)."""
+    from reverie_tpu_torch import TorchKKW, largest_batch, pipeline_footprint
     from reverie_tpu_torch.trace import CELLS
 
     cell = CELLS["sha256_1block"]
@@ -575,18 +650,21 @@ def sha256_batch(dev, rng) -> None:
     kkw = TorchKKW(prog, device=dev)
     torch.cuda.empty_cache()
     free, _ = torch.cuda.mem_get_info()
-    fp = device_footprint(kkw.cc, chunk * 256)
-    if largest_batch(kkw.cc, free, chunk) < chunk:
-        raise AssertionError(f"sha256: two chunks of {chunk} proofs do not fit the card")
+    fp = pipeline_footprint(kkw.cc, chunk * 256)
+    most = largest_batch(kkw.cc, free, 4096)
+    log("sha256", f"largest_batch free_bytes={free} most={most} (of 4096) "
+        f"pipeline_footprint R={chunk * 256}: {fp}")
+    if most < chunk:
+        raise AssertionError(f"sha256: chunks of {chunk} proofs do not fit the card")
     seeds = rng.randint(0, 256, (n, 256, 16), dtype=np.uint8)
     jobs = [(w2, wz)] * n
     kkw.prove_batch(jobs[:chunk], seeds[:chunk])  # cold: the chunk's executor
-    proofs, t = wall(lambda: peak_within_footprint(
+    proofs, t, host = measured(lambda: peak_within_footprint(
         f"sha256 prove_batch_chunked N={n} chunk={chunk}", fp,
         lambda: kkw.prove_batch_chunked(jobs, seeds, chunk=chunk)))
     tm = kkw.last_timings
     log("sha256", f"prove_batch_chunked N={n} chunk={chunk} R={chunk * 256} wall_s={t:.4f} "
-        f"proofs_per_s={n / t:.3f} hash_ms_per_proof="
+        f"proofs_per_s={n / t:.3f} host={json.dumps(host)} hash_ms_per_proof="
         f"{phase_sum(tm, 'hash', 'device_ms') / n:.4f} (device) "
         f"{phase_sum(tm, 'hash', 'host_ms') / n:.4f} (host) execute_ms_per_chunk="
         f"{phase_sum(tm, 'execute', 'device_ms') / SHA256_CHUNKS:.4f} phases "
@@ -602,7 +680,7 @@ def sha256_batch(dev, rng) -> None:
         raise AssertionError("sha256: a chunked proof did not verify")
 
 
-def sha256_phase(dev, rng, clock: float):
+def sha256_phase(dev, rng, clock: float, ptxas: list):
     """The SHA-256 statement (parity.sha256_bench: 5,198 levels, pure GF(2),
     on the wave executor): the wave kernel against its plain version and
     the levelized Executor (check_waves); then, with the launches counted
@@ -613,7 +691,7 @@ def sha256_phase(dev, rng, clock: float):
     from reverie_tpu_torch.parity import sha256_bench
 
     prog, _, _ = sha256_bench()
-    res = check_waves(dev, rng, compile_program(prog), clock)
+    res = check_waves(dev, rng, compile_program(prog), clock, ptxas)
     reset_launches()
     main_path(dev, "sha256", sha256_bench, "gf2", rng, executor_kernel="scan_gf2")
     parity(dev, "sha256_1block")
@@ -685,10 +763,10 @@ def peak_within_footprint(what: str, footprint: int, fn):
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     log("batch", f"{what} peak_bytes={peak} allocated_before={base} "
-        f"device_footprint={footprint} peak/footprint={peak / footprint:.4f}")
+        f"footprint={footprint} peak/footprint={peak / footprint:.4f}")
     if peak > PEAK_OVER_FOOTPRINT * footprint:
         raise AssertionError(f"{what}: peak {peak} B above {PEAK_OVER_FOOTPRINT} x "
-                             f"device_footprint {footprint} B")
+                             f"footprint {footprint} B")
     return out
 
 
@@ -736,7 +814,7 @@ def batch_cell(dev, tag: str, cell: str, rng) -> dict:
     log("batch", f"{tag} mem_get_info free={free} total={total} N={n} (at most {most}) "
         f"device_footprint R={n * 256}: {fp} R=256: {device_footprint(cc, 256)}")
     if n < 4:
-        raise AssertionError(f"{tag}: two batches of 4 proofs do not fit the card")
+        raise AssertionError(f"{tag}: batches of 4 proofs do not fit the card")
     wits = distinct_witnesses(rng, w2, wz, n)
     seeds = rng.randint(0, 256, (n, 256, 16), dtype=np.uint8)
 
@@ -942,7 +1020,8 @@ def main() -> int:
     _build.kernels()
     log("build", f"nvcc {' '.join(_build.NVCC_FLAGS)} "
         f"{[s.name for s in _build.sources()]} seconds={time.perf_counter() - t:.3f}")
-    for row in _build.ptxas_summary(out):
+    ptxas = _build.ptxas_summary(out)
+    for row in ptxas:
         log("build", "ptxas " + json.dumps(row))
     t = time.perf_counter()
     native.build()
@@ -965,7 +1044,7 @@ def main() -> int:
     z64 = main_path(dev, "z64", lambda: z64_mul_bench_circuit(N_MUL_Z64), "z64", rng)
     golden_b2a(dev)
     parity(dev, "z64_2k")
-    checks["scan_gf2"], sha = sha256_phase(dev, rng, clock)
+    checks["scan_gf2"], sha = sha256_phase(dev, rng, clock, ptxas)
     batch = batch_phase(dev, rng, checks)
     tools = probes(dev)
 

@@ -2,11 +2,11 @@
 
 `TorchKKW` proves and verifies GF(2), Z_2^64 and B2A circuits on one CUDA
 card, one proof at a time or in batches and pipelines (`prove_batch`,
-`prove_batch_chunked`, `prove_many`, `verify_many`; `device_footprint`
-and `largest_batch` size a batch).  The AES-CTR mask tapes and the BLAKE3
-chunk chaining values are hand-written CUDA kernels (`csrc/`), the
-levelized executor and the hash tail are plain torch.  Proofs are
-byte-identical to reverie_tpu's.
+`prove_batch_chunked`, `prove_many`, `verify_many`; `device_footprint`,
+`pipeline_footprint` and `largest_batch` size a batch).  The AES-CTR mask
+tapes and the BLAKE3 chunk chaining values are hand-written CUDA kernels
+(`csrc/`), the levelized executor and the hash tail are plain torch.
+Proofs are byte-identical to reverie_tpu's.
 
 The package stands on its own: it imports neither jax nor reverie_tpu.  It
 keeps its own copies of the circuit IR, compiler, builders and bincode
@@ -21,7 +21,8 @@ protocol parameters (`params.py`) and the host C crypto (`crypto/`,
 `r4_extract_probe.py`) with their CUDA kernels.
 """
 
-from .backend.host import TorchKKW, device_footprint, largest_batch
+from .backend.host import TorchKKW, device_footprint, largest_batch, pipeline_footprint
 from .device import default_device
 
-__all__ = ["TorchKKW", "default_device", "device_footprint", "largest_batch"]
+__all__ = ["TorchKKW", "default_device", "device_footprint", "largest_batch",
+           "pipeline_footprint"]

@@ -305,16 +305,24 @@ def device_footprint(cc: CompiledCircuit, R: int) -> int:
     hashing = stream_bytes(cc, R) + max(
         b3.hash_columns_transient_bytes(n, R) for n in (cc.onl2, cc.pre2, cc.onlz, cc.prez))
     if uses_waves(cc):
-        return max(scan.prover_bytes(cc, R), hashing) + scan.table_bytes(cc)
+        return max(scan.prover_bytes(cc, R), hashing) + scan.table_bytes(cc, R)
     return max(prover_bytes(cc, R), hashing) + table_bytes(cc)
 
 
+def pipeline_footprint(cc: CompiledCircuit, R: int) -> int:
+    """Peak device bytes of prove_batch_chunked at chunk R / 256 (R = 256:
+    prove_many): one chunk's device_footprint while the chunk before keeps
+    its four streams (executor.stream_bytes) for its challenge and
+    extraction."""
+    return device_footprint(cc, R) + stream_bytes(cc, R)
+
+
 def largest_batch(cc: CompiledCircuit, free_bytes: int, most: int) -> int:
-    """The most proofs N <= most such that two batches of N fit in
-    free_bytes by device_footprint (prove_batch_chunked at chunk N holds
-    about two); 0 if not even one proof does."""
+    """The most proofs N <= most such that prove_batch_chunked at chunk N
+    fits in free_bytes by pipeline_footprint (so does prove_batch of N,
+    whose device_footprint is smaller); 0 if not even one proof does."""
     return max((n for n in range(1, most + 1)
-                if 2 * device_footprint(cc, n * 256) <= free_bytes), default=0)
+                if pipeline_footprint(cc, n * 256) <= free_bytes), default=0)
 
 
 def _check_omitted_lanes(tape: torch.Tensor, tapez: torch.Tensor,
@@ -457,10 +465,10 @@ class TorchKKW:
                             chunk: int = 64) -> List[Proof]:
         """prove_batch in chunks of `chunk` statements, software-pipelined:
         the device runs chunk i + 1 while chunk i's challenge, pulls and
-        assembly run on the host.  Peak device memory is about two chunks'
-        footprint, since chunk i's streams stay live (awaiting its challenge
-        and extraction) while chunk i + 1 runs: size `chunk` so that
-        2 * device_footprint(cc, chunk * 256) fits the card."""
+        assembly run on the host.  Peak device memory is about
+        pipeline_footprint(cc, chunk * 256), since chunk i's streams stay
+        live (awaiting its challenge and extraction) while chunk i + 1 runs:
+        largest_batch gives the most `chunk` that fits the card."""
         if chunk < 1:
             raise ValueError("prove_batch_chunked: chunk must be at least 1")
         return self._prove_pipeline(witnesses, seeds, chunk)

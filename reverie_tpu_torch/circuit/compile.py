@@ -30,11 +30,14 @@ land in their program-order positions.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence
+from typing import TYPE_CHECKING, Dict, List, Optional, Sequence
 
 import numpy as np
 
 from .ir import CombineOp, Gate, Kind, Op
+
+if TYPE_CHECKING:
+    from ..backend.scan import CircuitWaves
 
 # Compiled gate kinds (per domain).
 G_INPUT = 0
@@ -114,9 +117,10 @@ class CompiledCircuit:
     input_slotsz: np.ndarray
     corr_slotsz: np.ndarray
     recon_slotsz: np.ndarray
-    #: build_waves(self, W) by wave width W, built on first use
-    #: (backend/scan.py `waves`)
-    wave_tables: Dict[int, WaveTable] = dataclasses.field(
+    #: backend/scan.py's CircuitWaves by wave width W (0: the default
+    #: width's): build_waves(self, W) and what the wave executor derives
+    #: from it once per circuit, made on first use
+    wave_tables: Dict[int, "CircuitWaves"] = dataclasses.field(
         default_factory=dict, repr=False, compare=False)
 
     @property

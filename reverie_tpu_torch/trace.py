@@ -6,7 +6,7 @@ For each cell of CELLS, `TorchKKW(mul_bench_circuit(1_000_000))` (GF(2),
 batches of up to 8), `TorchKKW(z64_mul_bench_circuit(50_000))` (Z_2^64, up
 to 4) and the SHA-256 preimage statement of `parity.sha256_bench` (5,198
 levels deep, on the wave executor; one chunk of 64), the batch being the
-largest of which two fit the free device memory by `device_footprint`
+largest that fits the free device memory by `pipeline_footprint`
 (`largest_batch`), runs each leg once cold, then profiles it warm under its
 own `torch.profiler` window (activities CPU and CUDA; a warm-up run, then
 the recorded one). The legs: a prove, a verify, a `prove_batch` of the
@@ -167,7 +167,7 @@ def profile_cell(cell: str, circuit, most: int, many: bool, dev, out) -> bool:
     torch.cuda.empty_cache()
     n_proofs = largest_batch(kkw.cc, torch.cuda.mem_get_info(dev)[0], most)
     if n_proofs < 1:
-        raise RuntimeError(f"{cell}: two proofs do not fit the card")
+        raise RuntimeError(f"{cell}: one proof does not fit the card")
     seeds = np.random.RandomState(2026).randint(0, 256, (n_proofs, 256, 16), dtype=np.uint8)
     proof = kkw.prove(w2, wz, seeds=seeds[0])
     if kkw.verify(proof) is not True:

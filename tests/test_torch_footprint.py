@@ -3,7 +3,7 @@ really holds: the peak of live tensor bytes over `TorchKKW.prove_batch` on
 the CPU, from the profiler's allocation trace, with each CUDA kernel's
 plain version replaced by an allocation of its output (the kernels allocate
 nothing else; the plain versions' working sets exist only on the CPU; the
-wave kernel allocates its arena and its outputs).  The circuits and the 25%
+wave kernel allocates its spill arena and its outputs).  The circuits and the 25%
 tolerance are tests/test_footprint.py's, with a deep GF(2) circuit for the
 wave executor beside them."""
 
@@ -12,7 +12,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from reverie_tpu_torch import TorchKKW, device_footprint, largest_batch
+from reverie_tpu_torch import TorchKKW, device_footprint, largest_batch, pipeline_footprint
 from reverie_tpu_torch.backend import host, scan
 from reverie_tpu_torch.circuit.builders import (
     mixed_b2a_circuit,
@@ -43,6 +43,17 @@ def live_peak(fn) -> int:
     return peak
 
 
+def card_table_bytes(ex) -> int:
+    """Bytes of the tables an executor holds on the card: the levelized
+    Executor's index tables, or the wave executor's packed program (its
+    slots, input fields and chunk offsets), which the CPU keeps as the
+    slot-allocated table."""
+    if isinstance(ex, scan.ScanExecutor):
+        packed = scan.pack_table(ex.table.numpy(), ex.mode, ex.program.plan.chunk)
+        return sum(a.nbytes for a in packed)
+    return sum(t.numel() * t.element_size() for t in ex.tables.values())
+
+
 @pytest.fixture
 def kernel_outputs_only(monkeypatch):
     monkeypatch.setattr(aes_tape, "aes_ctr_tape_gf2", lambda rk, m2, omit=None: torch.zeros(
@@ -52,15 +63,16 @@ def kernel_outputs_only(monkeypatch):
     monkeypatch.setattr(b3, "chunk_cvs", lambda buf, n, base=0: torch.zeros(
         (8, n, buf.shape[1]), dtype=torch.int32))
 
-    def wave_gf2(table, mode, tape, xin, co2, re2, n_vals, n_onl, n_pre):
+    def wave_run(prog, mode, tape, xin, co2, re2, n_onl, n_pre):
         R = tape.shape[1]
         out = (torch.zeros((max(n_onl, 1), R), dtype=torch.uint8),
                torch.zeros((max(n_pre, 1), R), dtype=torch.uint8),
                torch.zeros((R,), dtype=torch.bool))
-        torch.empty((n_vals, R), dtype=torch.int16).zero_()  # the arena, while it runs
+        # the spill arena, while it runs (the live values sit in shared memory)
+        torch.empty((max(prog.n_spill, 1), R), dtype=torch.int16).zero_()
         return out
 
-    monkeypatch.setattr(scan, "wave_gf2", wave_gf2)
+    monkeypatch.setattr(scan, "wave_run", wave_run)
 
 
 @pytest.mark.parametrize("n", [1, 2])
@@ -73,8 +85,7 @@ def test_footprint_tracks_a_prove(kernel_outputs_only, name, n):
     peak = live_peak(lambda: port.prove_batch([(wit2, witz)] * n, seeds))
     # the index or wave tables come from numpy without a copy on the CPU
     (ex,) = port._executors.values()
-    tables = [ex.table] if isinstance(ex, scan.ScanExecutor) else ex.tables.values()
-    peak += sum(t.numel() * t.element_size() for t in tables)
+    peak += card_table_bytes(ex)
     pred = device_footprint(port.cc, n * 256)
     assert abs(pred - peak) <= 0.25 * peak, (pred, peak)
 
@@ -89,18 +100,23 @@ def test_footprint_grows_with_the_batch():
 
 @pytest.mark.parametrize("n, most, want", [(3, 8, 3), (3, 2, 2), (1, 8, 1)])
 def test_largest_batch_fits_two_batches(n, most, want):
+    """largest_batch sizes a chunk by pipeline_footprint: one chunk's
+    device_footprint and the streams of the chunk before, which is still
+    alive."""
     cc = TorchKKW(z64_mul_bench_circuit(10)[0], device=torch.device("cpu")).cc
-    free = 2 * device_footprint(cc, n * 256)
+    free = pipeline_footprint(cc, n * 256)
+    assert device_footprint(cc, n * 256) < free < 2 * device_footprint(cc, n * 256)
     assert largest_batch(cc, free, most) == want
-    # a byte less, and n proofs no longer fit twice
+    # a byte less, and a chunk of n proofs no longer fits
     assert largest_batch(cc, free - 1, most) == min(n - 1, most)
 
 
 def test_chunked_sha256_peak_within_the_smokes_limit(kernel_outputs_only):
     """prove_batch_chunked keeps the chunk before alive (its streams await
     their challenge) while the next runs: on the SHA-256 statement, at
-    chunk 1, the peak stays within chip_smoke.py's limit of the one-chunk
-    footprint."""
+    chunk 1, the peak stays within chip_smoke.py's limit of
+    pipeline_footprint (one chunk's device_footprint and the chunk before's
+    streams: what largest_batch sizes a chunk by), and above it."""
     import chip_smoke
     from reverie_tpu_torch.parity import sha256_bench
 
@@ -109,6 +125,24 @@ def test_chunked_sha256_peak_within_the_smokes_limit(kernel_outputs_only):
     seeds = np.random.RandomState(3).randint(0, 256, (3, 256, 16), dtype=np.uint8)
     peak = live_peak(lambda: port.prove_batch_chunked([(wit2, witz)] * 3, seeds, chunk=1))
     (ex,) = port._executors.values()
-    peak += ex.table.numel() * ex.table.element_size()
-    fp = device_footprint(port.cc, 256)
+    peak += card_table_bytes(ex)
+    fp = pipeline_footprint(port.cc, 256)
     assert fp <= peak <= chip_smoke.PEAK_OVER_FOOTPRINT * fp, (peak, fp)
+
+
+@pytest.mark.parametrize("name", list(CIRCUITS))
+def test_chunked_peak_tracks_pipeline_footprint(kernel_outputs_only, name):
+    """prove_batch_chunked at chunk 1 on every executor's circuits: the
+    peak is pipeline_footprint, the model largest_batch sizes chunks by,
+    within 25% and at most chip_smoke.py's limit over it."""
+    import chip_smoke
+
+    prog, wit2, witz = CIRCUITS[name]()
+    port = TorchKKW(prog, device=torch.device("cpu"))
+    seeds = np.random.RandomState(4).randint(0, 256, (3, 256, 16), dtype=np.uint8)
+    peak = live_peak(lambda: port.prove_batch_chunked([(wit2, witz)] * 3, seeds, chunk=1))
+    (ex,) = port._executors.values()
+    peak += card_table_bytes(ex)
+    pred = pipeline_footprint(port.cc, 256)
+    assert abs(pred - peak) <= 0.25 * peak, (pred, peak)
+    assert peak <= chip_smoke.PEAK_OVER_FOOTPRINT * pred, (peak, pred)

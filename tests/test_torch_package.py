@@ -244,6 +244,32 @@ def random_waves(seed: int, n_waves: int, W: int, mode: int, nop_wave: int = -1)
     return table.astype(np.int32), sizes
 
 
+def boundary_waves():
+    """A wave table whose values 1 and 2 are last read in wave 1 and whose
+    wave 2 writes two new values (6 and 7), so that a slot freed in wave 1
+    is taken in wave 2, then a MUL and an ASSERT_ZERO of it (scan.py's
+    race rule at its boundary).  -> (table, sizes) as random_waves."""
+    n_vals, n_onl, n_pre = 10, 4, 2
+    nop = [_NOP, n_vals, 0, 0, 0, 0, 0, 0, 0, n_onl, n_pre, 0]
+    waves = [
+        [[7, 1, 0, 0, 1, 0, 0, 0, 0, n_onl, n_pre, 0],  # v1 = RANDOM
+         [7, 2, 0, 0, 2, 0, 0, 0, 0, n_onl, n_pre, 0],  # v2 = RANDOM
+         [0, 3, 0, 0, 3, 0, 0, 0, 0, 0, n_pre, 0]],  # v3 = INPUT (onl 0)
+        [[1, 4, 1, 2, 0, 0, 0, 0, 0, n_onl, n_pre, 0],  # v4 = v1 + v2
+         [5, 5, 3, 1, 4, 5, 0, 1, 0, 1, 0, 0],  # v5 = v3 * v1 (onl 1, pre 0)
+         nop],
+        [[7, 6, 0, 0, 6, 0, 0, 0, 0, n_onl, n_pre, 0],  # v6 = RANDOM
+         [1, 7, 4, 5, 0, 0, 0, 0, 0, n_onl, n_pre, 0],  # v7 = v4 + v5
+         [2, 8, 3, 0, 0, 0, 0, 0, 0, n_onl, n_pre, 1]],  # v8 = v3 + 1
+        [[5, 9, 6, 7, 7, 8, 0, 2, 1, 2, 1, 0],  # v9 = v6 * v7, read by none
+         [G_ASSERT, n_vals, 8, 0, 0, 0, 0, 3, 0, 3, n_pre, 0],  # ASSERT_ZERO v8
+         nop],
+    ]
+    table = np.asarray(waves, dtype=np.int32)
+    sizes = dict(n_vals=n_vals, n_onl=n_onl, n_pre=n_pre, m2=10, n_x=1, n_rec=4, n_corr=2)
+    return table, sizes
+
+
 def wave_inputs(seed: int, mode: int, R: int, sizes: dict, device):
     """The kernel's inputs at R lanes: a random tape, and random 0/1 witness
     bits (PROVER) or 0/1 input and correction records and recon bytes at
@@ -269,6 +295,15 @@ def run_waves(fn, table, mode, inputs, sizes):
     return fn(table, mode, *inputs, sizes["n_vals"], sizes["n_onl"], sizes["n_pre"])
 
 
+def run_program(table, mode, inputs, sizes, **plan):
+    """The SSA `table` (numpy) through the slot allocator at the tape's
+    lanes on its device (scan.wave_program; `capacity`, `reps` as there)
+    and scan.wave_run."""
+    tape = inputs[0]
+    prog = scan.wave_program(table, mode, tape.device, tape.shape[1], **plan)
+    return scan.wave_run(prog, mode, *inputs, sizes["n_onl"], sizes["n_pre"])
+
+
 @pytest.mark.parametrize("mode", [tex.PROVER, tex.VERIFY_ONL, tex.VERIFY_PRE])
 def test_random_waves_fail_some_reps_on_cpu(mode):
     """The random tables of the wave-kernel tests, through the wrapper on
@@ -276,8 +311,8 @@ def test_random_waves_fail_some_reps_on_cpu(mode):
     some reps and pass in others, and every stream row is an event."""
     table, sizes = random_waves(4, 30, 40, mode, nop_wave=3)
     n0 = scan.LAUNCHES
-    onl, pre, fail = run_waves(scan.wave_gf2, torch.from_numpy(table), mode,
-                               wave_inputs(4, mode, 256, sizes, torch.device("cpu")), sizes)
+    onl, pre, fail = run_program(table, mode,
+                                 wave_inputs(4, mode, 256, sizes, torch.device("cpu")), sizes)
     assert scan.LAUNCHES == n0
     assert onl.shape == (sizes["n_onl"], 256) and pre.shape == (sizes["n_pre"], 256)
     if mode == tex.VERIFY_PRE:
@@ -486,16 +521,102 @@ WAVE_CASES = [(3, 1, 5, -1), (37, 40, 13, 7), (40, 60, 40, 0), (216, 30, 40, 29)
 @pytest.mark.parametrize("mode", [tex.PROVER, tex.VERIFY_ONL, tex.VERIFY_PRE])
 def test_wave_kernel_matches_plain(cuda_device, mode, R, n_waves, W, nop_wave):
     table, sizes = random_waves(R + W, n_waves, W, mode, nop_wave)
-    table = torch.from_numpy(table).to(cuda_device)
     inputs = wave_inputs(R, mode, R, sizes, cuda_device)
     n0 = scan.LAUNCHES
-    got = run_waves(scan.wave_gf2, table, mode, inputs, sizes)
+    got = run_program(table, mode, inputs, sizes)
     assert scan.LAUNCHES == n0 + 1
     torch.cuda.synchronize()
-    want = run_waves(scan.wave_gf2_ref, table, mode, inputs, sizes)
+    want = run_waves(scan.wave_gf2_ref, torch.from_numpy(table).to(cuda_device), mode, inputs,
+                     sizes)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     if mode == tex.PROVER and R >= 37:  # a failing ASSERT_ZERO in some reps only
+        assert 0 < int(got[2].sum()) < R
+
+
+def _spill_capacity(table, spill: str) -> int:
+    """A capacity that leaves most values of `table` spilled ("most": a
+    quarter of its live set) or every value but the zero ("all")."""
+    return 1 if spill == "all" else max(2, scan.live_set(table) // 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spill", ["most", "all"])
+@pytest.mark.parametrize("R, n_waves, W, nop_wave", WAVE_CASES)
+@pytest.mark.parametrize("mode", [tex.PROVER, tex.VERIFY_ONL, tex.VERIFY_PRE])
+def test_wave_kernel_spills_match_plain(cuda_device, mode, R, n_waves, W, nop_wave, spill):
+    """The WAVE_CASES with the shared slots cut so that most values, or all
+    but the zero, live in the kernel's global spill arena: the same launch,
+    equal to the plain version on the SSA table."""
+    table, sizes = random_waves(R + W, n_waves, W, mode, nop_wave)
+    cap = _spill_capacity(table, spill)
+    prog = scan.wave_program(table, mode, cuda_device, R, capacity=cap)
+    assert prog.n_spill > 0 and prog.n_shared <= cap
+    inputs = wave_inputs(R, mode, R, sizes, cuda_device)
+    n0 = scan.LAUNCHES
+    got = scan.wave_run(prog, mode, *inputs, sizes["n_onl"], sizes["n_pre"])
+    assert scan.LAUNCHES == n0 + 1
+    torch.cuda.synchronize()
+    want = run_waves(scan.wave_gf2_ref, torch.from_numpy(table).to(cuda_device), mode, inputs,
+                     sizes)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [8, 37, 256])
+@pytest.mark.parametrize("mode", [tex.PROVER, tex.VERIFY_ONL, tex.VERIFY_PRE])
+def test_wave_kernel_reuses_a_slot_at_the_boundary(cuda_device, mode, R):
+    """boundary_waves: a slot freed in wave 1 and written in wave 2, in
+    shared memory and spilled."""
+    table, sizes = boundary_waves()
+    inputs = wave_inputs(R, mode, R, sizes, cuda_device)
+    want = run_waves(scan.wave_gf2_ref, torch.from_numpy(table), mode,
+                     [None if t is None else t.cpu() for t in inputs], sizes)
+    for cap in (0, 1):
+        got = run_program(table, mode, inputs, sizes, capacity=cap)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reps", [32, 16, 8])
+@pytest.mark.parametrize("mode", [tex.PROVER, tex.VERIFY_ONL, tex.VERIFY_PRE])
+def test_wave_kernel_reps_per_block(cuda_device, mode, reps):
+    """Each block width of the launch plan (32, 16, 8 reps), at a ragged R
+    and W = 40 (two slots a thread at 32 reps), equal to the plain version."""
+    table, sizes = random_waves(reps, 50, 40, mode, 3)
+    R = 216 + reps // 8
+    inputs = wave_inputs(reps, mode, R, sizes, cuda_device)
+    prog = scan.wave_program(table, mode, cuda_device, R, reps=reps)
+    assert prog.plan.reps == reps
+    got = scan.wave_run(prog, mode, *inputs, sizes["n_onl"], sizes["n_pre"])
+    torch.cuda.synchronize()
+    want = run_waves(scan.wave_gf2_ref, torch.from_numpy(table).to(cuda_device), mode, inputs,
+                     sizes)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spill", ["none", "most"])
+@pytest.mark.parametrize("mode", [tex.PROVER, tex.VERIFY_ONL])
+def test_wave_kernel_at_a_chunk_width(cuda_device, mode, spill):
+    """R = 16,384 (a chunk of 64 proofs: 512 blocks), all in shared memory
+    and with most values spilled: equal to the plain version."""
+    table, sizes = random_waves(9, 60, 32, mode, 5)
+    R = 16_384
+    inputs = wave_inputs(9, mode, R, sizes, cuda_device)
+    cap = 0 if spill == "none" else _spill_capacity(table, "most")
+    prog = scan.wave_program(table, mode, cuda_device, R, capacity=cap)
+    assert (prog.n_spill > 0) == (spill == "most")
+    got = scan.wave_run(prog, mode, *inputs, sizes["n_onl"], sizes["n_pre"])
+    torch.cuda.synchronize()
+    want = run_waves(scan.wave_gf2_ref, torch.from_numpy(table).to(cuda_device), mode, inputs,
+                     sizes)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if mode == tex.PROVER:
         assert 0 < int(got[2].sum()) < R
 
 
@@ -541,16 +662,17 @@ def test_scan_executor_on_cuda_never_takes_the_plain_version(cuda_device, monkey
 @pytest.mark.cuda
 def test_wave_kernel_rejects_bad_input(cuda_device):
     table, sizes = random_waves(1, 4, 8, tex.PROVER)
-    table = torch.from_numpy(table).to(cuda_device)
     tape, xin, _, _ = wave_inputs(1, tex.PROVER, 64, sizes, cuda_device)
-    args = (sizes["n_vals"], sizes["n_onl"], sizes["n_pre"])
-    with pytest.raises(ValueError):  # the table off the card
-        scan.wave_gf2(table.cpu(), tex.PROVER, tape, xin, None, None, *args)
-    with pytest.raises(ValueError):  # a table of another type
-        scan.wave_gf2(table.to(torch.int64), tex.PROVER, tape, xin, None, None, *args)
+    prog = scan.wave_program(table, tex.PROVER, cuda_device, 64)
+    args = (sizes["n_onl"], sizes["n_pre"])
+    with pytest.raises(ValueError):  # the packed table off the card
+        scan.wave_run(scan.wave_program(table, tex.PROVER, torch.device("cpu"), 64),
+                      tex.PROVER, tape, xin, None, None, *args)
+    with pytest.raises(ValueError):  # a table of another shape
+        scan.wave_program(table[..., :-1], tex.PROVER, cuda_device, 64)
     with pytest.raises(ValueError):  # a tape that is not contiguous
-        scan.wave_gf2(table, tex.PROVER, tape.t().contiguous().t(), xin, None, None, *args)
+        scan.wave_run(prog, tex.PROVER, tape.t().contiguous().t(), xin, None, None, *args)
     with pytest.raises(ValueError):  # a witness of another width
-        scan.wave_gf2(table, tex.PROVER, tape, xin[:, :32].contiguous(), None, None, *args)
+        scan.wave_run(prog, tex.PROVER, tape, xin[:, :32].contiguous(), None, None, *args)
     with pytest.raises(ValueError):
-        scan.wave_gf2(table, 3, tape, xin, None, None, *args)
+        scan.wave_run(prog, 3, tape, xin, None, None, *args)
