@@ -11,10 +11,10 @@ prints no result line:
      parallel, for sm_90a, with each kernel's registers, spills and static
      shared memory from ptxas -v) and of the host C crypto (native/*.c,
      gcc), timed;
-  3. each of the seven kernels against its plain PyTorch version on the
-     card, byte for byte, with its time, the plain version's, a library
-     call's where one computes the same function (all from CUDA events) and
-     its bound: the GF(2) tape at m2 = 2,000,002 and the z64 tape at
+  3. each of the seven tape, hash and probe kernels against its plain
+     PyTorch version on the card, byte for byte, with its time, the plain
+     version's, a library call's where one computes the same function (all
+     from CUDA events) and its bound: the GF(2) tape at m2 = 2,000,002 and the z64 tape at
      mz = 100,002, each at the three legs' R (256, 40 with random omits,
      216) with its launch plan, the BLAKE3 chunks, then the
      per-column hash against the host C blake3; the keystream planes
@@ -29,8 +29,7 @@ prints no result line:
   6. the Z64 main path: TorchKKW(z64_mul_bench_circuit(50_000)), the same
      legs, a flipped byte in a z64 online opening (False), and the z64 tape
      kernel launched in the prove, the online and the preprocessing verify;
-  7. Z64 / B2A parity: tests/golden/b2a_proof.bin reproduced from
-     b2a_seeds.bin, and 2,000 Z64 MULs equal to the golden's digest;
+  7. Z64 parity: 2,000 Z64 MULs equal to the golden's digest;
   8. the SHA-256 phase, on reverie_tpu's SHA-256 preimage statement
      (parity.sha256_bench; 5,198 levels, pure GF(2), so TorchKKW runs it on
      the wave executor): the wave kernel (csrc/scan_gf2.cu) through the
@@ -49,7 +48,26 @@ prints no result line:
      proofs at chunk 64 (bench.py's config 5), proofs 0, 63, 64 and 511
      equal to prove()'s, verify_many of 8, proofs/s, per-proof hash and the
      peak memory against pipeline_footprint (at most 1.25x);
-  9. the batch phase, on each main-path circuit: N from largest_batch
+  9. the deep z64 phase (z64_wave_phase), on reverie_tpu's deep-scan test
+     statements, deeper than 128 levels, so that TorchKKW runs them on the
+     wave executor's W2 (csrc/scan_z64.cu): the serial z64 MUL chain at
+     5,000 MULs (depth 5,004), every z64 kind on a 200-level accumulator
+     and deep B2A (mixed_b2a with a 200-MUL GF(2) chain).  W2 through the
+     executors' slot-allocated programs against its plain version on the
+     SSA tables, every stream and fail byte for byte, in each role (R =
+     256, 40 with random omits and records, 216), at a ragged R (37) and
+     with its values spilled, each timed with its bound and launch plan,
+     beside the levelized Executor on the same inputs (equal outputs, its
+     ms and torch ops); the chain at R = 16,384 (a 10.5 GB tape) against
+     the plain version 256 columns at a time; the chain in three segments,
+     each through W2 with its carries chained, against the plain version;
+     then, with the launches counted from 0, the chain's TorchKKW prove,
+     verify, a tampered proof and W2 in every leg's executor, its proof
+     on the waves equal to the levelized route's, prove_batch of N chain
+     proofs (N from largest_batch, at most 64; peak memory at most 1.25x
+     device_footprint), and tests/golden/b2a_proof.bin reproduced from
+     b2a_seeds.bin on W2 (190 levels);
+ 10. the batch phase, on each main-path circuit: N from largest_batch
      (pipeline_footprint and the free memory; 8 proofs of 1M ANDs and 4 of
      50k Z64 MULs where a chunk of that many fits); prove() N times, prove_batch
      and prove_many of N distinct witnesses and seeds, a first run of each
@@ -66,10 +84,10 @@ prints no result line:
      True]); then the GF(2) and z64 tapes and the chunk CVs at the batch
      width, past 2**31 bytes, each block of 256 columns equal to the plain
      version on the same inputs (and to the kernel's launch at R = 256);
- 10. the probes (reverie_tpu_torch/tools: r2_measure at B = 15,626,
+ 11. the probes (reverie_tpu_torch/tools: r2_measure at B = 15,626,
      r4_bwroof, r5_u8emit, r4_extract_probe at the tools' shapes), with the
      launches of the planes, copy, emission and pack-shift kernels in them;
- 11. one JSON line of kernels, the nvidia-smi line, and the last line
+ 12. one JSON line of kernels, the nvidia-smi line, and the last line
      {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or reverie_tpu.  Needs the CUDA toolkit (nvcc), gcc
@@ -301,23 +319,25 @@ def check_pack_shift(dev, clock: float) -> dict:
 
 
 def counters() -> dict:
-    """The module that counts each kernel's launches (its LAUNCHES)."""
+    """The module and attribute that count each kernel's launches."""
     from reverie_tpu_torch.backend import scan
     from reverie_tpu_torch.crypto.kernels import aes_planes, aes_tape, aes_tape_z64, blake3 as b3
     from reverie_tpu_torch.tools import r4_bwroof, r4_extract_probe, r5_u8emit
 
-    return {"aes_tape_gf2": aes_tape, "aes_tape_z64": aes_tape_z64,
+    mods = {"aes_tape_gf2": aes_tape, "aes_tape_z64": aes_tape_z64,
             "blake3_chunk_cvs": b3, "aes_ctr_planes": aes_planes, "copy": r4_bwroof,
             "u32_to_u8_rows": r5_u8emit, "pack_shift": r4_extract_probe, "scan_gf2": scan}
+    return {**{name: (mod, "LAUNCHES") for name, mod in mods.items()},
+            "scan_z64": (scan, "LAUNCHES_Z64")}
 
 
 def reset_launches() -> None:
-    for mod in counters().values():
-        mod.LAUNCHES = 0
+    for mod, attr in counters().values():
+        setattr(mod, attr, 0)
 
 
 def launch_counts() -> dict:
-    return {name: mod.LAUNCHES for name, mod in counters().items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in counters().items()}
 
 
 def main_path(dev, tag: str, make, domain: str, rng, executor_kernel: str = "") -> dict:
@@ -420,7 +440,9 @@ def golden_b2a(dev) -> None:
     got = kkw.prove(w2, wz, seeds=seeds).to_bytes()
     ok = kkw.verify(Proof.from_bytes(blob))
     log("parity", f"golden b2a_proof.bin depth={kkw.cc.depth} proof_bytes={len(got)} "
-        f"equal={got == blob} verify={ok} port_s={time.perf_counter() - t:.3f}")
+        f"equal={got == blob} verify={ok} port_s={time.perf_counter() - t:.3f} executor="
+        f"{type(kkw._executor(0, 256)).__name__} onl_exec_launches="
+        f"{json.dumps(kkw.last_timings['onl_exec']['launches'])}")
     if got != blob or ok is not True:
         raise AssertionError("the golden B2A proof was not reproduced")
 
@@ -477,25 +499,6 @@ def wave_inputs(dev, rng, cc, mode: int, R: int):
     return tape, xin, co2, re2
 
 
-def chain_ms(dev, n_waves: int, W: int) -> float:
-    """The wave kernel's dependency chain alone: n_waves waves of W slots
-    at R = 256 (one proof), each with one live slot (an ADDC of the value
-    the wave before made) and W - 1 NOP slots; mean CUDA-event ms."""
-    from reverie_tpu_torch.backend import scan
-    from reverie_tpu_torch.circuit.compile import _NOP, G_ADDC
-    from reverie_tpu_torch.tools._timing import cuda_ms
-
-    t = np.zeros((n_waves, W, len(scan.SLOT_COLS)), dtype=np.int32)
-    t[..., 0] = _NOP
-    t[..., 1] = n_waves + 1  # the trash row of build_waves
-    t[:, 0, 0], t[:, 0, 11] = G_ADDC, 1
-    t[:, 0, 1] = np.arange(1, n_waves + 1)
-    t[:, 0, 2] = np.arange(n_waves)
-    prog = scan.wave_program(t, 0, dev, 256)
-    tape = torch.zeros((1, 256), dtype=torch.uint8, device=dev)
-    return cuda_ms(lambda: scan.wave_run(prog, 0, tape, None, None, None, 0, 0), dev)
-
-
 def wave_plan_line(prog, mode: int, R: int) -> str:
     """The launch of a WaveProgram at R lanes: reps and threads per block,
     shared memory per block, resident blocks per SM and on the card, and
@@ -510,7 +513,9 @@ def wave_plan_line(prog, mode: int, R: int) -> str:
             f"chunk_fields={prog.plan.fields} smem_bytes_per_block={prog.smem_bytes} "
             f"blocks={blocks} resident_blocks={per_sm * sms} ({per_sm}/SM) "
             f"rounds={-(-blocks // (per_sm * sms))} shared_slots={prog.n_shared} "
-            f"spilled_slots={prog.n_spill}")
+            f"spilled_slots={prog.n_spill}"
+            + (f" shared_slots_z64={prog.n_sharedz} spilled_slots_z64={prog.n_spillz}"
+               if prog.has_z64 else ""))
 
 
 def check_waves(dev, rng, cc, clock: float, ptxas: list) -> dict:
@@ -526,6 +531,8 @@ def check_waves(dev, rng, cc, clock: float, ptxas: list) -> dict:
     built directly, on the same inputs in each role: equal streams and
     fail, its warm ms and the torch ops it dispatches.  The kernels line
     takes the prove's R = 256."""
+    from reverie_tpu_torch.tools import wave_times
+
     from reverie_tpu_torch.backend import scan
     from reverie_tpu_torch.backend.executor import Executor
     from reverie_tpu_torch.roofline import wave_gf2_work
@@ -591,7 +598,7 @@ def check_waves(dev, rng, cc, clock: float, ptxas: list) -> dict:
                                      f"({ROLES[mode]} R={R})")
             del ex, lev
         del prog, inputs, args, got
-    ms = chain_ms(dev, n_waves, W)
+    ms = wave_times.chain_ms(dev, n_waves, W)
     res["chain_ms"] = ms
     log("sha256", f"scan_gf2 chain n_waves={n_waves} W={W} R=256 one live slot per wave "
         f"kernel_ms={ms:.4f} us_per_wave={ms * 1e3 / n_waves:.4f}")
@@ -698,6 +705,282 @@ def sha256_phase(dev, rng, clock: float, ptxas: list):
     sha256_batch(dev, rng)
     launches = launch_counts()
     log("sha256", f"launches={json.dumps(launches)}")
+    return res, launches
+
+
+#: the most proofs of the deep z64 chain in one prove_batch (R = N x 256),
+#: and the width of W2's wide check
+Z64_BATCH_MOST = 64
+#: ops a segment of the chain in the segmented run (three segments)
+Z64_SEG_OPS = 1_700
+
+
+WAVE_OUTS = ("onl2", "pre2", "fail", "onlz", "prez")
+
+
+def z64_work(cc, mode: int, R: int):
+    """(bytes, integer instructions) of one W2 call on cc's waves at R lanes:
+    the GF(2) half's (wave_gf2_work) and the z64 half's (wave_z64_work)."""
+    from reverie_tpu_torch.backend import scan
+    from reverie_tpu_torch.roofline import wave_gf2_work, wave_z64_work
+
+    wv = scan.waves(cc)
+    rows2 = {0: cc.m2 + cc.n_wit2, 1: cc.m2 + cc.n_inputs2 + cc.n_corrs2 + cc.n_recons2,
+             2: cc.m2}[mode]
+    bytesz = {0: 64 * cc.mz + 8 * cc.n_witz,
+              1: 64 * cc.mz + 8 * (cc.n_inputsz + cc.n_corrsz) + 64 * cc.n_reconsz,
+              2: 64 * cc.mz}[mode]
+    n_b2a = int(np.isin(wv.zop, (10, 11)).sum())
+    g = wave_gf2_work(wv.op, mode, R, rows2, cc.onl2, cc.pre2)
+    z = wave_z64_work(wv.zop, n_b2a, mode, R, bytesz, cc.onlz, cc.prez)
+    return g[0] + z[0], g[1] + z[1]
+
+
+def check_z64_waves(dev, rng, name: str, cc, clock: float, res: dict) -> None:
+    """W2 on one statement's tables, through the programs the executors run
+    (scan.circuit_program), byte-equal to the plain version on the SSA
+    tables and the same inputs in each role at its width and at a ragged R
+    (37): every stream and fail; each timed (CUDA events: the kernel the
+    mean of 5, the plain version one run) with its bound and launch plan;
+    the levelized Executor on the same inputs (equal outputs, its warm ms
+    and torch ops); and a spill case (every z64 value but the zero and most
+    GF(2) values in the global arenas).  The kernels line takes the chain's
+    prove at R = 256."""
+    from reverie_tpu_torch.tools import wave_times
+
+    from reverie_tpu_torch.backend import scan
+    from reverie_tpu_torch.backend.executor import Executor
+    from reverie_tpu_torch.tools._timing import cuda_ms
+
+    wv = scan.waves(cc)
+    t2 = scan.wave_table(wv, 0)
+    ztab, bits = scan.zwave_table(wv, 0)
+    log("z64waves", f"{name} depth={cc.depth} n_waves={wv.op.shape[0]} W={wv.op.shape[1]} "
+        f"Wz={wv.zop.shape[1]} mz={cc.mz} m2={cc.m2} onlz={cc.onlz} onl2={cc.onl2} "
+        f"live_sets={list(scan.live_sets(t2, ztab, bits))} table_bytes={scan.table_bytes(cc)}")
+    for mode, R in (*WAVE_WIDTHS, (0, 37), (0, -256)):
+        spill = R < 0
+        R = abs(R)
+        prog = (scan.circuit_program(cc, mode, dev, R, capacity=3, capacityz=1) if spill
+                else scan.circuit_program(cc, mode, dev, R))
+        if spill and not prog.n_spillz:
+            raise AssertionError(f"{name}: the spill case did not spill")
+        inp = wave_times.z64_wave_inputs(dev, rng, cc, mode, R)
+        args = wave_times.z64_wave_args(prog, mode, cc, inp)
+        got = scan.wave_run(*args)
+        ssa = torch.from_numpy(scan.wave_table(wv, mode)).to(dev)
+        zt, bt = (torch.from_numpy(a).to(dev) for a in scan.zwave_table(wv, mode))
+        want, plain_ms = event_ms(lambda: scan.wave_ref(
+            ssa, mode, *args[2:6], cc.n_vals2, cc.onl2, cc.pre2, zt, bt, cc.n_valsz, *args[8:]))
+        line = (f"{name} {ROLES[mode]} R={R}{' spill' if spill else ''} "
+                f"fail={int(got.fail.sum())}/{R}")
+        for key in WAVE_OUTS:
+            check("scan_z64", res, getattr(got, key).to(torch.uint8),
+                  getattr(want, key).to(torch.uint8), f"{line} {key}")
+        del want, ssa, zt, bt
+        case = {"plain_ms": plain_ms, "library_ms": None}
+        set_bound(case, *z64_work(cc, mode, R), clock)
+        case["ms"] = cuda_ms(lambda: scan.wave_run(*args), dev)
+        lev = ""
+        if R in (256, 40, 216) and not spill:  # the levelized executor on the same inputs
+            ex = Executor(cc, mode, R, dev)
+            with OpCount() as ops:
+                out = ex(inp)
+            _, lev_s = wall(lambda: ex(inp))
+            same = all(torch.equal(getattr(got, k), out[k]) for k in WAVE_OUTS)
+            case["levelized_ms"] = lev_s * 1e3
+            lev = (f" levelized_Executor_warm_ms={lev_s * 1e3:.3f} torch_ops={ops.n} "
+                   f"levelized_equal={same}")
+            if not same:
+                raise AssertionError(f"{line}: the levelized Executor and W2 disagree")
+            del ex, out
+        log("z64waves", f"scan_z64 {line} kernel_ms={case['ms']:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms=null bound_ms={case['bound_ms']:.4f} ({case['bound_by']}) "
+            f"us_per_wave={case['ms'] * 1e3 / wv.op.shape[0]:.4f}{lev} "
+            f"{wave_plan_line(prog, mode, R)}")
+        if name == "chain" and (mode, R) == (0, 256) and not spill:
+            res.update(case)
+        del prog, inp, args, got
+
+
+def z64_chain_wide(dev, rng, cc, clock: float, res: dict) -> None:
+    """W2 on the chain at R = Z64_BATCH_MOST x 256 (a batch's width: a 10.5
+    GB tape), prove, against the plain version on the program's slot tables
+    and the same inputs on the card, compared 256 columns at a time; timed
+    with its bound and launch plan."""
+    from reverie_tpu_torch.tools import wave_times
+
+    from reverie_tpu_torch.backend import scan
+    from reverie_tpu_torch.tools._timing import cuda_ms
+
+    R = Z64_BATCH_MOST * 256
+    prog = scan.circuit_program(cc, 0, dev, R)
+    inp = wave_times.z64_wave_inputs(dev, rng, cc, 0, R)
+    args = wave_times.z64_wave_args(prog, 0, cc, inp)
+    got = scan.wave_run(*args)
+    want, plain_ms = event_ms(lambda: scan.wave_plain(*args))
+    err = 0
+    for key in WAVE_OUTS:
+        g, w = getattr(got, key), getattr(want, key)
+        for p in range(Z64_BATCH_MOST):
+            err = max(err, max_abs_err(g[..., p * 256 : (p + 1) * 256].to(torch.uint8),
+                                       w[..., p * 256 : (p + 1) * 256].to(torch.uint8)))
+    res["max_abs_err"] = max(res["max_abs_err"], err)
+    del want
+    case = {}
+    set_bound(case, *z64_work(cc, 0, R), clock)
+    ms = cuda_ms(lambda: scan.wave_run(*args), dev)
+    log("z64waves", f"scan_z64 chain prove R={R} tapez_bytes={inp['tapez'].numel() * 8} "
+        f"max_abs_err_per_256_columns={err} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"bound_ms={case['bound_ms']:.4f} ({case['bound_by']}) {wave_plan_line(prog, 0, R)}")
+    if err:
+        raise AssertionError(f"W2 at R={R} disagrees with its plain version")
+
+
+def z64_segments(dev, rng, res: dict) -> None:
+    """compile_segments of the chain into segments of Z64_SEG_OPS ops, each
+    run through W2 (ScanExecutor on the card, prove) with its carries chained
+    from the segments before, against the plain version of each segment's
+    program on the card (the same inputs and carried rows): streams, fail
+    and carry outputs byte-equal."""
+    from reverie_tpu_torch.tools import wave_times
+
+    from reverie_tpu_torch.backend import scan
+    from reverie_tpu_torch.circuit.compile import compile_program, compile_segments
+
+    prog = wave_times.z64_statements()["chain"]()[0]
+    segs = compile_segments(prog, Z64_SEG_OPS)
+    whole = compile_program(prog)
+    inp = wave_times.z64_wave_inputs(dev, rng, whole, 0, 256)
+    outs, err, n0 = [], 0, scan.LAUNCHES_Z64
+    for seg in segs:
+        cc = seg.cc
+        sub = {"tapez": inp["tapez"][seg.tapez0 : seg.tapez0 + cc.mz],
+               "witz": inp["witz"][seg.witz0 : seg.witz0 + cc.n_witz],
+               "tape": inp["tape"][:0], "wit2": inp["wit2"][:0]}
+        if seg.carry_srcz:
+            for k in ("carry_maskz", "carry_corrz"):
+                sub[k] = torch.stack([outs[s][k][row] for s, row in seg.carry_srcz])
+        ex = scan.ScanExecutor(cc, 0, 256, dev, carry_inz=len(seg.carry_inz),
+                               carry_outz_vals=seg.carry_outz_vals)
+        got = ex(sub)
+        want = scan.wave_plain(ex.program, 0, sub["tape"], sub["wit2"], None, None, cc.onl2,
+                               cc.pre2, sub["tapez"], sub["witz"], None, None, cc.onlz, cc.prez,
+                               None, None, sub.get("carry_maskz"), sub.get("carry_corrz"))
+        for key in (*WAVE_OUTS, "carry_maskz", "carry_corrz"):
+            if key in got:
+                err = max(err, max_abs_err(got[key].to(torch.uint8) if key == "fail" else got[key],
+                                           getattr(want, key).to(torch.uint8) if key == "fail"
+                                           else getattr(want, key)))
+        outs.append(got)
+    res["max_abs_err"] = max(res["max_abs_err"], err)
+    log("z64waves", f"segments of the chain ops={Z64_SEG_OPS} n={len(segs)} carried_in="
+        f"{[len(s.carry_inz) for s in segs]} carried_out={[len(s.carry_outz) for s in segs]} "
+        f"launches={scan.LAUNCHES_Z64 - n0} max_abs_err_vs_plain={err}")
+    if len(segs) < 3 or err or scan.LAUNCHES_Z64 - n0 != len(segs):
+        raise AssertionError("the chain's segments on W2 disagree with the plain version")
+
+
+def z64_routes(dev, rng) -> None:
+    """The chain's proof on the wave route (W2) and on the levelized route
+    (the threshold raised past its depth), the same seeds: equal bytes."""
+    from reverie_tpu_torch.tools import wave_times
+
+    from reverie_tpu_torch import TorchKKW
+    from reverie_tpu_torch.backend import host
+
+    prog, w2, wz = wave_times.z64_statements()["chain"]()
+    seeds = rng.randint(0, 256, (256, 16), dtype=np.uint8)
+    kkw = TorchKKW(prog, device=dev)
+    kkw.prove(w2, wz, seeds=seeds)
+    waves, t = wall(lambda: kkw.prove(w2, wz, seeds=seeds))
+    ex_ms = kkw.last_timings["execute"]["device_ms"]
+    threshold = host.SCAN_DEPTH_THRESHOLD
+    host.SCAN_DEPTH_THRESHOLD = 10**9
+    try:
+        lev = TorchKKW(prog, device=dev)
+        kind = type(lev._executor(0, 256)).__name__
+        lev.prove(w2, wz, seeds=seeds)
+        levelized, t_lev = wall(lambda: lev.prove(w2, wz, seeds=seeds))
+        lev_ms = lev.last_timings["execute"]["device_ms"]
+    finally:
+        host.SCAN_DEPTH_THRESHOLD = threshold
+    same = waves.to_bytes() == levelized.to_bytes()
+    log("z64waves", f"chain prove on the waves wall_s={t:.4f} execute_device_ms={ex_ms:.3f}; "
+        f"on the levelized route ({kind}) wall_s={t_lev:.4f} execute_device_ms={lev_ms:.3f}; "
+        f"equal_proof_bytes={same}")
+    if not same or kind != "Executor":
+        raise AssertionError("the chain's proofs on the two routes differ")
+
+
+def z64_batch(dev, rng) -> None:
+    """prove_batch of N chain proofs (distinct witnesses and seeds) at R =
+    N x 256, N = largest_batch capped at Z64_BATCH_MOST: a first run, then a
+    timed one whose peak memory stays within PEAK_OVER_FOOTPRINT x
+    device_footprint; proofs 0 and N - 1 equal prove()'s; verify_many of
+    two."""
+    from reverie_tpu_torch.tools import wave_times
+
+    from reverie_tpu_torch import TorchKKW, device_footprint, largest_batch
+
+    prog, w2, wz = wave_times.z64_statements()["chain"]()
+    kkw = TorchKKW(prog, device=dev)
+    torch.cuda.empty_cache()
+    free, _ = torch.cuda.mem_get_info()
+    n = largest_batch(kkw.cc, free, Z64_BATCH_MOST)
+    fp = device_footprint(kkw.cc, n * 256)
+    log("z64waves", f"largest_batch free_bytes={free} N={n} (at most {Z64_BATCH_MOST}) "
+        f"device_footprint R={n * 256}: {fp}")
+    if n < 1:
+        raise AssertionError("not one chain proof fits the card")
+    wits = distinct_witnesses(rng, w2, wz, n)
+    seeds = rng.randint(0, 256, (n, 256, 16), dtype=np.uint8)
+    kkw.prove_batch(wits, seeds)  # cold: the R = N x 256 executor
+    proofs, t = wall(lambda: peak_within_footprint(
+        f"z64waves chain prove_batch N={n} R={n * 256}", fp,
+        lambda: kkw.prove_batch(wits, seeds)))
+    log("z64waves", f"chain prove_batch N={n} wall_s={t:.4f} proofs_per_s={n / t:.3f} phases "
+        + json.dumps(phase_summary(kkw.last_timings)))
+    picks = sorted({0, n - 1})
+    same_bytes(f"z64waves prove_batch proofs {picks}", [proofs[i] for i in picks],
+               [kkw.prove(*wits[i], seeds=seeds[i]) for i in picks])
+    verdicts = kkw.verify_many(proofs[:2])
+    log("z64waves", f"proofs {picks} equal to prove()'s; verify_many={verdicts}")
+    if verdicts != [True] * len(proofs[:2]):
+        raise AssertionError("a batched chain proof did not verify")
+
+
+def z64_wave_phase(dev, rng, clock: float, ptxas: list):
+    """Deep z64 and B2A circuits on the wave executor (W2, csrc/scan_z64.cu):
+    the kernel against its plain version and the levelized Executor on the
+    three statements (check_z64_waves), the chain at a batch's width and
+    its segments with their carries chained; then, with the launches
+    counted from 0, the chain's main path (TorchKKW prove, verify, a
+    tampered proof, W2 in every leg's executor), its proof on both routes,
+    a prove_batch of chain proofs, and the golden B2A blob (190 levels, now
+    on the waves).  Returns (W2's check, the launch counts)."""
+    from reverie_tpu_torch.tools import wave_times
+
+    from reverie_tpu_torch.circuit.compile import compile_program
+
+    for row in ptxas:
+        if "scan_z64" in row["kernel"]:
+            log("z64waves", "ptxas " + json.dumps(row))
+    res = {"max_abs_err": 0}
+    made = wave_times.z64_statements()
+    ccs = {name: compile_program(make()[0]) for name, make in made.items()}
+    for name, cc in ccs.items():
+        check_z64_waves(dev, rng, name, cc, clock, res)
+    z64_chain_wide(dev, rng, ccs["chain"], clock, res)
+    z64_segments(dev, rng, res)
+    del ccs
+    reset_launches()
+    main_path(dev, "z64waves", made["chain"], "z64", rng, executor_kernel="scan_z64")
+    z64_routes(dev, rng)
+    z64_batch(dev, rng)
+    golden_b2a(dev)
+    launches = launch_counts()
+    log("z64waves", f"launches={json.dumps(launches)}")
     return res, launches
 
 
@@ -993,6 +1276,9 @@ KERNELS = (  # name, source, replaces (file:line of every TPU function)
      "tools/r4_extract_probe.py:331"),
     ("scan_gf2", "reverie_tpu_torch/csrc/scan_gf2.cu",
      "reverie_tpu/backend/tpu_scan.py:247 _scan_trace_fast2 (lax.scan body; XLA, no Pallas)"),
+    ("scan_z64", "reverie_tpu_torch/csrc/scan_z64.cu",
+     "reverie_tpu/backend/tpu_scan.py:374 _scan_trace, its z64 and B2A half :430-804 "
+     "(lax.scan body; XLA, no Pallas)"),
 )
 
 
@@ -1042,9 +1328,9 @@ def main() -> int:
     gf2 = main_path(dev, "main", lambda: mul_bench_circuit(N_MUL), "gf2", rng)
     parity(dev, "gf2_50k")
     z64 = main_path(dev, "z64", lambda: z64_mul_bench_circuit(N_MUL_Z64), "z64", rng)
-    golden_b2a(dev)
     parity(dev, "z64_2k")
     checks["scan_gf2"], sha = sha256_phase(dev, rng, clock, ptxas)
+    checks["scan_z64"], zw = z64_wave_phase(dev, rng, clock, ptxas)
     batch = batch_phase(dev, rng, checks)
     tools = probes(dev)
 
@@ -1053,7 +1339,7 @@ def main() -> int:
         c = checks[kname]
         kernels.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": gf2[kname] + z64[kname] + sha[kname] + batch[kname] + tools[kname],
+            "launches": sum(run[kname] for run in (gf2, z64, sha, zw, batch, tools)),
             "max_abs_err": c["max_abs_err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
             "library_ms": c["library_ms"]})

@@ -118,11 +118,12 @@ def kernels() -> ctypes.CDLL:
         lib.reverie_u32_to_u8_rows.restype = i32
         lib.reverie_pack_shift.argtypes = [vp, vp, vp, i64, i32, vp]
         lib.reverie_pack_shift.restype = i32
-        lib.reverie_scan_gf2.argtypes = [vp, vp, vp, i32, i32, i32, i64, i32, i32, i32, i32, i32,
-                                         vp, vp, vp, vp, vp, vp, vp, vp, vp]
-        lib.reverie_scan_gf2.restype = i32
-        lib.reverie_scan_gf2_plan.argtypes = [i32, i32, i32, i32, i32, i32, i32, i64, vp]
-        lib.reverie_scan_gf2_plan.restype = i32
+        for launch in (lib.reverie_scan_gf2, lib.reverie_scan_z64):
+            launch.argtypes = [vp]  # the launch's int64 words (backend/scan.py wave_run)
+            launch.restype = i32
+        for plan in (lib.reverie_scan_gf2_plan, lib.reverie_scan_z64_plan):
+            plan.argtypes = [vp, vp]
+            plan.restype = i32
         lib.reverie_cuda_error_string.argtypes = [i32]
         lib.reverie_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -2,8 +2,9 @@
 
 Port of reverie_tpu/backend/tpu.py (`Executor`, `_gf2_kind`, `_z64_kind`,
 `_prep_tables`, `_Acc`, `_classify`, `_assemble_stream`, `_parity8`,
-`_expand`, `_recon_sum`, `_compose_bits`, `_dead_dst_columns`,
-`Executor._arena_rows`).  Every gate of a level runs as one vector op over
+`_expand`, `_recon_sum`, `_compose_bits`, `carry_arena`,
+`_dead_dst_columns`, `Executor._arena_rows`, and the segment carries of
+streaming).  Every gate of a level runs as one vector op over
 all repetitions:
 
   mask2 arena : (L2, R) uint8 -- byte r = the 8 player bits of rep r
@@ -188,13 +189,28 @@ def tables_to_device(cc: CompiledCircuit, device: torch.device
     return meta, tables
 
 
-def _dead_dst_columns(cc: CompiledCircuit) -> Dict[tuple, bool]:
-    """(level, key) -> True when no later gate reads the column's dst
-    values: their arena writes are skipped (transcripts are unchanged).
-    GF(2) and z64 values are numbered apart, so their liveness is kept
-    apart; B2A gates read GF(2) values through 'bits' and B2A_OUT reads a
-    z64 value through 'zr'."""
+def carry_arena(n_rows: int, R: int, carried=None, lead=(), dtype=torch.uint8,
+                device=None) -> torch.Tensor:
+    """A value arena (n_rows, *lead, R) with the segment carry contract
+    (reverie_tpu/backend/tpu.py carry_arena): row 0 is the zero value,
+    rows 1..k the carried rows in order, the rest zeros."""
+    arena = torch.zeros((n_rows, *lead, R), dtype=dtype, device=device)
+    if carried is not None and carried.shape[0]:
+        arena[1 : 1 + carried.shape[0]] = carried
+    return arena
+
+
+def _dead_dst_columns(cc: CompiledCircuit, carry_out_vals=None,
+                      carry_outz_vals=None) -> Dict[tuple, bool]:
+    """(level, key) -> True when no later gate, and no segment carry-out,
+    reads the column's dst values: their arena writes are skipped
+    (transcripts are unchanged).  GF(2) and z64 values are numbered apart,
+    so their liveness is kept apart; B2A gates read GF(2) values through
+    'bits' and B2A_OUT reads a z64 value through 'zr'."""
     read = (np.zeros(cc.n_vals2 + 1, bool), np.zeros(cc.n_valsz + 1, bool))
+    for tgt, vals in zip(read, (carry_out_vals, carry_outz_vals)):
+        if vals is not None:
+            tgt[np.asarray(vals, np.int64)] = True
     for table in cc.levels:
         for key, cols in table.items():
             tgt = read[key // N_KINDS != GF2]
@@ -214,10 +230,15 @@ def _dead_dst_columns(cc: CompiledCircuit) -> Dict[tuple, bool]:
     }
 
 
-def _arena_rows(cc: CompiledCircuit, dead: Dict[tuple, bool]) -> Tuple[int, int]:
+def _arena_rows(cc: CompiledCircuit, dead: Dict[tuple, bool], carry_in: int = 0,
+                carry_out_vals=None, carry_inz: int = 0,
+                carry_outz_vals=None) -> Tuple[int, int]:
     """(L2, Lz): per domain, 1 + the highest arena row any gate reads or
-    (live) writes."""
-    hi = [0, 0]
+    (live) writes, a carry-in fills or a carry-out reads."""
+    hi = [carry_in, carry_inz]
+    for z, vals in enumerate((carry_out_vals, carry_outz_vals)):
+        if vals is not None and len(vals):
+            hi[z] = max(hi[z], int(np.max(vals)))
     for li, table in enumerate(cc.levels):
         for key, cols in table.items():
             z = int(key // N_KINDS != GF2)
@@ -267,27 +288,44 @@ class Executor:
     int64, plus 'wit2' (n_wit2, R) uint8 and 'witz' (n_witz, R) int64 in
     PROVER mode, or 'in2', 'co2', 're2' (rows, R) uint8 and 'inz', 'coz'
     (rows, R) and 'rez' (rows, 8, R) int64 in VERIFY_ONL mode.  Returns
-    {'onl2', 'pre2', 'onlz', 'prez': (rows, R) uint8, 'fail': (R,) bool}."""
+    {'onl2', 'pre2', 'onlz', 'prez': (rows, R) uint8, 'fail': (R,) bool}.
+
+    The segment carries of streaming (reverie_tpu/backend/tpu.py:180-200):
+    with carry_in = k, GF(2) arena rows 1..k start from the inputs
+    'carry_mask2' and 'carry_corr2' (k, R) uint8, and with carry_out_vals
+    the outputs gain those rows of the final arenas; carry_inz and
+    carry_outz_vals the same for the z64 arenas, 'carry_maskz' (k, 8, R)
+    and 'carry_corrz' (k, R) int64."""
 
     def __init__(self, cc: CompiledCircuit, mode: int, total_reps: int,
-                 device: torch.device):
+                 device: torch.device, carry_in: int = 0, carry_out_vals=None,
+                 carry_inz: int = 0, carry_outz_vals=None):
         self.cc = cc
         self.mode = mode
         self.R = total_reps
         self.device = device
+        self.carry_in, self.carry_inz = carry_in, carry_inz
+        self.carry_out_vals, self.carry_outz_vals = (
+            None if v is None or len(v) == 0 else np.asarray(v, np.int64)
+            for v in (carry_out_vals, carry_outz_vals))
         self.meta, self.tables = tables_to_device(cc, device)
-        self._dead = _dead_dst_columns(cc)
-        self._rows2, self._rowsz = _arena_rows(cc, self._dead)
+        for name, vals in (("carry_out_vals", self.carry_out_vals),
+                           ("carry_outz_vals", self.carry_outz_vals)):
+            if vals is not None:
+                self.tables[name] = torch.from_numpy(vals).to(device)
+        self._dead = _dead_dst_columns(cc, self.carry_out_vals, self.carry_outz_vals)
+        self._rows2, self._rowsz = _arena_rows(cc, self._dead, carry_in, self.carry_out_vals,
+                                               carry_inz, self.carry_outz_vals)
 
     def __call__(self, inp: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         cc, R, dev = self.cc, self.R, self.device
-        u8 = dict(dtype=torch.uint8, device=dev)
-        i64 = dict(dtype=torch.int64, device=dev)
+        c2 = inp if self.carry_in else {}
+        cz = inp if self.carry_inz else {}
         st = dict(
-            mask2=torch.zeros((self._rows2, R), **u8),
-            corr2=torch.zeros((self._rows2, R), **u8),
-            maskz=torch.zeros((self._rowsz, 8, R), **i64),
-            corrz=torch.zeros((self._rowsz, R), **i64),
+            mask2=carry_arena(self._rows2, R, c2.get("carry_mask2"), device=dev),
+            corr2=carry_arena(self._rows2, R, c2.get("carry_corr2"), device=dev),
+            maskz=carry_arena(self._rowsz, R, cz.get("carry_maskz"), (8,), torch.int64, dev),
+            corrz=carry_arena(self._rowsz, R, cz.get("carry_corrz"), (), torch.int64, dev),
             fail=torch.zeros((R,), dtype=torch.bool, device=dev),
             pending={"onl2": [], "pre2": [], "onlz": [], "prez": []},
         )
@@ -300,6 +338,14 @@ class Executor:
         for name, n_rows in (("onl2", cc.onl2), ("pre2", cc.pre2),
                              ("onlz", cc.onlz), ("prez", cc.prez)):
             out[name] = _assemble_stream(st["pending"][name], n_rows, R, dev)
+        if self.carry_out_vals is not None:
+            vals = self.tables["carry_out_vals"]
+            out["carry_mask2"] = st["mask2"].index_select(0, vals)
+            out["carry_corr2"] = st["corr2"].index_select(0, vals)
+        if self.carry_outz_vals is not None:
+            vals = self.tables["carry_outz_vals"]
+            out["carry_maskz"] = st["maskz"].index_select(0, vals)
+            out["carry_corrz"] = st["corrz"].index_select(0, vals)
         return out
 
     def _gf2_kind(self, st, inp, kind: int, A: "_Acc") -> None:

@@ -16,8 +16,8 @@ single and batch paths, and reverie_tpu's two sets of pipeline stages, are
 one set of stages here, over N * 256 proof-major lanes.
 
 The device runs the mask tapes (CUDA kernels), the executor (the levelized
-torch one, or for pure-GF(2) circuits deeper than SCAN_DEPTH_THRESHOLD
-levels the wave executor of scan.py, one CUDA kernel launch per call), the
+torch one, or for circuits deeper than SCAN_DEPTH_THRESHOLD levels the wave
+executor of scan.py, one CUDA kernel launch per call), the
 transcript hashes (CUDA chunk kernel + torch tail), and the extraction of
 the opened repetitions.  The host runs seed expansion, the Fiat-Shamir
 challenge, the blake3 of the rep hashes and proof assembly, as in the
@@ -36,7 +36,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..circuit.compile import CompiledCircuit, _circuit_has_z64, compile_program
+from ..circuit.compile import CompiledCircuit, compile_program
 from ..circuit.ir import CombineOp, Gate, Kind, Op
 from ..crypto import blake3, expand_seeds
 from ..crypto.kernels import aes_tape, aes_tape_z64, blake3 as b3
@@ -64,23 +64,23 @@ from .executor import (
 )
 
 
-#: circuits deeper than this many levels, and pure GF(2), run on the wave
-#: executor (reverie_tpu/backend/tpu_host.py:71-72)
+#: circuits deeper than this many levels run on the wave executor
+#: (reverie_tpu/backend/tpu_host.py:71-72)
 SCAN_DEPTH_THRESHOLD = 128
 
 
 def uses_waves(cc: CompiledCircuit) -> bool:
     """True when TorchKKW runs cc on the wave executor (scan.ScanExecutor):
-    deeper than SCAN_DEPTH_THRESHOLD and pure GF(2).  Circuits with z64 or
-    B2A gates, of any depth, run levelized until the z64 side of the waves
-    is ported."""
-    return cc.depth > SCAN_DEPTH_THRESHOLD and not _circuit_has_z64(cc)
+    deeper than SCAN_DEPTH_THRESHOLD, as TpuKKW._executor routes it (W1 for
+    pure-GF(2) circuits, W2 for those with z64 or B2A gates)."""
+    return cc.depth > SCAN_DEPTH_THRESHOLD
 
 
 def launch_counts() -> Dict[str, int]:
     """The kernels' launch counters, by kernel."""
     return {"aes_tape_gf2": aes_tape.LAUNCHES, "aes_tape_z64": aes_tape_z64.LAUNCHES,
-            "blake3_chunk_cvs": b3.LAUNCHES, "scan_gf2": scan.LAUNCHES}
+            "blake3_chunk_cvs": b3.LAUNCHES, "scan_gf2": scan.LAUNCHES,
+            "scan_z64": scan.LAUNCHES_Z64}
 
 
 class PhaseTimer:
@@ -397,7 +397,7 @@ class TorchKKW:
 
     def _executor(self, mode: int, R: int):
         """The executor of one role at R lanes, built once: the wave
-        executor (scan.ScanExecutor) for pure-GF(2) circuits deeper than
+        executor (scan.ScanExecutor) for circuits deeper than
         SCAN_DEPTH_THRESHOLD levels, the levelized Executor otherwise
         (uses_waves).  Every entry point takes its executors here."""
         key = (mode, R)

@@ -1,5 +1,6 @@
 """Synthetic circuit builders for tests and benchmarks (the port's copy of
-reverie_tpu/circuit/builders.py)."""
+reverie_tpu/circuit/builders.py, and the deep z64 and B2A statements of
+reverie_tpu's scan-executor tests, tests/test_tpu_backend.py)."""
 
 from __future__ import annotations
 
@@ -67,3 +68,56 @@ def mixed_b2a_circuit() -> Tuple[List[CombineOp], List[bool], List[int]]:
         ]
     )
     return prog, [True] * 128, [0]
+
+
+def z64_chain_circuit(n_mul: int = 150) -> Tuple[List[CombineOp], List[bool], List[int]]:
+    """A serial z64 MUL chain n_mul + 3 levels deep (reverie_tpu's
+    tests/test_tpu_backend.py test_scan_executor_deep_z64_circuit): two
+    inputs, n_mul MULs each reading the one before, an ADDC, a SUB of it
+    from itself and its ASSERT_ZERO."""
+    z = CombineOp.z64
+    prog = [z(Gate(Op.INPUT, dst=0)), z(Gate(Op.INPUT, dst=1))]
+    prog += [z(Gate(Op.MUL, dst=1, src1=0, src2=1)) for _ in range(n_mul)]
+    prog += [z(Gate(Op.ADDC, dst=2, src1=1, const=5)), z(Gate(Op.SUB, dst=3, src1=2, src2=2)),
+             z(Gate(Op.ASSERT_ZERO, src1=3))]
+    return prog, [], [3, 5]
+
+
+def deep_b2a_circuit(chain: int = 200) -> Tuple[List[CombineOp], List[bool], List[int]]:
+    """mixed_b2a_circuit without its last op, then `chain` GF(2) MULs each
+    reading the one before (tests/test_tpu_backend.py
+    _deep_b2a_mixed_circuit): z64, B2A and GF(2) gates in one deep
+    circuit."""
+    prog, wit2, witz = mixed_b2a_circuit()
+    prog = prog[:-1] + [CombineOp.gf2(Gate(Op.MUL, dst=2, src1=2, src2=3)) for _ in range(chain)]
+    return prog, wit2, witz
+
+
+def z64_all_ops_circuit(iters: int = 200, seed: int = 5
+                        ) -> Tuple[List[CombineOp], List[bool], List[int]]:
+    """Every z64 gate kind on a serial accumulator `iters` levels deep, with
+    three ops beside it a level and a passing ASSERT_ZERO of x - x
+    (tests/test_tpu_backend.py test_scan_executor_z64_all_ops_wide)."""
+    rng = random.Random(seed)
+    z, width = CombineOp.z64, 6
+    prog = [z(Gate(Op.INPUT, dst=w)) for w in range(width)]
+    prog += [z(Gate(Op.RANDOM, dst=width)),
+             z(Gate(Op.CONST, dst=width + 1, const=0xDEADBEEFCAFEF00D))]
+    kinds = [Op.ADD, Op.SUB, Op.ADDC, Op.SUBC, Op.MULC, Op.MUL]
+    for i in range(iters):
+        k = kinds[i % len(kinds)]
+        b2 = rng.randrange(width + 2)
+        if k in (Op.ADDC, Op.SUBC, Op.MULC):
+            prog.append(z(Gate(k, dst=0, src1=0, const=rng.getrandbits(64))))
+        else:
+            prog.append(z(Gate(k, dst=0, src1=0, src2=b2)))
+        for _ in range(3):
+            k2 = kinds[rng.randrange(len(kinds))]
+            a, c = rng.randrange(1, width + 2), rng.randrange(1, width + 2)
+            d = rng.randrange(1, width)
+            if k2 in (Op.ADDC, Op.SUBC, Op.MULC):
+                prog.append(z(Gate(k2, dst=d, src1=a, const=rng.getrandbits(64))))
+            else:
+                prog.append(z(Gate(k2, dst=d, src1=a, src2=c)))
+    prog += [z(Gate(Op.SUB, dst=width, src1=0, src2=0)), z(Gate(Op.ASSERT_ZERO, src1=width))]
+    return prog, [], [rng.getrandbits(64) for _ in range(width)]

@@ -2,11 +2,12 @@
 
 The port's copy of reverie_tpu/circuit/compile.py: the compiled-kind
 constants, `_DomState`, `CompiledCircuit`, `_Builder`, `compile_program`,
-and the wave packing of the scan executor (`WaveTable`, `_NOP`,
-`_circuit_has_z64`, `build_waves`, z64 columns included).  Left out: the
-pickle disk cache (`cache_key`) and the segment carry plumbing
-(`carry_in`, `out_val_map`) with `compile_segments`, which belong to the
-streaming slice.
+the segment plumbing of streaming (`compile_program`'s `carry_in`,
+`out_val_map` and their z64 twins, `Segment`, `_gate_reads`,
+`compile_segments`) and the wave packing of the scan executor
+(`WaveTable`, `_NOP`, `_circuit_has_z64`, `build_waves`, z64 columns
+included).  Left out: the pickle disk cache (`cache_key`), whose salt goes
+stale when a module it does not hash changes.
 
   * SSA conversion: the mutable wire arena becomes an immutable value arena
     (each gate output is a fresh value id), so gates within a level are
@@ -145,11 +146,22 @@ class _Builder:
         self.max_level = max(self.max_level, level)
 
 
-def compile_program(program: Sequence[CombineOp]) -> CompiledCircuit:
-    """Levelize a whole program (reverie_tpu's compile_program without a
-    cache key or segment carries)."""
+def compile_program(program: Sequence[CombineOp],
+                    carry_in: Optional[Sequence[int]] = None,
+                    out_val_map: Optional[Dict[int, int]] = None,
+                    carry_inz: Optional[Sequence[int]] = None,
+                    out_val_mapz: Optional[Dict[int, int]] = None) -> CompiledCircuit:
+    """Levelize a program (reverie_tpu's compile_program without a cache
+    key).  carry_in / carry_inz: GF(2) / Z64 wire ids whose values enter
+    this (sub)program from a segment before it; they take value slots
+    1..len(carry) in order, per domain.  out_val_map / out_val_mapz, where
+    given, receive the final wire -> value maps (compile_segments)."""
     d2 = _DomState()
     dz = _DomState()
+    for w in carry_in or ():
+        d2.write(w, 0)
+    for w in carry_inz or ():
+        dz.write(w, 0)
     b = _Builder()
     in_slots2: List[int] = []
     co_slots2: List[int] = []
@@ -294,6 +306,11 @@ def compile_program(program: Sequence[CombineOp]) -> CompiledCircuit:
             emit_b2a(cop.a, cop.b)
         # SizeHint: no-op for SSA compilation
 
+    if out_val_map is not None:
+        out_val_map.update(d2.wire_to_val)
+    if out_val_mapz is not None:
+        out_val_mapz.update(dz.wire_to_val)
+
     # materialize levels into numpy column arrays
     levels: List[Dict[int, Dict[str, np.ndarray]]] = []
     for lvl in range(b.max_level + 1):
@@ -333,6 +350,131 @@ def compile_program(program: Sequence[CombineOp]) -> CompiledCircuit:
         corr_slotsz=np.asarray(co_slotsz, dtype=np.int64),
         recon_slotsz=np.asarray(re_slotsz, dtype=np.int64),
     )
+
+
+@dataclasses.dataclass
+class Segment:
+    """One compiled streaming segment.
+
+    The stream, tape and witness offsets inside `cc` are local (from 0);
+    the bases below place them in the whole circuit's streams, so that the
+    transcript bytes and the challenge equal unsegmented proving.  Wires
+    live across segments are carried per domain: GF(2) arena rows, and Z64
+    mask and correction rows."""
+
+    cc: CompiledCircuit
+    carry_in: List[int]  # GF(2) wire ids entering (arena rows 1..k, in order)
+    carry_out: List[int]  # GF(2) wire ids leaving (read by later segments)
+    carry_out_vals: np.ndarray  # their value slots in this segment's arena
+    #: per carry_in wire, in order: (source segment, row in its carry_out
+    #: arrays), the last segment before this one that wrote the wire
+    carry_src: List[tuple]
+    tape0: int  # global tape-row base
+    wit0: int  # global witness base
+    onl0: int  # global online-stream byte base
+    pre0: int
+    rec0: int  # global record-count bases
+    cor0: int
+    inp0: int
+    # -- the Z64 domain (the GF(2) fields' twins) ---------------------------
+    carry_inz: List[int] = dataclasses.field(default_factory=list)
+    carry_outz: List[int] = dataclasses.field(default_factory=list)
+    carry_outz_vals: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros(0, np.int32))
+    carry_srcz: List[tuple] = dataclasses.field(default_factory=list)
+    tapez0: int = 0
+    witz0: int = 0
+    onlz0: int = 0
+    prez0: int = 0
+    recz0: int = 0
+    corz0: int = 0
+    inpz0: int = 0
+
+
+def _gate_reads(g: Gate) -> List[int]:
+    """The wires a gate reads."""
+    if g.op in (Op.ADD, Op.SUB, Op.MUL):
+        return [g.src1, g.src2]
+    if g.op in (Op.ADDC, Op.SUBC, Op.MULC, Op.ASSERT_ZERO):
+        return [g.src1]
+    return []
+
+
+class _Cross:
+    """One domain's wires across segments: the segment that last wrote each
+    wire, and per segment the wires it reads from an earlier one (with that
+    segment) and the wires a later one reads from it."""
+
+    def __init__(self, n_seg: int):
+        self.writer: Dict[int, int] = {}
+        self.in_sets: List[Dict[int, int]] = [dict() for _ in range(n_seg)]
+        self.out_sets: List[Dict[int, None]] = [dict() for _ in range(n_seg)]
+
+    def read(self, s: int, w: int) -> None:
+        src = self.writer.get(w)
+        if src is not None and src != s:
+            self.in_sets[s].setdefault(w, src)
+            self.out_sets[src].setdefault(w)
+
+    def write(self, s: int, w: Optional[int]) -> None:
+        if w is not None:
+            self.writer[w] = s
+
+    def rows(self):
+        """Per segment its carry-out wires (sorted) and their rows."""
+        outs = [sorted(o) for o in self.out_sets]
+        return outs, [{w: i for i, w in enumerate(co)} for co in outs]
+
+
+def compile_segments(program: Sequence[CombineOp], seg_ops: int) -> List[Segment]:
+    """Split a composite program into segments of at most seg_ops ops and
+    compile each with its per-domain carry-in and carry-out wires (the
+    wires live across segments).  A B2A reads the GF(2) wires
+    [src, src + 64) and writes one Z64 wire."""
+    ops = list(program)
+    n = len(ops)
+    bounds = [(i, min(i + seg_ops, n)) for i in range(0, n, seg_ops)]
+    x2, xz = _Cross(len(bounds)), _Cross(len(bounds))
+    for s, (lo, hi) in enumerate(bounds):
+        for cop in ops[lo:hi]:
+            if cop.kind == Kind.SIZE_HINT:
+                continue
+            if cop.kind == Kind.B2A:
+                for i in range(64):
+                    x2.read(s, cop.b + i)
+                xz.write(s, cop.a)
+                continue
+            x = x2 if cop.kind == Kind.GF2 else xz
+            g = cop.gate
+            for w in _gate_reads(g):
+                x.read(s, w)
+            x.write(s, None if g.op == Op.ASSERT_ZERO else g.dst)
+
+    carry_outs, out_row = x2.rows()
+    carry_outsz, out_rowz = xz.rows()
+    segments: List[Segment] = []
+    base = dict.fromkeys(("tape0", "wit0", "onl0", "pre0", "rec0", "cor0", "inp0", "tapez0",
+                          "witz0", "onlz0", "prez0", "recz0", "corz0", "inpz0"), 0)
+    for s, (lo, hi) in enumerate(bounds):
+        carry_in, carry_inz = sorted(x2.in_sets[s]), sorted(xz.in_sets[s])
+        final, finalz = {}, {}
+        cc = compile_program(ops[lo:hi], carry_in=carry_in, out_val_map=final,
+                             carry_inz=carry_inz, out_val_mapz=finalz)
+        segments.append(Segment(
+            cc=cc, carry_in=carry_in, carry_out=carry_outs[s],
+            carry_out_vals=np.asarray([final[w] for w in carry_outs[s]], dtype=np.int32),
+            carry_src=[(x2.in_sets[s][w], out_row[x2.in_sets[s][w]][w]) for w in carry_in],
+            carry_inz=carry_inz, carry_outz=carry_outsz[s],
+            carry_outz_vals=np.asarray([finalz[w] for w in carry_outsz[s]], dtype=np.int32),
+            carry_srcz=[(xz.in_sets[s][w], out_rowz[xz.in_sets[s][w]][w]) for w in carry_inz],
+            **base))
+        for key, n_key in (("tape0", cc.m2), ("wit0", cc.n_wit2), ("onl0", cc.onl2),
+                           ("pre0", cc.pre2), ("rec0", cc.n_recons2), ("cor0", cc.n_corrs2),
+                           ("inp0", cc.n_inputs2), ("tapez0", cc.mz), ("witz0", cc.n_witz),
+                           ("onlz0", cc.onlz), ("prez0", cc.prez), ("recz0", cc.n_reconsz),
+                           ("corz0", cc.n_corrsz), ("inpz0", cc.n_inputsz)):
+            base[key] += n_key
+    return segments
 
 
 @dataclasses.dataclass

@@ -69,6 +69,47 @@ def wave_gf2_work(ops: np.ndarray, mode: int, R: int, input_rows: int,
     return np.asarray(ops).size * 12 * 4 + lane_bytes * R, per_lane * R
 
 
+#: integer instructions per rep of one z64 slot of W2 (csrc/scan_z64.cu), by
+#: role (0 PROVER, 1 VERIFY_ONL, 2 VERIFY_PRE) and compiled gate kind
+#: (circuit/compile.py), in Hopper's forms: a 64-bit add or subtract 2
+#: (IADD3, IADD3.X), a 64-bit product's low word 3 (IMAD.WIDE.U32 and two
+#: IMAD), a negation 2, a test against zero 2, a byte extract 1.
+#:   INPUT: the 8 tape words' sum 14, the witness less it 2 (PROVER), the
+#:     event's 8 bytes (not VERIFY_PRE);
+#:   ADD, SUB 18 (9 words); ADDC, SUBC 2; MULC 27; CONST, RANDOM 0;
+#:   MUL: the three sums 42 and delta 5 (not VERIFY_ONL), the 8 shares 96
+#:     (+ rez 16 in VERIFY_ONL), their sum and delta 16 (not VERIFY_PRE),
+#:     the corr 5, delta's 8 bytes and the shares' 64 (not VERIFY_PRE);
+#:   ASSERT_ZERO (not VERIFY_PRE): the sum 16 (+ rez 16), the test 2, the
+#:     shares' 64 bytes;
+#:   B2A_CORR: 64 bits x (a byte extract, its parity's POPC, placing and
+#:     merging the bit 2) = 256, the tape's sum 14, the correction 2, its 8
+#:     bytes (the correction is read in VERIFY_ONL: its 8 bytes);
+#:   B2A_OUT: 64 bits x (mask and corr byte 2, POPC, XOR, placing and
+#:     merging 2 = 6; + re2's XOR in VERIFY_ONL; the corr byte and its
+#:     placing 3 in VERIFY_PRE), the mask's negation 16, the corr 2.
+#: NOP slots count nothing.
+WAVE_Z64_INT_OPS = {
+    0: {0: 24, 1: 18, 9: 18, 2: 2, 3: 2, 4: 27, 8: 0, 7: 0, 5: 236, 6: 82, 10: 280, 11: 402},
+    1: {0: 8, 1: 18, 9: 18, 2: 2, 3: 2, 4: 27, 8: 0, 7: 0, 5: 205, 6: 98, 10: 8, 11: 466},
+    2: {0: 0, 1: 18, 9: 18, 2: 2, 3: 2, 4: 27, 8: 0, 7: 0, 5: 156, 6: 0, 10: 280, 11: 210},
+}
+
+
+def wave_z64_work(zops: np.ndarray, n_b2a: int, mode: int, R: int, input_bytes: int,
+                  n_onlz: int, n_prez: int) -> Tuple[int, int]:
+    """(bytes, integer instructions) of the z64 half of one W2 call over R
+    lanes (the GF(2) half is wave_gf2_work's): the z64 table once (16 int32
+    a slot, `zops` its opcode column) and the bits table (64 int32 a B2A),
+    and per lane the z64 inputs read once (`input_bytes`: tapez's 64 B a
+    row, witz, inz and coz 8 B, rez 64 B) and the onlz (not VERIFY_PRE) and
+    prez rows written once.  The z64 arena is scratch, not counted."""
+    kinds, counts = np.unique(np.asarray(zops), return_counts=True)
+    per_lane = sum(WAVE_Z64_INT_OPS[mode].get(int(k), 0) * int(c) for k, c in zip(kinds, counts))
+    lane_bytes = input_bytes + (n_onlz if mode != 2 else 0) + n_prez
+    return np.asarray(zops).size * 16 * 4 + n_b2a * 64 * 4 + lane_bytes * R, per_lane * R
+
+
 def int32_ops_per_s(sm_clock_mhz: float) -> float:
     return SMS * INT32_LANES_PER_SM * sm_clock_mhz * 1e6
 

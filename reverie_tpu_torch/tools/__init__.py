@@ -8,5 +8,6 @@ which runs it on the card:
     python -m reverie_tpu_torch.tools.r4_bwroof
 
 `build_time` times the nvcc build of the kernels' library, parallel
-against one nvcc over all sources.
+against one nvcc over all sources; `wave_times` the wave kernels W1 and W2
+(one tree against another's, in one call).
 """

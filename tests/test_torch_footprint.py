@@ -3,9 +3,10 @@ really holds: the peak of live tensor bytes over `TorchKKW.prove_batch` on
 the CPU, from the profiler's allocation trace, with each CUDA kernel's
 plain version replaced by an allocation of its output (the kernels allocate
 nothing else; the plain versions' working sets exist only on the CPU; the
-wave kernel allocates its spill arena and its outputs).  The circuits and the 25%
-tolerance are tests/test_footprint.py's, with a deep GF(2) circuit for the
-wave executor beside them."""
+wave kernels allocate their spill arenas and their outputs).  The circuits
+and the 25% tolerance are tests/test_footprint.py's, with a deep GF(2)
+circuit for the wave executor beside them; mixed_b2a (190 levels) takes
+the wave executor too (W2)."""
 
 import numpy as np
 import pytest
@@ -25,7 +26,7 @@ from reverie_tpu_torch.crypto.kernels import aes_tape, aes_tape_z64, blake3 as b
 CIRCUITS = {
     "gf2": lambda: mul_bench_circuit(3000),
     "z64": lambda: z64_mul_bench_circuit(300),
-    "mixed_b2a": mixed_b2a_circuit,
+    "mixed_b2a": mixed_b2a_circuit,  # 190 levels: the wave executor (W2)
     "deep_gf2": lambda: wide_and_circuit(3000, width=16, seed=1),  # the wave executor
 }
 
@@ -46,11 +47,12 @@ def live_peak(fn) -> int:
 def card_table_bytes(ex) -> int:
     """Bytes of the tables an executor holds on the card: the levelized
     Executor's index tables, or the wave executor's packed program (its
-    slots, input fields and chunk offsets), which the CPU keeps as the
-    slot-allocated table."""
+    slots, input fields and chunk offsets, and its z64 and bits tables),
+    which the CPU keeps as the slot-allocated tables."""
     if isinstance(ex, scan.ScanExecutor):
         packed = scan.pack_table(ex.table.numpy(), ex.mode, ex.program.plan.chunk)
-        return sum(a.nbytes for a in packed)
+        z = [t for t in (ex.program.ztable, ex.program.bits) if t is not None]
+        return sum(a.nbytes for a in packed) + sum(t.numel() * 4 for t in z)
     return sum(t.numel() * t.element_size() for t in ex.tables.values())
 
 
@@ -63,13 +65,23 @@ def kernel_outputs_only(monkeypatch):
     monkeypatch.setattr(b3, "chunk_cvs", lambda buf, n, base=0: torch.zeros(
         (8, n, buf.shape[1]), dtype=torch.int32))
 
-    def wave_run(prog, mode, tape, xin, co2, re2, n_onl, n_pre):
+    def wave_run(prog, mode, tape, xin, co2, re2, n_onl, n_pre, tapez=None, xinz=None,
+                 coz=None, rez=None, n_onlz=0, n_prez=0, *carries):
         R = tape.shape[1]
-        out = (torch.zeros((max(n_onl, 1), R), dtype=torch.uint8),
-               torch.zeros((max(n_pre, 1), R), dtype=torch.uint8),
-               torch.zeros((R,), dtype=torch.bool))
-        # the spill arena, while it runs (the live values sit in shared memory)
+        u8 = dict(dtype=torch.uint8)
+        z = prog.has_z64
+        out = scan.WaveOut(
+            torch.zeros((max(n_onl, 1), R), **u8), torch.zeros((max(n_pre, 1), R), **u8),
+            torch.zeros((R,), dtype=torch.bool),
+            torch.zeros((max(n_onlz, 1) if z else 1, R), **u8),
+            torch.zeros((max(n_prez, 1) if z else 1, R), **u8),
+            *(torch.zeros((0, R), **u8),) * 2, torch.zeros((0, 8, R), dtype=torch.int64),
+            torch.zeros((0, R), dtype=torch.int64))
+        # the spill arenas (GF(2); z64: W2's), while it runs (the live values
+        # sit in shared memory)
         torch.empty((max(prog.n_spill, 1), R), dtype=torch.int16).zero_()
+        if z:
+            torch.empty((max(prog.n_spillz, 1), 9, R), dtype=torch.int64).zero_()
         return out
 
     monkeypatch.setattr(scan, "wave_run", wave_run)
@@ -80,7 +92,7 @@ def kernel_outputs_only(monkeypatch):
 def test_footprint_tracks_a_prove(kernel_outputs_only, name, n):
     prog, wit2, witz = CIRCUITS[name]()
     port = TorchKKW(prog, device=torch.device("cpu"))
-    assert host.uses_waves(port.cc) == (name == "deep_gf2")
+    assert host.uses_waves(port.cc) == (name in ("deep_gf2", "mixed_b2a"))
     seeds = np.random.RandomState(n).randint(0, 256, (n, 256, 16), dtype=np.uint8)
     peak = live_peak(lambda: port.prove_batch([(wit2, witz)] * n, seeds))
     # the index or wave tables come from numpy without a copy on the CPU

@@ -14,7 +14,10 @@ import torch
 from reverie_tpu_torch import _build, device as tdevice
 from reverie_tpu_torch.backend import executor as tex, scan
 from reverie_tpu_torch.circuit import CombineOp, Gate, Op
-from reverie_tpu_torch.circuit.compile import _NOP, G_ASSERT, compile_program
+from reverie_tpu_torch.circuit.builders import deep_b2a_circuit as deep_b2a
+from reverie_tpu_torch.circuit.builders import z64_all_ops_circuit as z64_all_ops
+from reverie_tpu_torch.circuit.builders import z64_chain_circuit as z64_chain
+from reverie_tpu_torch.circuit.compile import _NOP, G_ASSERT, compile_program, compile_segments
 from reverie_tpu_torch.crypto.kernels import aes_planes, aes_tape, aes_tape_z64, blake3 as b3
 from reverie_tpu_torch.tools import r4_bwroof, r4_extract_probe, r5_u8emit
 
@@ -31,6 +34,7 @@ import reverie_tpu_torch.crypto.kernels.aes_tape, reverie_tpu_torch.crypto.kerne
 import reverie_tpu_torch.crypto.kernels.aes_tape_z64, reverie_tpu_torch.crypto.kernels.aes_planes
 import reverie_tpu_torch.tools.r2_measure, reverie_tpu_torch.tools.r4_bwroof
 import reverie_tpu_torch.tools.r5_u8emit, reverie_tpu_torch.tools.r4_extract_probe
+import reverie_tpu_torch.tools.wave_times
 import chip_smoke
 assert not any(m.split(".")[0] in ("jax", "reverie_tpu") for m in sys.modules if sys.modules[m] is not None)
 print("no-jax import ok")
@@ -298,10 +302,10 @@ def run_waves(fn, table, mode, inputs, sizes):
 def run_program(table, mode, inputs, sizes, **plan):
     """The SSA `table` (numpy) through the slot allocator at the tape's
     lanes on its device (scan.wave_program; `capacity`, `reps` as there)
-    and scan.wave_run."""
+    and scan.wave_run -> (onl2, pre2, fail)."""
     tape = inputs[0]
     prog = scan.wave_program(table, mode, tape.device, tape.shape[1], **plan)
-    return scan.wave_run(prog, mode, *inputs, sizes["n_onl"], sizes["n_pre"])
+    return scan.wave_run(prog, mode, *inputs, sizes["n_onl"], sizes["n_pre"])[:3]
 
 
 @pytest.mark.parametrize("mode", [tex.PROVER, tex.VERIFY_ONL, tex.VERIFY_PRE])
@@ -676,3 +680,206 @@ def test_wave_kernel_rejects_bad_input(cuda_device):
         scan.wave_run(prog, tex.PROVER, tape, xin[:, :32].contiguous(), None, None, *args)
     with pytest.raises(ValueError):
         scan.wave_run(prog, 3, tape, xin, None, None, *args)
+
+
+# -- deep z64 and B2A circuits on the wave executor (W2) and the carries ------
+# The statements of reverie_tpu's deep-scan tests (tests/test_tpu_backend.py;
+# the port's builders z64_chain_circuit, deep_b2a_circuit,
+# z64_all_ops_circuit); their CPU comparisons with reverie_tpu are in
+# tests/test_torch_wave_z64.py and tests/test_torch_carries.py.
+
+MODES = [tex.PROVER, tex.VERIFY_ONL, tex.VERIFY_PRE]
+
+
+def random_mixed(seed: int):
+    """test_scan_vs_unrolled_randomized's random GF(2), Z64 and B2A program
+    (64 GF(2) and 3 z64 inputs, 30-80 random ops)."""
+    import random
+
+    rng = random.Random(seed)
+    g, z = CombineOp.gf2, CombineOp.z64
+    prog = [g(Gate(Op.INPUT, dst=w)) for w in range(64)]
+    prog += [z(Gate(Op.INPUT, dst=w)) for w in range(3)]
+    g_kinds, z_kinds = [Op.ADD, Op.MUL, Op.ADDC, Op.MULC], [Op.ADD, Op.SUB, Op.MUL, Op.ADDC,
+                                                           Op.MULC]
+    for _ in range(rng.randrange(30, 80)):
+        r = rng.random()
+        if r < 0.55:
+            k = g_kinds[rng.randrange(len(g_kinds))]
+            a, b2, d = (rng.randrange(64) for _ in range(3))
+            if k in (Op.ADDC, Op.MULC):
+                prog.append(g(Gate(k, dst=d, src1=a, const=rng.getrandbits(1))))
+            else:
+                prog.append(g(Gate(k, dst=d, src1=a, src2=b2)))
+        elif r < 0.9:
+            k = z_kinds[rng.randrange(len(z_kinds))]
+            a, b2, d = rng.randrange(3), rng.randrange(3), rng.randrange(3)
+            if k in (Op.ADDC, Op.MULC):
+                prog.append(z(Gate(k, dst=d, src1=a, const=rng.getrandbits(64))))
+            else:
+                prog.append(z(Gate(k, dst=d, src1=a, src2=b2)))
+        else:
+            prog.append(CombineOp.b2a(rng.randrange(3), 0))
+    wit2 = [bool(rng.getrandbits(1)) for _ in range(64)]
+    return prog, wit2, [rng.getrandbits(64) for _ in range(3)]
+
+
+Z64_PROGRAMS = {"chain": z64_chain, "b2a": deep_b2a, "all_ops": lambda: z64_all_ops(60),
+                "random1": lambda: random_mixed(1)}
+
+
+def _words(rng, shape):
+    return rng.randint(-2**63, 2**63 - 1, shape, dtype=np.int64)
+
+
+def executor_inputs(cc, mode: int, R: int, seed: int) -> dict:
+    """Random executor inputs of a role at R lanes, as numpy: both tapes,
+    the witnesses (PROVER) or the injected records (VERIFY_ONL: each rep's
+    GF(2) recon bits at its omitted player's bit, its z64 recon words at
+    its omitted player's share, the tapes zero there)."""
+    rng = np.random.RandomState(seed)
+    inp = {"tape": rng.randint(0, 256, (cc.m2, R), dtype=np.uint8),
+           "tapez": _words(rng, (cc.mz, 8, R))}
+    if mode == tex.PROVER:
+        inp["wit2"] = rng.randint(0, 2, (cc.n_wit2, R), dtype=np.uint8)
+        inp["witz"] = _words(rng, (cc.n_witz, R))
+    elif mode == tex.VERIFY_ONL:
+        omit = rng.randint(0, 8, R)
+        inp["tape"] &= ~(0x80 >> omit).astype(np.uint8)
+        inp["tapez"] *= np.arange(8)[:, None] != omit
+        inp["in2"] = rng.randint(0, 2, (cc.n_inputs2, R), dtype=np.uint8)
+        inp["co2"] = rng.randint(0, 2, (cc.n_corrs2, R), dtype=np.uint8)
+        inp["re2"] = (rng.randint(0, 2, (cc.n_recons2, R)) << (7 - omit)).astype(np.uint8)
+        inp["inz"], inp["coz"] = _words(rng, (cc.n_inputsz, R)), _words(rng, (cc.n_corrsz, R))
+        inp["rez"] = _words(rng, (cc.n_reconsz, 1, R)) * (np.arange(8)[:, None] == omit)
+    return inp
+
+
+def on(inp: dict, device) -> dict:
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in inp.items()}
+
+
+#: the rows of the global inputs a segment reads: (input, Segment base field,
+#: CompiledCircuit count field)
+SEGMENT_ROWS = (("tape", "tape0", "m2"), ("wit2", "wit0", "n_wit2"),
+                ("in2", "inp0", "n_inputs2"), ("co2", "cor0", "n_corrs2"),
+                ("re2", "rec0", "n_recons2"), ("tapez", "tapez0", "mz"),
+                ("witz", "witz0", "n_witz"), ("inz", "inpz0", "n_inputsz"),
+                ("coz", "corz0", "n_corrsz"), ("rez", "recz0", "n_reconsz"))
+
+
+def run_segments(segments, make, inp: dict):
+    """Each segment through make(seg) (an executor with its carries), its
+    inputs cut from the global ones `inp` and its carried-in rows from the
+    segments before (carry_src) -> per segment the executor's outputs."""
+    outs = []
+    for seg in segments:
+        cc = seg.cc
+        sub = {k: inp[k][getattr(seg, base): getattr(seg, base) + getattr(cc, n)]
+               for k, base, n in SEGMENT_ROWS if k in inp}
+        for names, src in ((("carry_mask2", "carry_corr2"), seg.carry_src),
+                           (("carry_maskz", "carry_corrz"), seg.carry_srcz)):
+            if src:
+                for name in names:
+                    sub[name] = torch.stack([outs[s][name][row] for s, row in src])
+        outs.append(make(seg)(sub))
+    return outs
+
+
+def segment_executor(cls, mode: int, R: int, device):
+    """make(seg) for run_segments: `cls` (Executor or ScanExecutor) with the
+    segment's carries."""
+    return lambda seg: cls(seg.cc, mode, R, device, carry_in=len(seg.carry_in),
+                           carry_out_vals=seg.carry_out_vals, carry_inz=len(seg.carry_inz),
+                           carry_outz_vals=seg.carry_outz_vals)
+
+
+OUT_KEYS = ("onl2", "pre2", "onlz", "prez", "fail")
+CARRY_KEYS = ("carry_mask2", "carry_corr2", "carry_maskz", "carry_corrz")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [256, 40, 37])
+@pytest.mark.parametrize("name", list(Z64_PROGRAMS))
+@pytest.mark.parametrize("mode", MODES)
+def test_z64_wave_kernel_matches_plain(cuda_device, mode, name, R):
+    """W2 through ScanExecutor on the card, one launch, equal to the plain
+    version on the CPU on every stream and fail: the deep z64 chain, deep
+    B2A, every z64 kind and a random mixed program, at R = 256, the online
+    verifier's 40 (random omits) and a ragged 37."""
+    cc = compile_program(Z64_PROGRAMS[name]()[0])
+    inp = executor_inputs(cc, mode, R, seed=R + mode)
+    want = scan.ScanExecutor(cc, mode, R, torch.device("cpu"))(on(inp, "cpu"))
+    ex = scan.ScanExecutor(cc, mode, R, cuda_device)
+    assert ex.program.has_z64
+    n0, n1 = scan.LAUNCHES_Z64, scan.LAUNCHES
+    got = ex(on(inp, cuda_device))
+    assert (scan.LAUNCHES_Z64, scan.LAUNCHES) == (n0 + 1, n1)
+    for key in OUT_KEYS:
+        assert torch.equal(got[key].cpu(), want[key]), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W, k", [(128, 2), (256, 4)])
+@pytest.mark.parametrize("mode", MODES)
+def test_z64_wave_kernel_wide_waves_match_plain(cuda_device, mode, W, k):
+    """Deep B2A in waves of W GF(2) slots at R = 2,051 (32 reps a block, a
+    ragged last one): W2's blocks of at most 512 threads take k GF(2) slots
+    a thread; equal to the plain version on the CPU."""
+    cc = compile_program(deep_b2a(200)[0])
+    R = 2051
+    inp = executor_inputs(cc, mode, R, seed=W + mode)
+    want = scan.ScanExecutor(cc, mode, R, torch.device("cpu"), wave_width=W)(on(inp, "cpu"))
+    ex = scan.ScanExecutor(cc, mode, R, cuda_device, wave_width=W)
+    assert (ex.program.plan.reps, ex.program.plan.k) == (32, k)
+    got = ex(on(inp, cuda_device))
+    for key in OUT_KEYS:
+        assert torch.equal(got[key].cpu(), want[key]), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [256, 37])
+@pytest.mark.parametrize("name", ["chain", "b2a", "random1"])
+@pytest.mark.parametrize("mode", MODES)
+def test_z64_wave_kernel_spills_match_plain(cuda_device, mode, name, R):
+    """W2 with every z64 value but the zero and most GF(2) values spilled
+    to its global arenas, equal to the plain version on the CPU."""
+    cc = compile_program(Z64_PROGRAMS[name]()[0])
+    inp = executor_inputs(cc, mode, R, seed=7 * R + mode)
+    want = scan.ScanExecutor(cc, mode, R, torch.device("cpu"))(on(inp, "cpu"))
+    prog = scan.circuit_program(cc, mode, cuda_device, R, capacity=3, capacityz=1)
+    assert prog.n_spillz > 0 and prog.n_sharedz == 1 and prog.n_shared <= 3
+    xin = inp.get("wit2" if mode == tex.PROVER else "in2")
+    xinz = inp.get("witz" if mode == tex.PROVER else "inz")
+    d = on({k: v for k, v in dict(inp, xin=xin, xinz=xinz).items() if v is not None},
+           cuda_device)
+    got = scan.wave_run(prog, mode, d["tape"], d.get("xin"), d.get("co2"), d.get("re2"),
+                        cc.onl2, cc.pre2, d["tapez"], d.get("xinz"), d.get("coz"), d.get("rez"),
+                        cc.onlz, cc.prez)
+    for key in OUT_KEYS:
+        assert torch.equal(getattr(got, key).cpu(), want[key]), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, seg_ops", [("chain", 40), ("b2a", 61), ("gf2", 50)])
+@pytest.mark.parametrize("mode", MODES)
+def test_wave_kernels_chain_segment_carries(cuda_device, mode, name, seg_ops):
+    """compile_segments of a deep z64 chain, deep B2A and a deep GF(2)
+    chain, each segment on the card (W2, or W1 for GF(2) segments) with
+    its carries chained from the segments before: streams, fail and carry
+    outputs equal the plain version's on the CPU."""
+    prog = deep_chain(200) if name == "gf2" else Z64_PROGRAMS[name]()[0]
+    segments = compile_segments(prog, seg_ops)
+    assert len(segments) >= 3 and any(s.carry_in or s.carry_inz for s in segments)
+    whole = compile_program(prog)
+    inp = executor_inputs(whole, mode, 40, seed=mode)
+    want = run_segments(segments, segment_executor(scan.ScanExecutor, mode, 40,
+                                                   torch.device("cpu")), on(inp, "cpu"))
+    n0 = scan.LAUNCHES + scan.LAUNCHES_Z64
+    got = run_segments(segments, segment_executor(scan.ScanExecutor, mode, 40, cuda_device),
+                       on(inp, cuda_device))
+    assert scan.LAUNCHES + scan.LAUNCHES_Z64 == n0 + len(segments)
+    for g, w in zip(got, want):
+        assert set(g) == set(w)
+        for key in w:
+            assert torch.equal(g[key].cpu(), w[key]), key

@@ -233,20 +233,46 @@ def test_wave_wrapper_takes_plain_path_on_cpu(deep):
 
 
 def test_wave_table_rejects_z64():
+    """A WaveTable with z64 columns is no longer refused: wave_table lays
+    out its GF(2) slots and zwave_table its z64 slots, one row of ZSLOT_COLS
+    words a slot, the event columns as the first rows of their runs and the
+    B2A bits as rows of a bits table; a pure-GF(2) table has no z64 side."""
     cc = compile_program(carry(mixed_b2a_circuit()[0]))
-    with pytest.raises(ValueError, match="pure GF"):
-        scan.wave_table(build_waves(cc, 8), tex.PROVER)
+    wv = build_waves(cc, 8)
+    t = scan.wave_table(wv, tex.PROVER)
+    assert t.shape == wv.op.shape + (len(scan.SLOT_COLS),)
+    np.testing.assert_array_equal(t[..., scan.SLOT_COLS.index("dst")], wv.dst)
+    zt, bits = scan.zwave_table(wv, tex.PROVER)
+    assert zt.shape == wv.zop.shape + (len(scan.ZSLOT_COLS),) and zt.dtype == np.int32
+    col = {c: scan.ZSLOT_COLS.index(c) for c in scan.ZSLOT_COLS}
+    for name in ("op", "dst", "a", "t0", "t1", "rec", "corr"):
+        np.testing.assert_array_equal(zt[..., col[name]], getattr(wv, "z" + name), err_msg=name)
+    op = wv.zop
+    out, b2a = op == 11, np.isin(op, (10, 11))
+    np.testing.assert_array_equal(zt[..., col["b"]], np.where(out, wv.zzr, wv.zb))
+    np.testing.assert_array_equal(zt[..., col["xin"]], np.where(op == 0, wv.zwit, 0))
+    np.testing.assert_array_equal(zt[..., col["clo"]].view(np.uint32), wv.zclo)
+    for name, kinds, n in (("zonl", (5, 6), 64), ("zonl", (0,), 8), ("zpre", (5, 10), 8),
+                           ("brec", (11,), 64), ("bonl", (11,), 64)):
+        sel = np.isin(op, kinds)
+        base = zt[..., col[name.lstrip("z")]][sel]
+        np.testing.assert_array_equal(getattr(wv, name)[sel][:, :n], base[:, None] + np.arange(n))
+    assert b2a.sum() == len(bits) == 2
+    np.testing.assert_array_equal(bits[zt[..., col["bits"]][b2a]], wv.bbits[b2a])
+    with pytest.raises(ValueError, match="no z64"):
+        scan.zwave_table(build_waves(compile_program(carry(deep_circuit()[0])), 8), tex.PROVER)
 
 
 def test_routing():
-    """Deep pure-GF(2) circuits take the wave executor; shallow ones and
-    deep mixed circuits keep the levelized Executor."""
+    """Circuits deeper than 128 levels take the wave executor, pure GF(2)
+    or mixed (as TpuKKW._executor routes them); shallow ones keep the
+    levelized Executor."""
     g = CombineOp.gf2
     deep_mixed = mixed_b2a_circuit()[0] + [
         g(Gate(Op.ADDC, dst=2, src1=2, const=1)) for _ in range(150)]
     cases = {"deep": (deep_circuit()[0], scan.ScanExecutor),
              "shallow": (wide_and_circuit(60, width=16, seed=1)[0], tex.Executor),
-             "deep_mixed": (deep_mixed, tex.Executor)}
+             "deep_mixed": (deep_mixed, scan.ScanExecutor)}
     for name, (prog, kind) in cases.items():
         port = TorchKKW(carry(prog), device=CPU)
         assert (port.cc.depth > host.SCAN_DEPTH_THRESHOLD) == (name != "shallow"), name

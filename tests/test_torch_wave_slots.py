@@ -256,8 +256,8 @@ def test_circuit_waves_keeps_one_record_per_width(sha256_table):
     assert rec.plan(256) != rec.plan(16_384) and rec.plan(256, reps=32).reps == 32
     progs = [scan.circuit_program(cc, tex.PROVER, CPU, R) for R in (256, 16_384)]
     for p, R in zip(progs, (256, 16_384)):
-        assert p.plan == rec.plan(R) and p.n_shared == rec.allocation(p.plan.capacity)[1]
-    assert {p.plan.capacity for p in progs} <= set(rec.slots)
+        assert p.plan == rec.plan(R) and p.n_shared == rec.allocation(p.plan.capacity).n_shared
+    assert {(p.plan.capacity, 0, scan.NO_CARRY) for p in progs} <= set(rec.slots)
     assert scan.table_bytes(cc, 256) == 4 * (rec.waves.op.size * scan.PACKED_WORDS
                                              + rec.n_fields + -(-len(table) // 32) + 1)
 
