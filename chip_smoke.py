@@ -67,7 +67,22 @@ prints no result line:
      proofs (N from largest_batch, at most 64; peak memory at most 1.25x
      device_footprint), and tests/golden/b2a_proof.bin reproduced from
      b2a_seeds.bin on W2 (190 levels);
- 10. the batch phase, on each main-path circuit: N from largest_batch
+ 10. the streaming phase (streaming_phase), with the launches counted
+     from 0 over its streamed runs: make_system with no budget on the 1M-AND
+     circuit (a TorchKKW, the budget it took from mem_get_info), then
+     make_system(..., hbm_budget_bytes=512 MiB) on it and 1 GiB on the 50k
+     Z64 MULs, each a StreamingKKW (~31 and ~33 segments) whose proof equals
+     TorchKKW's with the same seeds; SHA-256 in thirds (each segment deeper
+     than 128 levels, W1 with carries; the proof equal to the sha256_1block
+     digest) and the 5,000-MUL z64 chain in segments of 1,000 ops (W2 with
+     carries; equal to TorchKKW's).  For each: a cold and a warm prove,
+     verify (True), a flipped online byte (False), walls and last_timings,
+     segments, launches, and the peak max_memory_allocated over all of it,
+     at most the budget where make_system had one.  Before them K1 and K4
+     at a middle segment's tape window (start_block > 0, R = 256 and 40
+     with random omits) and K3 at its onl2 chunk base, each against its
+     plain version; K1, K3, K4, W1 and W2 must each launch in the phase;
+ 11. the batch phase, on each main-path circuit: N from largest_batch
      (pipeline_footprint and the free memory; 8 proofs of 1M ANDs and 4 of
      50k Z64 MULs where a chunk of that many fits); prove() N times, prove_batch
      and prove_many of N distinct witnesses and seeds, a first run of each
@@ -84,10 +99,10 @@ prints no result line:
      True]); then the GF(2) and z64 tapes and the chunk CVs at the batch
      width, past 2**31 bytes, each block of 256 columns equal to the plain
      version on the same inputs (and to the kernel's launch at R = 256);
- 11. the probes (reverie_tpu_torch/tools: r2_measure at B = 15,626,
+ 12. the probes (reverie_tpu_torch/tools: r2_measure at B = 15,626,
      r4_bwroof, r5_u8emit, r4_extract_probe at the tools' shapes), with the
      launches of the planes, copy, emission and pack-shift kernels in them;
- 12. one JSON line of kernels, the nvidia-smi line, and the last line
+ 13. one JSON line of kernels, the nvidia-smi line, and the last line
      {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or reverie_tpu.  Needs the CUDA toolkit (nvcc), gcc
@@ -346,7 +361,6 @@ def main_path(dev, tag: str, make, domain: str, rng, executor_kernel: str = "") 
     not verify; with `executor_kernel`, each leg's executor phase must have
     launched it.  Returns the kernels' launch counts of the run."""
     from reverie_tpu_torch import TorchKKW
-    from reverie_tpu_torch.proof import Proof
 
     t0 = time.perf_counter()
     prog, w2, wz = make()
@@ -397,14 +411,22 @@ def main_path(dev, tag: str, make, domain: str, rng, executor_kernel: str = "") 
         if a < 1 or b < 1 or c < 1:
             raise AssertionError(f"{tag} {leg} did not launch every kernel of its path")
 
-    bad = copy.deepcopy(proof)
-    o = getattr(bad, domain).online[0]
-    o.recons = bytes([o.recons[0] ^ 1]) + o.recons[1:]
-    tampered = kkw.verify(Proof.from_bytes(bad.to_bytes()))
+    tampered = kkw.verify(flipped(proof, domain))
     log(tag, f"tampered {domain} online opening verify={tampered}")
     if tampered is not False:
         raise AssertionError(f"{tag}: a tampered proof verified")
     return launches
+
+
+def flipped(proof, domain: str):
+    """The proof with one flipped bit in the first recon byte of its first
+    `domain` online opening."""
+    from reverie_tpu_torch.proof import Proof
+
+    bad = copy.deepcopy(proof)
+    o = getattr(bad, domain).online[0]
+    o.recons = bytes([o.recons[0] ^ 1]) + o.recons[1:]
+    return Proof.from_bytes(bad.to_bytes())
 
 
 def parity(dev, name: str) -> None:
@@ -984,6 +1006,153 @@ def z64_wave_phase(dev, rng, clock: float, ptxas: list):
     return res, launches
 
 
+#: the streaming phase's device budgets for make_system: a quarter of the
+#: 1M-AND prove's device_footprint (2.05 GB), a quarter of the 50k-MUL one's
+#: (4.40 GB)
+STREAM_BUDGETS = {"gf2": 512 << 20, "z64": 1 << 30}
+#: ops a segment of the 5,000-MUL z64 chain when streamed
+STREAM_CHAIN_OPS = 1_000
+#: the kernels a streamed proof must launch in the phase
+STREAM_KERNELS = ("aes_tape_gf2", "aes_tape_z64", "blake3_chunk_cvs", "scan_gf2", "scan_z64")
+
+
+def stream_kernels(dev, rng, sk2, skz, checks: dict) -> None:
+    """The kernels as a middle segment of each system launches them, each
+    byte-equal to its plain version on the same inputs: K1 at the GF(2)
+    window's start_block and K3 at the onl2 stream's chunk_base of the
+    1M-AND system's middle segment, K4 at the z64 window's start_block of
+    the 50k-MUL system's, each at the prover's R = 256, the online
+    verifier's 40 (the tapes with random omits) and the preprocessing
+    verifier's 216."""
+    from reverie_tpu_torch.backend.streaming import Z64_REFILL_BLOCKS, Z64_REFILL_WORDS
+    from reverie_tpu_torch.crypto.kernels import aes_tape, aes_tape_z64, blake3 as b3
+
+    seg, segz = sk2.segments[len(sk2.segments) // 2], skz.segments[len(skz.segments) // 2]
+    b0, bz = seg.tape0 // aes_tape.BATCH, segz.tapez0 // Z64_REFILL_WORDS
+    windows = (("aes_tape_gf2", aes_tape.aes_ctr_tape_gf2, aes_tape.aes_ctr_tape_gf2_ref,
+                b0, seg.tape0 - b0 * aes_tape.BATCH + seg.cc.m2),
+               ("aes_tape_z64", aes_tape_z64.aes_ctr_tape_z64, aes_tape_z64.aes_ctr_tape_z64_ref,
+                bz * Z64_REFILL_BLOCKS, segz.tapez0 - bz * Z64_REFILL_WORDS + segz.cc.mz))
+    for name, kernel, plain, start, m in windows:
+        if start == 0:
+            raise AssertionError(f"{name}: the middle segment's window starts at block 0")
+        for R in (256, 40, 216):
+            rk = aes_tape.round_keys(rng.randint(0, 256, (R, 8, 16), dtype=np.uint8), dev)
+            omit = None if R == 256 else torch.from_numpy(
+                rng.randint(0, 8, R).astype(np.uint8)).to(dev)
+            check(name, checks[name], kernel(rk, m, omit, start), plain(rk, m, omit, start),
+                  f"streaming window start_block={start} m={m} R={R}")
+    n, base = seg.cc.onl2 // b3.CHUNK_LEN, seg.onl0 // b3.CHUNK_LEN
+    if n < 1 or base < 1:
+        raise AssertionError("blake3_chunk_cvs: the middle segment holds no chunk past the first")
+    for R in (256, 40, 216):
+        buf = torch.from_numpy(rng.randint(0, 256, (seg.cc.onl2, R), dtype=np.uint8)).to(dev)
+        check("blake3_chunk_cvs", checks["blake3_chunk_cvs"], b3.chunk_cvs(buf, n, base),
+              b3.chunk_cvs_ref(buf, n, base), f"streaming absorb chunk_base={base} n={n} R={R}")
+
+
+def stream_case(dev, tag: str, sk, w2, wz, seeds, equal, domain: str, acc: dict,
+                budget=None) -> None:
+    """A StreamingKKW's prove (cold, then warm), verify and a proof with a
+    flipped `domain` online byte: walls, phases, segments, launches (added
+    into acc) and the peak memory over all of it, which must stay within
+    `budget` where one is given; equal(proof bytes) must hold, the proof
+    verify and the flipped one not."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_launches()
+    for run in ("cold", "warm"):
+        proof, t = wall(lambda: sk.prove(w2, wz, seeds=seeds))
+        log(tag, f"{run} prove wall_s={t:.4f} phases "
+            + json.dumps(phase_summary(sk.last_timings)))
+    ok, t = wall(lambda: sk.verify(proof))
+    log(tag, f"verify={ok} wall_s={t:.4f} phases " + json.dumps(phase_summary(sk.last_timings)))
+    rejected = sk.verify(flipped(proof, domain))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: v for k, v in launch_counts().items() if v}
+    for k, v in launches.items():
+        acc[k] = acc.get(k, 0) + v
+    same = equal(proof.to_bytes())
+    log(tag, f"segments={len(sk.segments)} depths(max)={max(s.cc.depth for s in sk.segments)} "
+        f"equal={same} tampered_verify={rejected} peak_bytes={peak} allocated_before={base} "
+        f"budget={budget} peak/budget={peak / budget if budget else None} "
+        f"launches={json.dumps(launches)}")
+    if not same or ok is not True or rejected is not False:
+        raise AssertionError(f"{tag}: a streamed proof or verdict is wrong")
+    if budget is not None and peak > budget:
+        raise AssertionError(f"{tag}: peak {peak} B above the budget {budget} B")
+
+
+def streaming_phase(dev, rng, checks: dict) -> dict:
+    """make_system and StreamingKKW: the 1M-AND and 50k-MUL circuits under
+    budgets that force streaming (proofs equal to TorchKKW's, peak memory
+    within the budget); SHA-256 in thirds (every segment on W1 with carries;
+    the proof equal to the golden's digest) and the 5,000-MUL z64 chain in
+    segments of STREAM_CHAIN_OPS (W2 with carries; equal to TorchKKW's);
+    make_system with no budget; the kernels at a middle segment's window
+    and chunk base against their plain versions.  Returns the launches of
+    the streamed runs, which must include every kernel of STREAM_KERNELS."""
+    from reverie_tpu_torch import FREE_MARGIN, StreamingKKW, TorchKKW, device_budget, make_system
+    from reverie_tpu_torch import parity as golden
+    from reverie_tpu_torch.circuit.builders import mul_bench_circuit, z64_mul_bench_circuit
+    from reverie_tpu_torch.tools import wave_times
+
+    systems, acc = {}, {}
+    for domain, make in (("gf2", lambda: mul_bench_circuit(N_MUL)),
+                         ("z64", lambda: z64_mul_bench_circuit(N_MUL_Z64))):
+        tag = f"stream_{domain}"
+        prog, w2, wz = make()
+        seeds = rng.randint(0, 256, (256, 16), dtype=np.uint8)
+        t = time.perf_counter()
+        if domain == "gf2":
+            gc.collect()
+            torch.cuda.empty_cache()
+            free = device_budget(dev)
+            whole = make_system(prog, device=dev)
+            log(tag, f"make_system with no budget: {type(whole).__name__} budget={free} "
+                f"(free bytes / {FREE_MARGIN}) host_s={time.perf_counter() - t:.3f}")
+            if not isinstance(whole, TorchKKW):
+                raise AssertionError("make_system with the card's budget did not give TorchKKW")
+        else:
+            whole = TorchKKW(prog, device=dev)
+        want = whole.prove(w2, wz, seeds=seeds).to_bytes()
+        del whole
+        t = time.perf_counter()
+        sk = make_system(prog, device=dev, hbm_budget_bytes=STREAM_BUDGETS[domain])
+        log(tag, f"make_system budget={STREAM_BUDGETS[domain]}: {type(sk).__name__} "
+            f"host_s={time.perf_counter() - t:.3f}")
+        if not isinstance(sk, StreamingKKW) or len(sk.segments) < 2:
+            raise AssertionError(f"{tag}: the budget did not force streaming")
+        systems[domain] = (sk, w2, wz, seeds, want)
+    stream_kernels(dev, rng, systems["gf2"][0], systems["z64"][0], checks)
+    for domain, (sk, w2, wz, seeds, want) in systems.items():
+        stream_case(dev, f"stream_{domain}", sk, w2, wz, seeds, lambda b, w=want: b == w,
+                    domain, acc, STREAM_BUDGETS[domain])
+    del systems
+
+    case = golden.CASES["sha256_1block"]
+    prog, w2, wz, seeds = golden.inputs(case)
+    sk = StreamingKKW(prog, -(-len(prog) // 3), device=dev)
+    if min(s.cc.depth for s in sk.segments) <= 128:
+        raise AssertionError("stream_sha256: a segment is not deeper than 128 levels")
+    stream_case(dev, "stream_sha256", sk, w2, wz, seeds,
+                functools.partial(golden.matches, case), "gf2", acc)
+    prog, w2, wz = wave_times.z64_statements()["chain"]()
+    seeds = rng.randint(0, 256, (256, 16), dtype=np.uint8)
+    want = TorchKKW(prog, device=dev).prove(w2, wz, seeds=seeds).to_bytes()
+    sk = StreamingKKW(prog, STREAM_CHAIN_OPS, device=dev)
+    stream_case(dev, "stream_chain", sk, w2, wz, seeds, lambda b: b == want, "z64", acc)
+    log("stream", f"launches={json.dumps(acc)}")
+    missing = [k for k in STREAM_KERNELS if not acc.get(k)]
+    if missing:
+        raise AssertionError(f"the streamed runs did not launch {missing}")
+    return acc
+
+
 def wall(fn):
     """(fn(), seconds) between two synchronizations of the card."""
     from reverie_tpu_torch.trace import timed as timed_ms
@@ -1331,6 +1500,7 @@ def main() -> int:
     parity(dev, "z64_2k")
     checks["scan_gf2"], sha = sha256_phase(dev, rng, clock, ptxas)
     checks["scan_z64"], zw = z64_wave_phase(dev, rng, clock, ptxas)
+    stream = streaming_phase(dev, rng, checks)
     batch = batch_phase(dev, rng, checks)
     tools = probes(dev)
 
@@ -1339,7 +1509,8 @@ def main() -> int:
         c = checks[kname]
         kernels.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": sum(run[kname] for run in (gf2, z64, sha, zw, batch, tools)),
+            "launches": sum(run.get(kname, 0) for run in (gf2, z64, sha, zw, stream, batch,
+                                                          tools)),
             "max_abs_err": c["max_abs_err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
             "library_ms": c["library_ms"]})

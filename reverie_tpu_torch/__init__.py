@@ -3,10 +3,13 @@
 `TorchKKW` proves and verifies GF(2), Z_2^64 and B2A circuits on one CUDA
 card, one proof at a time or in batches and pipelines (`prove_batch`,
 `prove_batch_chunked`, `prove_many`, `verify_many`; `device_footprint`,
-`pipeline_footprint` and `largest_batch` size a batch).  The AES-CTR mask
-tapes and the BLAKE3 chunk chaining values are hand-written CUDA kernels
-(`csrc/`), the levelized executor and the hash tail are plain torch.
-Proofs are byte-identical to reverie_tpu's.
+`pipeline_footprint` and `largest_batch` size a batch).  `StreamingKKW`
+proves and verifies a circuit segment by segment in O(segment) device
+memory, and `make_system` picks the one of the two that fits a device
+budget.  The AES-CTR mask tapes, the BLAKE3 chunk chaining values and the
+wave executor are hand-written CUDA kernels (`csrc/`), the levelized
+executor and the hash tail are plain torch.  Proofs are byte-identical to
+reverie_tpu's.
 
 The package stands on its own: it imports neither jax nor reverie_tpu.  It
 keeps its own copies of the circuit IR, compiler, builders and bincode
@@ -21,8 +24,72 @@ protocol parameters (`params.py`) and the host C crypto (`crypto/`,
 `r4_extract_probe.py`) with their CUDA kernels.
 """
 
-from .backend.host import TorchKKW, device_footprint, largest_batch, pipeline_footprint
-from .device import default_device
+import os
 
-__all__ = ["TorchKKW", "default_device", "device_footprint", "largest_batch",
-           "pipeline_footprint"]
+import torch
+
+from .backend.host import TorchKKW, device_footprint, largest_batch, pipeline_footprint
+from .backend.streaming import StreamingKKW
+from .device import default_device
+from .params import DEFAULT_PARAMS
+
+__all__ = ["StreamingKKW", "TorchKKW", "default_device", "device_footprint", "largest_batch",
+           "make_system", "pipeline_footprint"]
+
+#: the free device memory a budget taken from the card leaves unplanned:
+#: a budget of free / FREE_MARGIN keeps a peak up to 1.06x its
+#: device_footprint inside the free bytes (measured peaks reached 1.0543x
+#: the model, PERF.md section 5)
+FREE_MARGIN = 1.06
+
+
+def device_budget(device, hbm_budget_bytes=None) -> int:
+    """The device bytes make_system plans for: hbm_budget_bytes, else the
+    environment's REVERIE_HBM_BUDGET, else the card's free bytes
+    (torch.cuda.mem_get_info) / FREE_MARGIN.  A CPU device has no free
+    bytes to read: ValueError without one of the first two."""
+    if hbm_budget_bytes is not None:
+        return int(hbm_budget_bytes)
+    if os.environ.get("REVERIE_HBM_BUDGET"):
+        return int(os.environ["REVERIE_HBM_BUDGET"])
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"make_system: no device budget on {device}; pass "
+                         "hbm_budget_bytes or set REVERIE_HBM_BUDGET")
+    free, _ = torch.cuda.mem_get_info(device)
+    return int(free / FREE_MARGIN)
+
+
+def make_system(program, params=DEFAULT_PARAMS, device=None, mesh=None, hbm_budget_bytes=None):
+    """The prover and verifier for a circuit's size (reverie_tpu's
+    make_system): a `TorchKKW` when its device_footprint fits the budget
+    (device_budget), else a `StreamingKKW` whose segments take about an
+    eighth of the budget each.  Both give the same proof bytes.  `device`
+    defaults to the CUDA device."""
+    from .backend.host import check_program
+    from .circuit.compile import compile_program
+    from .circuit.ir import Kind
+
+    if mesh is not None:
+        raise NotImplementedError(
+            "make_system runs on one device; sharding over several is ROADMAP Queue 1 item 12")
+    check_program(program)
+    device = default_device() if device is None else torch.device(device)
+    budget = device_budget(device, hbm_budget_bytes)
+    R = params.total_reps
+    # a lower bound of the footprint, bytes a rep per op, that skips the
+    # compile of circuits far past the budget: a GF(2) op makes at least one
+    # value (mask and correction bytes); a Z64 op one value (8 players' and
+    # the correction's words, 72 B); a B2A its 64 GF(2) randoms, 63 MULs and
+    # adds (reverie_tpu's accounting: ~1,400 B, 1,200 kept as the bound)
+    per_op = {Kind.GF2: 2, Kind.Z64: 72, Kind.B2A: 1200}
+    lower = R * sum(per_op.get(op.kind, 0) for op in program)
+    if lower > 4 * budget:
+        seg_ops = max(1, int(len(program) * (budget / 8) / lower))
+        return StreamingKKW(program, seg_ops, params=params, device=device)
+    cc = compile_program(program)
+    total = device_footprint(cc, R)
+    if total <= budget:
+        return TorchKKW(program, device=device, params=params, cc=cc)
+    seg_ops = max(1, int(len(program) * (budget / 8) / max(total, 1)))
+    return StreamingKKW(program, seg_ops, params=params, device=device)

@@ -40,7 +40,7 @@ from ..circuit.compile import CompiledCircuit, compile_program
 from ..circuit.ir import CombineOp, Gate, Kind, Op
 from ..crypto import blake3, expand_seeds
 from ..crypto.kernels import aes_tape, aes_tape_z64, blake3 as b3
-from ..params import DEFAULT_PARAMS as PARAMS, KEY_SIZE
+from ..params import DEFAULT_PARAMS, KEY_SIZE, ProtocolParams
 from ..proof.challenge import challenge_to_opening
 from ..proof.container import (
     OpenOnline,
@@ -138,11 +138,16 @@ def _take_rows(buf: torch.Tensor, slots: np.ndarray) -> torch.Tensor:
     return take(buf, meta, index)
 
 
+def packed_len(n: int) -> int:
+    """Bytes of a packed stream of n GF(2) records: the reference always
+    emits the remainder byte (gf2/recon.rs:218-237)."""
+    return n // 8 + 1
+
+
 def _pack_rows_device(bits: torch.Tensor) -> torch.Tensor:
-    """(N, K) 0/1 uint8 -> (N//8 + 1, K) packed bytes, MSB first, with the
-    reference's always-emitted remainder byte (gf2/recon.rs:218-237)."""
+    """(N, K) 0/1 uint8 -> (packed_len(N), K) packed bytes, MSB first."""
     N, K = bits.shape
-    n_chunks = N // 8 + 1
+    n_chunks = packed_len(N)
     padded = torch.zeros((n_chunks * 8, K), dtype=torch.uint8, device=bits.device)
     padded[:N] = bits
     w = torch.tensor([128 >> j for j in range(8)], dtype=torch.uint8,
@@ -151,9 +156,11 @@ def _pack_rows_device(bits: torch.Tensor) -> torch.Tensor:
 
 
 def extract_gf2(cc: CompiledCircuit, onl2: torch.Tensor, pre2: torch.Tensor,
-                cols: np.ndarray, omit_sel: np.ndarray) -> torch.Tensor:
+                cols: np.ndarray, omit_sel: np.ndarray, packed: bool = True) -> torch.Tensor:
     """Opened columns -> one flat uint8 buffer [recons | corrs | inputs],
-    each (K, n//8 + 1) row-major (make_gf2_extractor, gather form)."""
+    each (K, packed_len(n)) row-major (make_gf2_extractor, gather form);
+    packed=False: each (K, n) 0/1 bits, for a caller that places them at a
+    bit offset (the streaming prover's segments)."""
     dev = onl2.device
     cols_t = torch.as_tensor(np.asarray(cols, np.int64), device=dev)
     shifts = torch.as_tensor((7 - np.asarray(omit_sel)).astype(np.uint8), device=dev)
@@ -162,7 +169,8 @@ def extract_gf2(cc: CompiledCircuit, onl2: torch.Tensor, pre2: torch.Tensor,
     rec = (_take_rows(onl_sel, cc.recon_slots2) >> shifts[None, :]) & 1
     cor = _take_rows(pre_sel, cc.corr_slots2) & 1
     inp = _take_rows(onl_sel, cc.input_slots2) & 1
-    return torch.cat([_pack_rows_device(b).t().reshape(-1) for b in (rec, cor, inp)])
+    pack = _pack_rows_device if packed else (lambda b: b)
+    return torch.cat([pack(b).t().reshape(-1) for b in (rec, cor, inp)])
 
 
 def extract_z64(cc: CompiledCircuit, onlz: torch.Tensor, prez: torch.Tensor,
@@ -223,38 +231,61 @@ def _u64s_from_stream(stream: bytes, n: int) -> np.ndarray:
     return out
 
 
-def online_injection(cc: CompiledCircuit, openings2: List[OpenOnline],
-                     openingsz: List[OpenOnline], device: torch.device):
-    """Online openings -> (VERIFY_ONL inputs on device, GF(2) omit (R,),
-    z64 omit (R,)).  The packed GF(2) streams go to the device and are
-    unpacked there; the z64 streams are parsed into words on the host, and
-    the recon words become one-hot shares at the omitted player on the
-    device (build_online_injection_packed + make_online_unpacker).  The two
-    domains carry their own omits: a malformed proof can make them
-    differ."""
-    omit = np.array([o.omit for o in openings2], dtype=np.int64)
-    omitz = np.array([o.omit for o in openingsz], dtype=np.int64)
+#: the online records a VERIFY_ONL executor takes: its input, the field of
+#: the opening that holds them, their count on a CompiledCircuit, their
+#: first record on a Segment
+ONLINE_RECORDS = (("co2", "corrs", "n_corrs2", "cor0"), ("in2", "inputs", "n_inputs2", "inp0"),
+                  ("re2", "recons", "n_recons2", "rec0"), ("coz", "corrs", "n_corrsz", "corz0"),
+                  ("inz", "inputs", "n_inputsz", "inpz0"), ("rez", "recons", "n_reconsz", "recz0"))
 
-    def bits(streams, n):
-        packed = _stack_streams(streams, n // 8 + 1)
-        return _unpack_bits(torch.from_numpy(packed).to(device), n)
 
-    def words(streams, n):
-        return torch.from_numpy(np.stack(
-            [_u64s_from_stream(st, n) for st in streams], axis=1)).to(device)
+def online_streams(openings2: List[OpenOnline], openingsz: List[OpenOnline], counts) -> dict:
+    """The online openings on the host, as the verifier reads them: each
+    GF(2) stream packed, (packed_len(n), R) uint8, each z64 stream as (n, R)
+    int64 words, n the count on `counts` (an object with ONLINE_RECORDS'
+    count attributes; lenient parsing: zero-padded or truncated to n), and
+    the omits 'omit' and 'omitz' (R,) int64 of the two domains, which a
+    malformed proof can make differ (build_online_injection_packed)."""
+    out = {"omit": np.array([o.omit for o in openings2], dtype=np.int64),
+           "omitz": np.array([o.omit for o in openingsz], dtype=np.int64)}
+    for name, field, count, _ in ONLINE_RECORDS:
+        n = getattr(counts, count)
+        if name.endswith("2"):
+            out[name] = _stack_streams([getattr(o, field) for o in openings2], packed_len(n))
+        else:
+            out[name] = np.stack([_u64s_from_stream(getattr(o, field), n) for o in openingsz],
+                                 axis=1)
+    return out
 
-    shift = torch.as_tensor((7 - omit).astype(np.uint8), device=device)
+
+def unpack_window(packed: np.ndarray, base: int, n: int, device) -> torch.Tensor:
+    """Bits base .. base + n - 1 of each column of packed (nb, R) host
+    bytes, MSB first -> (n, R) 0/1 uint8 on device; only their bytes are
+    copied, and base need not be a multiple of 8."""
+    lo, hi = base // 8, (base + n + 7) // 8
+    off = base - 8 * lo
+    return _unpack_bits(torch.from_numpy(packed[lo:hi]).to(device), off + n)[off:]
+
+
+def online_inputs(streams: dict, cc: CompiledCircuit, device, seg=None) -> dict:
+    """The VERIFY_ONL inputs of cc on the device, from online_streams: the
+    records seg.<first> .. + cc.<count> of each stream (seg None: from
+    record 0), only those copied to the device.  The recon bits move to
+    the omitted player's bit, and the z64 recon words become one-hot shares
+    at its slot (make_online_unpacker)."""
+    inj = {}
+    for name, _, count, first in ONLINE_RECORDS:
+        n, base = getattr(cc, count), 0 if seg is None else getattr(seg, first)
+        if name.endswith("2"):
+            inj[name] = unpack_window(streams[name], base, n, device)
+        else:
+            inj[name] = torch.from_numpy(streams[name][base : base + n]).to(device)
+    shift = torch.as_tensor((7 - streams["omit"]).astype(np.uint8), device=device)
     onehot = (torch.arange(8, device=device)[:, None]
-              == torch.as_tensor(omitz, device=device)[None, :]).to(torch.int64)
-    inj = dict(
-        co2=bits([o.corrs for o in openings2], cc.n_corrs2),
-        in2=bits([o.inputs for o in openings2], cc.n_inputs2),
-        re2=bits([o.recons for o in openings2], cc.n_recons2) << shift[None, :],
-        coz=words([o.corrs for o in openingsz], cc.n_corrsz),
-        inz=words([o.inputs for o in openingsz], cc.n_inputsz),
-        rez=words([o.recons for o in openingsz], cc.n_reconsz)[:, None, :] * onehot,
-    )
-    return inj, omit, omitz
+              == torch.as_tensor(streams["omitz"], device=device)[None, :]).to(torch.int64)
+    inj["re2"] = inj["re2"] << shift[None, :]
+    inj["rez"] = inj["rez"][:, None, :] * onehot
+    return inj
 
 
 # ---------------------------------------------------------------------------
@@ -285,9 +316,8 @@ class _Pull:
         return self._host.numpy()
 
 
-def _seeds(seeds: Optional[np.ndarray], n: int) -> np.ndarray:
-    """(n, total_reps, 16) uint8 rep seeds, fresh random ones where None."""
-    R = PARAMS.total_reps
+def _seeds(seeds: Optional[np.ndarray], n: int, R: int) -> np.ndarray:
+    """(n, R, 16) uint8 rep seeds, fresh random ones where None."""
     if seeds is None:
         seeds = np.frombuffer(os.urandom(n * R * KEY_SIZE), dtype=np.uint8)
     return np.ascontiguousarray(seeds, dtype=np.uint8).reshape(n, R, KEY_SIZE)
@@ -344,6 +374,87 @@ def _check_omitted_lanes(tape: torch.Tensor, tapez: torch.Tensor,
                 "REVERIE_DEBUG: z64 tape is nonzero at the omitted player's lane")
 
 
+def challenge_omits(comm: bytes, params: ProtocolParams) -> np.ndarray:
+    """(total_reps,) int64: per rep the player the challenge of `comm`
+    leaves unopened, 8 for a rep whose preprocessing is opened."""
+    omit = np.full(params.total_reps, 8, dtype=np.int64)
+    for rep, player in challenge_to_opening(comm, params).items():
+        omit[rep] = player
+    return omit
+
+
+def assemble_proof(comm: bytes, seeds: np.ndarray, player_keys: np.ndarray,
+                   omit: np.ndarray, ho2: np.ndarray, hoz: np.ndarray,
+                   open2: list, openz: list) -> Proof:
+    """One proof: rep seeds (R, 16), player keys (R, 8, 16), omits (R,),
+    the online hashes (R, 32) of each domain and, per opened rep in rep
+    order, its (recons, corrs, inputs) streams of each domain."""
+    p2, pz = ProofSingle([], []), ProofSingle([], [])
+    j = 0
+    for r in range(len(omit)):
+        if omit[r] < 8:
+            ks = player_keys[r].copy()
+            ks[omit[r]] = 0
+            p2.online.append(OpenOnline(int(omit[r]), ks.tobytes(), *open2[j]))
+            pz.online.append(OpenOnline(int(omit[r]), ks.tobytes(), *openz[j]))
+            j += 1
+        else:
+            p2.preprocessing.append(OpenPreprocessing(seeds[r].tobytes(), ho2[r].tobytes()))
+            pz.preprocessing.append(OpenPreprocessing(seeds[r].tobytes(), hoz[r].tobytes()))
+    return Proof(comm, p2, pz)
+
+
+def commitment_ok(comm: bytes, hashes_online: np.ndarray, hashes_pre: np.ndarray,
+                  params: ProtocolParams) -> bool:
+    """The rep hashes of both legs (online_reps, 32) and
+    (preprocessing_reps, 32), put back in rep order by the challenge of
+    `comm`, hash to `comm`."""
+    open_map = challenge_to_opening(comm, params)
+    ordered = np.zeros((params.total_reps, 32), dtype=np.uint8)
+    io_ = ip = 0
+    for i in range(params.total_reps):
+        if i in open_map:
+            ordered[i] = hashes_online[io_]
+            io_ += 1
+        else:
+            ordered[i] = hashes_pre[ip]
+            ip += 1
+    return blake3(ordered.tobytes()) == comm
+
+
+def check_formats(proof: Proof, params: ProtocolParams) -> bool:
+    """Both domains' openings have the shapes params asks for."""
+    return all(single.check_format(params.online_reps, params.preprocessing_reps)
+               for single in (proof.gf2, proof.z64))
+
+
+def opened_keys(openings: List[OpenOnline]) -> np.ndarray:
+    """(n, 8, 16) uint8 player keys of online openings."""
+    return np.stack([np.frombuffer(o.seeds, dtype=np.uint8).reshape(8, KEY_SIZE)
+                     for o in openings])
+
+
+def preprocessing_seeds(openings: List[OpenPreprocessing]) -> np.ndarray:
+    """(n, 16) uint8 rep seeds of preprocessing openings."""
+    return np.stack([np.frombuffer(p.seed, dtype=np.uint8) for p in openings])
+
+
+def committed_hashes(openings: List[OpenPreprocessing]) -> np.ndarray:
+    """(n, 32) uint8 online commitments of preprocessing openings."""
+    return np.stack([np.frombuffer(p.comm_online, dtype=np.uint8) for p in openings])
+
+
+def witness_columns(wit_gf2, wit_z64, n_wit2: int, n_witz: int, which) -> tuple:
+    """A statement's witnesses as (n_wit2,) uint8 and (n_witz,) int64, cut
+    to the circuit's inputs; AssertionError when one is too short."""
+    w2 = np.asarray([1 if b else 0 for b in wit_gf2], dtype=np.uint8)
+    wz = np.asarray([int(v) & 0xFFFF_FFFF_FFFF_FFFF for v in wit_z64],
+                    dtype=np.uint64).view(np.int64)
+    if len(w2) < n_wit2 or len(wz) < n_witz:
+        raise AssertionError(f"witness {which} is too short")
+    return w2[:n_wit2], wz[:n_witz]
+
+
 # ---------------------------------------------------------------------------
 # The proof system
 # ---------------------------------------------------------------------------
@@ -368,7 +479,10 @@ class TorchKKW:
     """Compile a circuit once; prove and verify on one device.
 
     `device` defaults to the CUDA device (raising without one); the CPU
-    device runs the kernels' plain PyTorch versions.
+    device runs the kernels' plain PyTorch versions.  `params` sets the
+    repetitions (a proof's lanes are params.total_reps); `cc`, the
+    program's compiled circuit where the caller has it already
+    (make_system), is used as is.
 
     Entry points: `prove` and `verify` (one proof); `prove_batch` (N proofs
     as one device batch of N * 256 lanes); `prove_batch_chunked` (that
@@ -384,14 +498,17 @@ class TorchKKW:
     chunk or proof."""
 
     def __init__(self, program: Sequence[CombineOp],
-                 device: Optional[torch.device] = None, mesh=None):
+                 device: Optional[torch.device] = None, mesh=None,
+                 params: ProtocolParams = DEFAULT_PARAMS,
+                 cc: Optional[CompiledCircuit] = None):
         if mesh is not None:
             raise NotImplementedError(
                 "TorchKKW runs on one device; sharding over several is "
                 "ROADMAP Queue 1 item 12")
         check_program(program)
         self.device = default_device() if device is None else torch.device(device)
-        self.cc = compile_program(program)
+        self.params = params
+        self.cc = compile_program(program) if cc is None else cc
         self._executors: Dict[tuple, object] = {}
         self.last_timings: Dict[str, dict] = {}
 
@@ -490,7 +607,7 @@ class TorchKKW:
         the assembly of group g - 2.  A group's state goes once its proofs
         are assembled."""
         n = len(witnesses)
-        seeds = _seeds(seeds, n)
+        seeds = _seeds(seeds, n, self.params.total_reps)
         bounds = [(lo, min(lo + width, n)) for lo in range(0, n, width)]
         k = len(bounds)
         timer = PhaseTimer(self.device)
@@ -519,16 +636,12 @@ class TorchKKW:
         on N * 256 lanes, then the asynchronous pull of the rep hashes and
         fail flags."""
         cc, dev = self.cc, self.device
-        N, R = len(witnesses), PARAMS.total_reps
+        N, R = len(witnesses), self.params.total_reps
         wit2 = np.zeros((cc.n_wit2, N), dtype=np.uint8)
         witz = np.zeros((cc.n_witz, N), dtype=np.int64)
         for p, (wit_gf2, wit_z64) in enumerate(witnesses):
-            w2 = np.asarray([1 if b else 0 for b in wit_gf2], dtype=np.uint8)
-            wz = np.asarray([int(v) & 0xFFFF_FFFF_FFFF_FFFF for v in wit_z64],
-                            dtype=np.uint64).view(np.int64)
-            if len(w2) < cc.n_wit2 or len(wz) < cc.n_witz:
-                raise AssertionError(f"witness {first + p} is too short")
-            wit2[:, p], witz[:, p] = w2[: cc.n_wit2], wz[: cc.n_witz]
+            wit2[:, p], witz[:, p] = witness_columns(wit_gf2, wit_z64, cc.n_wit2, cc.n_witz,
+                                                     first + p)
         with timer.phase("expand_seeds" + tag):
             player_keys = expand_seeds(seeds.reshape(N * R, KEY_SIZE)).reshape(
                 N * R, 8, KEY_SIZE)
@@ -557,7 +670,7 @@ class TorchKKW:
         commitment and the Fiat-Shamir challenge on the host (raising
         before any extraction if a witness failed an AssertZero); then one
         extraction of all opened lanes and its asynchronous pull."""
-        N, R = st["N"], PARAMS.total_reps
+        N, R = st["N"], self.params.total_reps
         RT = N * R
         with st["timer"].phase("challenge" + st["tag"]):
             buf = st.pop("pull").numpy()
@@ -569,10 +682,7 @@ class TorchKKW:
                 raise AssertionError(f"witness {st['first'] + int(np.argmax(failed))} "
                                      "is invalid (AssertZero failed)")
             comms = [blake3(rep_h[p].tobytes()) for p in range(N)]
-            omits = np.full((N, R), 8, dtype=np.int64)
-            for p in range(N):
-                for rep, player in challenge_to_opening(comms[p], PARAMS).items():
-                    omits[p, rep] = player
+            omits = np.stack([challenge_omits(c, self.params) for c in comms])
             omit = omits.reshape(RT)
             cols = np.nonzero(omit < 8)[0]
             out = st.pop("out")
@@ -587,8 +697,7 @@ class TorchKKW:
         """Pulled GF(2) extraction buffer -> per-rep (recons, corrs,
         inputs)."""
         cc = self.cc
-        nb_r, nb_c = cc.n_recons2 // 8 + 1, cc.n_corrs2 // 8 + 1
-        nb_i = cc.n_inputs2 // 8 + 1
+        nb_r, nb_c, nb_i = (packed_len(n) for n in (cc.n_recons2, cc.n_corrs2, cc.n_inputs2))
         rec = buf[: K * nb_r].reshape(K, nb_r)
         cor = buf[K * nb_r : K * (nb_r + nb_c)].reshape(K, nb_c)
         inp = buf[K * (nb_r + nb_c) :].reshape(K, nb_i)
@@ -611,30 +720,19 @@ class TorchKKW:
     def _prove_assemble(self, st: dict) -> List[Proof]:
         """Pipeline stage 3: wait for the openings' pull and assemble the N
         proofs; the opened lanes come in lane order, proof by proof."""
-        R, K = PARAMS.total_reps, st["K"]
+        R, K = self.params.total_reps, st["K"]
         with st["timer"].phase("extract_pull" + st["tag"]):
             buf = st["xpull"].numpy()
             open2 = self._parse_gf2_buf(buf[: st["n_g2"]], K)
             openz = self._parse_z64_buf(buf[st["n_g2"] :], K)
             proofs, j = [], 0
             for p in range(st["N"]):
-                seeds, omit = st["seeds"][p], st["omits"][p]
-                keys = st["player_keys"][p * R : (p + 1) * R]
-                ho2, hoz = st["ho2"][p], st["hoz"][p]
-                p2, pz = ProofSingle([], []), ProofSingle([], [])
-                for r in range(R):
-                    if omit[r] < 8:
-                        ks = keys[r].copy()
-                        ks[omit[r]] = 0
-                        p2.online.append(OpenOnline(int(omit[r]), ks.tobytes(), *open2[j]))
-                        pz.online.append(OpenOnline(int(omit[r]), ks.tobytes(), *openz[j]))
-                        j += 1
-                    else:
-                        p2.preprocessing.append(
-                            OpenPreprocessing(seeds[r].tobytes(), ho2[r].tobytes()))
-                        pz.preprocessing.append(
-                            OpenPreprocessing(seeds[r].tobytes(), hoz[r].tobytes()))
-                proofs.append(Proof(st["comms"][p], p2, pz))
+                omit = st["omits"][p]
+                k = int((omit < 8).sum())
+                proofs.append(assemble_proof(
+                    st["comms"][p], st["seeds"][p], st["player_keys"][p * R : (p + 1) * R],
+                    omit, st["ho2"][p], st["hoz"][p], open2[j : j + k], openz[j : j + k]))
+                j += k
         return proofs
 
     # -- verification -------------------------------------------------------
@@ -664,21 +762,17 @@ class TorchKKW:
         """Both re-executions (online, preprocessing), their hashes and
         the asynchronous pulls of those; False for a malformed proof."""
         cc, dev = self.cc, self.device
-        if not proof.gf2.check_format(PARAMS.online_reps, PARAMS.preprocessing_reps):
+        if not check_formats(proof, self.params):
             return False
-        if not proof.z64.check_format(PARAMS.online_reps, PARAMS.preprocessing_reps):
-            return False
-
-        def keys(openings):
-            return np.stack([np.frombuffer(o.seeds, dtype=np.uint8).reshape(8, KEY_SIZE)
-                             for o in openings])
 
         # ---- online re-execution (the opened reps as one batch) -----------
-        Ro = PARAMS.online_reps
+        Ro = self.params.online_reps
         with timer.phase("onl_inject" + tag):
-            inj, omit, omitz = online_injection(cc, proof.gf2.online,
-                                                proof.z64.online, dev)
-            player_keys, player_keysz = keys(proof.gf2.online), keys(proof.z64.online)
+            streams = online_streams(proof.gf2.online, proof.z64.online, cc)
+            inj, omit, omitz = online_inputs(streams, cc, dev), streams["omit"], streams["omitz"]
+            del streams
+            player_keys = opened_keys(proof.gf2.online)
+            player_keysz = opened_keys(proof.z64.online)
         with timer.phase("onl_tape" + tag):
             tape = self._gf2_tape(player_keys, omit)
             tapez = self._z64_tape(player_keysz, omitz)
@@ -694,19 +788,16 @@ class TorchKKW:
             del out
 
         # ---- preprocessing re-execution -----------------------------------
-        Rp = PARAMS.preprocessing_reps
-
-        def seeds(openings):
-            return np.stack([np.frombuffer(p.seed, dtype=np.uint8) for p in openings])
+        Rp = self.params.preprocessing_reps
 
         def comms(openings):
-            return torch.from_numpy(np.stack([
-                np.frombuffer(p.comm_online, dtype=np.uint8) for p in openings
-            ])).to(dev)
+            return torch.from_numpy(committed_hashes(openings)).to(dev)
 
         with timer.phase("pre_tape" + tag):
-            pk2 = expand_seeds(seeds(proof.gf2.preprocessing)).reshape(Rp, 8, KEY_SIZE)
-            pkz = expand_seeds(seeds(proof.z64.preprocessing)).reshape(Rp, 8, KEY_SIZE)
+            pk2 = expand_seeds(preprocessing_seeds(proof.gf2.preprocessing)).reshape(
+                Rp, 8, KEY_SIZE)
+            pkz = expand_seeds(preprocessing_seeds(proof.z64.preprocessing)).reshape(
+                Rp, 8, KEY_SIZE)
             tape = self._gf2_tape(pk2)
             tapez = self._z64_tape(pkz)
         with timer.phase("pre_exec" + tag):
@@ -722,21 +813,11 @@ class TorchKKW:
     def _verify_finish(self, st: dict, strict_zero_check: bool = True) -> bool:
         """Wait for the hash pulls, reorder the rep hashes per the
         challenge and compare the commitment."""
-        Ro = PARAMS.online_reps
+        Ro = self.params.online_reps
         with st["timer"].phase("finish" + st["tag"]):
             buf = st["pull_onl"].numpy()
             hashes_online = buf[: Ro * 32].reshape(Ro, 32)
             if strict_zero_check and buf[Ro * 32 :].any():
                 return False
-            hashes_pre = st["pull_pre"].numpy()
-            open_map = challenge_to_opening(st["comm"], PARAMS)
-            ordered = np.zeros((PARAMS.total_reps, 32), dtype=np.uint8)
-            io_ = ip = 0
-            for i in range(PARAMS.total_reps):
-                if i in open_map:
-                    ordered[i] = hashes_online[io_]
-                    io_ += 1
-                else:
-                    ordered[i] = hashes_pre[ip]
-                    ip += 1
-            return blake3(ordered.tobytes()) == st["comm"]
+            return commitment_ok(st["comm"], hashes_online, st["pull_pre"].numpy(),
+                                 self.params)

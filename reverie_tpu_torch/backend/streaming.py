@@ -1,0 +1,365 @@
+"""Streaming segmented prover and verifier: O(segment) device memory.
+
+Port of reverie_tpu/backend/streaming.py (`StreamingKKW`, :115-834).
+`TorchKKW` holds the whole arena, the four transcript streams and both
+tapes of a circuit on the device; here the program is cut into segments
+(circuit/compile.py `compile_segments`) and proved in two passes:
+
+  pass 1: each segment in order makes its GF(2) and z64 tape windows (the
+    tape kernels at the window's first counter block), runs its executor
+    with the rows carried in from the segments before, and absorbs its
+    stream bytes into one incremental per-rep BLAKE3 state per stream
+    (crypto/kernels/blake3.py `ColumnHasher`: the chunk kernel at the
+    stream's chunk base); the streams are then dropped.  The finalized
+    hashes give the commitment and the Fiat-Shamir challenge, equal to
+    unsegmented proving.
+  pass 2: the segments run again, each extracting the opened reps'
+    recon, correction and input records (host.extract_gf2 /
+    host.extract_z64 on its own compiled circuit), pulled asynchronously
+    and placed at the segment's record bases on the host; the proof is
+    assembled once all are in.
+
+Verification runs its online leg (the opened reps) and its preprocessing
+leg (the others) segment by segment in the same way; the proof's online
+streams stay on the host, and each segment copies only its window of
+them to the device (host.online_inputs; a GF(2) window starts at a bit
+offset).  Every proof is byte-equal to `TorchKKW`'s with the same seeds,
+every verdict equal to its verdict.
+
+A segment deeper than SCAN_DEPTH_THRESHOLD levels runs on the wave
+executor (scan.ScanExecutor: W1 or W2 with carries), the others on the
+levelized `Executor`, as `TorchKKW` routes a whole circuit (host.uses_waves,
+read at each call).  A segment's executor is built when the segment runs
+and dropped after it, its index or wave tables with it (what is costly to
+derive, the wave slots and plans, stays cached on the segment's compiled
+circuit, on the host).  So what the device holds is O(segment): one
+segment's tapes, executor and streams, the carries a later segment reads,
+and the four streams' hash states, which hold one segment's stream bytes
+of CVs at most.
+"""
+
+from __future__ import annotations
+
+import os
+from types import SimpleNamespace
+from typing import Callable, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..circuit.compile import compile_segments
+from ..circuit.ir import CombineOp
+from ..crypto import blake3, expand_seeds
+from ..crypto.kernels import aes_tape, aes_tape_z64, blake3 as b3
+from ..device import default_device
+from ..params import DEFAULT_PARAMS, KEY_SIZE, ProtocolParams
+from ..proof.container import Proof
+from . import host, scan
+from .executor import PROVER, VERIFY_ONL, VERIFY_PRE, Executor, stream_bytes
+
+#: z64 tape words a 1 KiB keystream refill holds, and its AES counter blocks
+Z64_REFILL_WORDS, Z64_REFILL_BLOCKS = 128, 64
+
+STREAMS = ("onl2", "pre2", "onlz", "prez")
+_CARRIES = (("carry_mask2", "carry_corr2"), ("carry_maskz", "carry_corrz"))
+#: the totals over the segments that the streaming prover reads
+_TOTALS = ("n_wit2", "n_witz", *STREAMS, "n_recons2", "n_corrs2", "n_inputs2",
+           "n_reconsz", "n_corrsz", "n_inputsz")
+
+
+def _absorb(hashers: Dict[str, b3.ColumnHasher], cc, out: Dict[str, torch.Tensor]) -> None:
+    for name, h in hashers.items():
+        h.absorb(out[name][: getattr(cc, name)])
+
+
+def _rep_hashes(hashers: Dict[str, b3.ColumnHasher], comm2=None, commz=None):
+    """(rep hashes, ho2, hoz), each (R, 32): H(H(pre2 || onl2) || H(prez ||
+    onlz)) of the finalized streams (host.TorchKKW._hash_fn); with
+    comm2 / commz the online hashes are the committed values."""
+    ho2 = hashers["onl2"].finalize() if comm2 is None else comm2
+    hoz = hashers["onlz"].finalize() if commz is None else commz
+    h2 = b3.hash_pair_columns(hashers["pre2"].finalize(), ho2)
+    hz = b3.hash_pair_columns(hashers["prez"].finalize(), hoz)
+    return b3.hash_pair_columns(h2, hz), ho2, hoz
+
+
+def _column(w: np.ndarray, R: int, device) -> torch.Tensor:
+    """A witness column (n,) repeated over R lanes on the device."""
+    t = torch.from_numpy(np.ascontiguousarray(w)).to(device)
+    return t[:, None].expand(t.shape[0], R).contiguous()
+
+
+class StreamingKKW:
+    """Prove and verify one circuit segment by segment, in segments of at
+    most `seg_ops` ops, on one device (the CUDA device unless `device`
+    says otherwise; the CPU runs the kernels' plain versions).  Proof
+    bytes equal `TorchKKW.prove`'s with the same seeds, verdicts its
+    verify's.  After each call `last_timings` holds its PhaseTimer report:
+    pass1, hash_final, challenge, pass2, pack after `prove`; onl_inject,
+    onl_exec, onl_hash, pre_tape, pre_exec, pre_hash after `verify`."""
+
+    def __init__(self, program: Sequence[CombineOp], seg_ops: int,
+                 params: ProtocolParams = DEFAULT_PARAMS, device: Optional[torch.device] = None,
+                 mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "StreamingKKW runs on one device; sharding over several is "
+                "ROADMAP Queue 1 item 12")
+        if seg_ops < 1:
+            raise ValueError("StreamingKKW: seg_ops must be at least 1")
+        host.check_program(program)
+        self.device = default_device() if device is None else torch.device(device)
+        self.params = params
+        self.segments = compile_segments(program, seg_ops)
+        self.totals = {k: sum(getattr(s.cc, k) for s in self.segments) for k in _TOTALS}
+        #: a segment's rows of each stream at most: a stream's hash holds
+        #: that many bytes a lane of CVs at most (ColumnHasher's
+        #: held_bytes), so the four hold one segment's streams' bytes
+        self._seg_rows = {k: max(getattr(s.cc, k) for s in self.segments) for k in STREAMS}
+        #: a segment's stream rows at most: an executor holds its streams
+        #: three times over (executor.prover_bytes); a hash's tree runs with
+        #: no executor alive, beside one segment's streams and the CVs, and
+        #: holds twice that much at once
+        self._stream_rows = max(stream_bytes(s.cc, 1) for s in self.segments)
+        # per segment: the segments whose carry outputs no later one reads
+        last = {src: s for s, seg in enumerate(self.segments)
+                for src, _ in seg.carry_src + seg.carry_srcz}
+        self._done_after: List[List[int]] = [[] for _ in self.segments]
+        for src, s in last.items():
+            self._done_after[s].append(src)
+        self._carry_index: Dict[tuple, tuple] = {}
+        self.last_timings: Dict[str, dict] = {}
+
+    def _executor(self, s: int, mode: int, R: int):
+        """The executor of segment s in one role at R lanes, with its
+        carries: the wave executor where the segment is deeper than
+        host.SCAN_DEPTH_THRESHOLD levels, the levelized one otherwise."""
+        seg = self.segments[s]
+        make = scan.ScanExecutor if host.uses_waves(seg.cc) else Executor
+        return make(seg.cc, mode, R, self.device, carry_in=len(seg.carry_in),
+                    carry_out_vals=seg.carry_out_vals, carry_inz=len(seg.carry_inz),
+                    carry_outz_vals=seg.carry_outz_vals)
+
+    def _hashers(self, R: int, names=STREAMS) -> Dict[str, b3.ColumnHasher]:
+        """The streams' incremental hashes at R lanes, each holding at most
+        a segment's rows of its stream (_seg_rows) in CVs, its tree two
+        segments' streams in compressions."""
+        return {k: b3.ColumnHasher(self.totals[k], R, self.device, self._seg_rows[k] * R,
+                                   2 * self._stream_rows * R)
+                for k in names}
+
+    # -- the segment inputs -------------------------------------------------
+    @staticmethod
+    def _tape2(seg, rk: torch.Tensor, omit: Optional[torch.Tensor]) -> torch.Tensor:
+        """(m2, R) GF(2) tape rows tape0 .. tape0 + m2 of the circuit: the
+        tape kernel from counter block tape0 // 128, cut at the window's
+        first slot."""
+        R = rk.shape[0] // 8
+        if seg.cc.m2 == 0:
+            return torch.empty((0, R), dtype=torch.uint8, device=rk.device)
+        b0 = seg.tape0 // aes_tape.BATCH
+        off = seg.tape0 - b0 * aes_tape.BATCH
+        return aes_tape.aes_ctr_tape_gf2(rk, off + seg.cc.m2, omit, b0)[off:]
+
+    @staticmethod
+    def _tapez(seg, rk: torch.Tensor, omit: Optional[torch.Tensor]) -> torch.Tensor:
+        """(mz, 8, R) z64 tape words tapez0 .. tapez0 + mz of the circuit:
+        the z64 tape kernel from the refill that holds word tapez0."""
+        R = rk.shape[0] // 8
+        if seg.cc.mz == 0:
+            return torch.empty((0, 8, R), dtype=torch.int64, device=rk.device)
+        b0 = seg.tapez0 // Z64_REFILL_WORDS
+        off = seg.tapez0 - b0 * Z64_REFILL_WORDS
+        return aes_tape_z64.aes_ctr_tape_z64(rk, off + seg.cc.mz, omit,
+                                             b0 * Z64_REFILL_BLOCKS)[off:]
+
+    def _gather_carry(self, s: int, z: int, carries: Dict[int, dict], inp: dict) -> None:
+        """Segment s's carried-in rows of domain z (0 GF(2), 1 z64), in
+        carry_in order, from the carry outputs of the segments that last
+        wrote them: one index_select per source segment and array, then
+        one to restore the order."""
+        key = (s, z)
+        if key not in self._carry_index:
+            seg = self.segments[s]
+            src = seg.carry_srcz if z else seg.carry_src
+            by_src: Dict[int, list] = {}
+            for pos, (sv, row) in enumerate(src):
+                by_src.setdefault(sv, []).append((row, pos))
+            order = np.asarray([pos for rows in by_src.values() for _, pos in rows])
+            inv = np.empty(len(order), dtype=np.int64)
+            inv[order] = np.arange(len(order))
+            self._carry_index[key] = (
+                [(sv, torch.as_tensor([r for r, _ in rows], device=self.device))
+                 for sv, rows in by_src.items()],
+                torch.as_tensor(inv, device=self.device))
+        parts, inv = self._carry_index[key]
+        for name in _CARRIES[z]:
+            rows = torch.cat([carries[sv][name].index_select(0, idx) for sv, idx in parts])
+            inp[name] = rows.index_select(0, inv)
+
+    def _run_segments(self, mode: int, rk2: torch.Tensor, rkz: torch.Tensor,
+                      on_out: Callable[[int, dict], None], omit=None, omitz=None,
+                      wit=None, inject: Optional[Callable] = None) -> torch.Tensor:
+        """Run every segment in order in one role, calling on_out(s, out)
+        on each one's outputs; returns the fail flags (R,).  rk2 / rkz: the
+        round keys of the GF(2) and z64 tapes (the online verifier opens
+        the two domains with their own keys), omit / omitz (R,) numpy or
+        None; wit: the witness columns (PROVER); inject(seg): the
+        segment's VERIFY_ONL inputs."""
+        dev = self.device
+        R = rk2.shape[0] // 8
+        om2, omz = (None if o is None else torch.as_tensor(o.astype(np.uint8), device=dev)
+                    for o in (omit, omitz))
+        debug = mode == VERIFY_ONL and os.environ.get("REVERIE_DEBUG")
+        carries: Dict[int, dict] = {}
+        fail = torch.zeros((R,), dtype=torch.bool, device=dev)
+        for s, seg in enumerate(self.segments):
+            cc = seg.cc
+            inp = {"tape": self._tape2(seg, rk2, om2), "tapez": self._tapez(seg, rkz, omz)}
+            if debug:
+                host._check_omitted_lanes(inp["tape"], inp["tapez"], omit, omitz)
+            if wit is not None:
+                inp["wit2"] = _column(wit[0][seg.wit0 : seg.wit0 + cc.n_wit2], R, dev)
+                inp["witz"] = _column(wit[1][seg.witz0 : seg.witz0 + cc.n_witz], R, dev)
+            if inject is not None:
+                inp.update(inject(seg))
+            for z, src in enumerate((seg.carry_src, seg.carry_srcz)):
+                if src:
+                    self._gather_carry(s, z, carries, inp)
+            out = self._executor(s, mode, R)(inp)
+            del inp  # and the executor, its tables with it
+            fail |= out["fail"]
+            if seg.carry_out or seg.carry_outz:
+                carries[s] = {k: out[k] for names in _CARRIES for k in names if k in out}
+            for src in self._done_after[s]:
+                carries.pop(src, None)
+            on_out(s, out)
+            del out
+        return fail
+
+    # -- proving ------------------------------------------------------------
+    def prove(self, wit_gf2, wit_z64=(), seeds: Optional[np.ndarray] = None) -> Proof:
+        """`seeds` (total_reps, 16) makes the proof deterministic."""
+        params, dev, T = self.params, self.device, self.totals
+        R = params.total_reps
+        timer = host.PhaseTimer(dev)
+        seeds = host._seeds(seeds, 1, R)[0]
+        wit = host.witness_columns(wit_gf2, wit_z64, T["n_wit2"], T["n_witz"], 0)
+        player_keys = expand_seeds(seeds).reshape(R, 8, KEY_SIZE)
+        rk = aes_tape.round_keys(player_keys, dev)
+
+        hashers = self._hashers(R)
+        with timer.phase("pass1"):
+            fail = self._run_segments(
+                PROVER, rk, rk, lambda s, out: _absorb(hashers, self.segments[s].cc, out),
+                wit=wit)
+        with timer.phase("hash_final"):
+            rep_h, ho2, hoz = _rep_hashes(hashers)
+            hashers.clear()
+            buf = host._Pull(torch.cat([rep_h.reshape(-1), ho2.reshape(-1), hoz.reshape(-1),
+                                        fail.to(torch.uint8)])).numpy()
+            rep_h, ho2, hoz = (buf[i * R * 32 : (i + 1) * R * 32].reshape(R, 32)
+                               for i in range(3))
+            if buf[3 * R * 32 :].any():
+                raise AssertionError("witness 0 is invalid (AssertZero failed)")
+        with timer.phase("challenge"):
+            comm = blake3(rep_h.tobytes())
+            omit = host.challenge_omits(comm, params)
+            cols = np.nonzero(omit < 8)[0]
+        K = len(cols)
+
+        pulls: List[host._Pull] = []
+
+        def extract(s: int, out: dict) -> None:
+            cc = self.segments[s].cc
+            g2 = host.extract_gf2(cc, out["onl2"], out["pre2"], cols, omit[cols], packed=False)
+            gz = host.extract_z64(cc, out["onlz"], out["prez"], cols, omit[cols])
+            pulls.append(host._Pull(torch.cat([g2, gz])))
+
+        with timer.phase("pass2"):
+            self._run_segments(PROVER, rk, rk, extract, wit=wit)
+            bits2 = [np.zeros((K, T[n]), dtype=np.uint8)
+                     for n in ("n_recons2", "n_corrs2", "n_inputs2")]
+            bytesz = [np.zeros((K, 8 * T[n]), dtype=np.uint8)
+                      for n in ("n_reconsz", "n_corrsz", "n_inputsz")]
+            for seg, pull in zip(self.segments, pulls):
+                cc, buf, o = seg.cc, pull.numpy(), 0
+                for dest, n, base in zip(bits2, (cc.n_recons2, cc.n_corrs2, cc.n_inputs2),
+                                         (seg.rec0, seg.cor0, seg.inp0)):
+                    dest[:, base : base + n] = buf[o : o + K * n].reshape(K, n)
+                    o += K * n
+                for dest, n, base in zip(bytesz, (cc.n_reconsz, cc.n_corrsz, cc.n_inputsz),
+                                         (seg.recz0, seg.corz0, seg.inpz0)):
+                    dest[:, 8 * base : 8 * (base + n)] = buf[o : o + K * 8 * n].reshape(K, 8 * n)
+                    o += K * 8 * n
+            del pulls[:]
+        with timer.phase("pack"):
+            packed = []
+            for b in bits2:
+                p = np.zeros((K, host.packed_len(b.shape[1])), dtype=np.uint8)
+                p[:, : -(-b.shape[1] // 8)] = np.packbits(b, axis=1)
+                packed.append(p)
+            open2 = [tuple(p[j].tobytes() for p in packed) for j in range(K)]
+            openz = [tuple(b[j].tobytes() for b in bytesz) for j in range(K)]
+            proof = host.assemble_proof(comm, seeds, player_keys, omit, ho2, hoz, open2, openz)
+        self.last_timings = timer.report()
+        return proof
+
+    # -- verification -------------------------------------------------------
+    def verify(self, proof: Proof, strict_zero_check: bool = True) -> bool:
+        """The online and preprocessing re-executions segment by segment;
+        False for a malformed proof."""
+        timer = host.PhaseTimer(self.device)
+        try:
+            return self._verify(proof, strict_zero_check, timer)
+        finally:
+            self.last_timings = timer.report()
+
+    def _verify(self, proof: Proof, strict_zero_check: bool, timer: host.PhaseTimer) -> bool:
+        params, dev, T = self.params, self.device, self.totals
+        if not host.check_formats(proof, params):
+            return False
+
+        # ---- online re-execution (the opened reps as one batch) -----------
+        Ro = params.online_reps
+        with timer.phase("onl_inject"):
+            on2, onz = proof.gf2.online, proof.z64.online
+            streams = host.online_streams(on2, onz, SimpleNamespace(**T))
+            omit, omitz = streams["omit"], streams["omitz"]
+            rk2 = aes_tape.round_keys(host.opened_keys(on2), dev)
+            rkz = aes_tape.round_keys(host.opened_keys(onz), dev)
+
+        def inject(seg) -> dict:
+            return host.online_inputs(streams, seg.cc, dev, seg)
+
+        hashers = self._hashers(Ro)
+        with timer.phase("onl_exec"):
+            fail = self._run_segments(
+                VERIFY_ONL, rk2, rkz,
+                lambda s, out: _absorb(hashers, self.segments[s].cc, out),
+                omit=omit, omitz=omitz, inject=inject)
+        with timer.phase("onl_hash"):
+            rep_h, _, _ = _rep_hashes(hashers)
+            buf = host._Pull(torch.cat([rep_h.reshape(-1), fail.to(torch.uint8)])).numpy()
+            hashes_online = buf[: Ro * 32].reshape(Ro, 32)
+            if strict_zero_check and buf[Ro * 32 :].any():
+                return False
+
+        # ---- preprocessing re-execution -----------------------------------
+        Rp = params.preprocessing_reps
+        with timer.phase("pre_tape"):
+            pre2, prez = proof.gf2.preprocessing, proof.z64.preprocessing
+            rk2 = aes_tape.round_keys(
+                expand_seeds(host.preprocessing_seeds(pre2)).reshape(Rp, 8, KEY_SIZE), dev)
+            rkz = aes_tape.round_keys(
+                expand_seeds(host.preprocessing_seeds(prez)).reshape(Rp, 8, KEY_SIZE), dev)
+            comm2 = torch.from_numpy(host.committed_hashes(pre2)).to(dev)
+            commz = torch.from_numpy(host.committed_hashes(prez)).to(dev)
+        hashers = self._hashers(Rp, ("pre2", "prez"))
+        with timer.phase("pre_exec"):
+            self._run_segments(VERIFY_PRE, rk2, rkz,
+                               lambda s, out: _absorb(hashers, self.segments[s].cc, out))
+        with timer.phase("pre_hash"):
+            rep_h, _, _ = _rep_hashes(hashers, comm2, commz)
+            hashes_pre = host._Pull(rep_h).numpy()
+        return host.commitment_ok(proof.comm, hashes_online, hashes_pre, params)

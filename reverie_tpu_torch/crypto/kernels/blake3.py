@@ -2,9 +2,10 @@
 
 Port of reverie_tpu/crypto/kernels/blake3_jax.py (`hash_columns`,
 `_bulk_cvs`, `_chunk_cvs`, `_tree_reduce`, `_rows_to_bytes`,
-`hash_pair_columns`) and of the Pallas kernel
-blake3_pallas.py:_fb_kernel / `chunk_cvs_from_bytes`, which becomes the CUDA
-kernel csrc/blake3_chunks.cu.
+`hash_pair_columns`, and the streaming prover's incremental
+`absorb_columns`, `finalize_columns` and `ColumnHasher`) and of the Pallas
+kernel blake3_pallas.py:_fb_kernel / `chunk_cvs_from_bytes`, which becomes
+the CUDA kernel csrc/blake3_chunks.cu.
 
 A transcript buffer is a (T, R) uint8 tensor whose columns are the
 per-repetition streams.  The whole chunks go through `chunk_cvs` (CPU
@@ -20,6 +21,7 @@ u32 bit patterns).
 from __future__ import annotations
 
 import functools
+from typing import List, Optional
 
 import torch
 
@@ -185,20 +187,50 @@ def _tail_cv(tail: torch.Tensor, length: int, counter: int, root: bool):
     return cv
 
 
-def _tree_reduce(cvs: torch.Tensor) -> torch.Tensor:
-    """cvs: (8, n, R) int64 chunk CVs, n >= 2 -> (8, R) root words.
-    Level-wise adjacent pairing with the odd last node promoted is BLAKE3's
-    left-biased tree; one batched compress per level."""
-    n = cvs.shape[1]
-    iv = _iv(cvs.device)[:, None, None]
-    while n > 2:
+def _tree_reduce(levels: List[torch.Tensor], max_pairs: Optional[int] = None,
+                 root: bool = True) -> Optional[torch.Tensor]:
+    """BLAKE3's tree over nodes of several heights.  levels[j]: (8, c_j, R)
+    int32 node CVs at height j (0: chunks), left to right, each level's
+    first node at an even position of its height (the nodes before it are
+    paired already); every node of levels[j] lies left of those of
+    levels[j - 1].  Level by level, adjacent pairs become PARENT nodes of
+    the next height, at most max_pairs compressions at a time (None: a
+    level's all at once).
+
+    root=True: an odd last node moves up a height unchanged (the level-wise
+    pairing of BLAKE3's left-biased tree), and the last two nodes, once no
+    others are left, are the ROOT compress -> (8, R) int64 root words; the
+    levels need at least two nodes.  root=False (an unfinished stream): an
+    odd last node waits at its height for its pair; levels is left with at
+    most one node a height (the CV stack) and None is returned."""
+    if root and sum(x.shape[1] for x in levels) < 2:
+        raise ValueError("_tree_reduce: a tree needs at least two nodes")
+    iv = _iv(levels[0].device)[:, None, None]
+    j = 0
+    while j < len(levels):
+        nodes = levels[j]
+        n, R = nodes.shape[1], nodes.shape[2]
+        if root and n == 2 and all(x.shape[1] == 0 for x in levels[j + 1 :]):
+            m = _from_i32(torch.cat([nodes[:, 0], nodes[:, 1]]))
+            return compress(iv[:, 0], m, 0, 64, PARENT | ROOT)
         pairs = n // 2
-        m = torch.cat([cvs[:, 0 : 2 * pairs : 2], cvs[:, 1 : 2 * pairs : 2]])
-        out = compress(iv, m, 0, 64, PARENT)
-        cvs = torch.cat([out, cvs[:, -1:]], dim=1) if n % 2 else out
-        n = cvs.shape[1]
-    m = torch.cat([cvs[:, 0], cvs[:, 1]])
-    return compress(iv[:, 0], m, 0, 64, PARENT | ROOT)
+        step = max_pairs or max(pairs, 1)
+        up = torch.empty((8, pairs, R), dtype=torch.int32, device=nodes.device)
+        for lo in range(0, pairs, step):
+            hi = min(lo + step, pairs)
+            m = torch.cat([nodes[:, 2 * lo : 2 * hi : 2], nodes[:, 2 * lo + 1 : 2 * hi : 2]])
+            up[:, lo:hi] = _to_i32(compress(iv, _from_i32(m), 0, 64, PARENT))
+        # a copy (or a new empty tensor), not a view: a view would keep the
+        # whole level's nodes alive
+        odd = nodes[:, 2 * pairs :].clone()
+        above = [x for x in ([up, odd] if root else [up]) if x.shape[1]]
+        levels[j] = nodes.new_empty((8, 0, R)) if root else odd
+        if above:
+            if j + 1 == len(levels):
+                levels.append(nodes.new_empty((8, 0, R)))
+            levels[j + 1] = torch.cat([levels[j + 1], *above], dim=1)
+        j += 1
+    return None
 
 
 def _rows_to_bytes(words: torch.Tensor) -> torch.Tensor:
@@ -211,22 +243,111 @@ def _rows_to_bytes(words: torch.Tensor) -> torch.Tensor:
 def hash_columns(buf: torch.Tensor, T: int) -> torch.Tensor:
     """buf: (>= T, R) uint8 -> (R, 32) uint8, blake3 of each column's first
     T bytes (rows beyond T are ignored)."""
-    R = buf.shape[1]
-    dev = buf.device
-    if T == 0:
+    n_chunks = max(1, (T + CHUNK_LEN - 1) // CHUNK_LEN)
+    bulk = [chunk_cvs(buf, n_chunks - 1, 0)] if n_chunks > 1 else []
+    return finalize_columns(bulk, buf[(n_chunks - 1) * CHUNK_LEN : T], T)
+
+
+# ---------------------------------------------------------------------------
+# Incremental column hashing (the streaming prover, backend/streaming.py).
+# Port of blake3_jax.py `absorb_columns`, `finalize_columns` and
+# `ColumnHasher`: a stream made segment by segment is absorbed chunk by
+# chunk into node CVs and a (1024, R) remainder; the final chunk always
+# stays in the remainder, so that CHUNK_END | ROOT land on it.  Unlike the
+# reference's hasher, which keeps every chunk CV to the end, the CVs are
+# paired into the CV stack (_tree_reduce with root=False) whenever they
+# pass the hasher's bound: the state stays O(bound + log n), not O(n).
+# ---------------------------------------------------------------------------
+
+#: device bytes of one compression a column (hash_columns_transient_bytes)
+COMPRESS_BYTES = 1472
+#: device bytes of one node CV a column (8 int32 words)
+CV_BYTES = 32
+
+
+def absorb_columns(rem: torch.Tensor, rem_len: int, new: torch.Tensor, n_absorb: int,
+                   chunk_base: int) -> torch.Tensor:
+    """Absorb an (L, R) byte block after the rem_len bytes held in the
+    (1024, R) remainder rem: returns the (8, n_absorb, R) int32 CVs of the
+    stream's chunks chunk_base .. chunk_base + n_absorb - 1 (`chunk_cvs`),
+    and leaves the bytes past them in rem (in place; the caller keeps
+    rem_len + L - 1024 * n_absorb <= 1024)."""
+    if n_absorb == 0:
+        rem[rem_len : rem_len + new.shape[0]] = new
+        return torch.empty((8, 0, new.shape[1]), dtype=torch.int32, device=new.device)
+    buf = torch.cat([rem[:rem_len], new]) if rem_len else new
+    consumed = n_absorb * CHUNK_LEN
+    cvs = chunk_cvs(buf, n_absorb, chunk_base)
+    rem[: buf.shape[0] - consumed] = buf[consumed:]
+    return cvs
+
+
+def finalize_columns(levels: List[torch.Tensor], rem: torch.Tensor, total_len: int,
+                     max_pairs: Optional[int] = None) -> torch.Tensor:
+    """The node CVs (_tree_reduce's levels) of every chunk of a stream of
+    total_len bytes but its last, and rem, its last chunk -> (R, 32) uint8
+    per-column hashes; at most max_pairs parent compressions run at once."""
+    R = rem.shape[1]
+    if total_len == 0:
         # the empty input: one zero-length root chunk (blake3(b""))
-        zero = torch.zeros((16, R), dtype=torch.int64, device=dev)
-        cv = compress(_iv(dev)[:, None], zero, 0, 0, CHUNK_START | CHUNK_END | ROOT)
+        zero = torch.zeros((16, R), dtype=torch.int64, device=rem.device)
+        cv = compress(_iv(rem.device)[:, None], zero, 0, 0, CHUNK_START | CHUNK_END | ROOT)
         return _rows_to_bytes(cv)
-    n_chunks = (T + CHUNK_LEN - 1) // CHUNK_LEN
-    rem = T - (n_chunks - 1) * CHUNK_LEN
-    tail = buf[(n_chunks - 1) * CHUNK_LEN : T]
+    n_chunks = (total_len + CHUNK_LEN - 1) // CHUNK_LEN
+    rem_len = total_len - (n_chunks - 1) * CHUNK_LEN
     if n_chunks == 1:
-        return _rows_to_bytes(_tail_cv(tail, rem, 0, True))
-    bulk = _from_i32(chunk_cvs(buf, n_chunks - 1, 0))
-    last = _tail_cv(tail, rem, n_chunks - 1, False)
-    cvs = torch.cat([bulk, last[:, None]], dim=1)
-    return _rows_to_bytes(_tree_reduce(cvs))
+        return _rows_to_bytes(_tail_cv(rem, rem_len, 0, True))
+    last = _to_i32(_tail_cv(rem, rem_len, n_chunks - 1, False))[:, None]
+    levels = list(levels)
+    levels[0] = torch.cat([levels[0], last], dim=1)
+    return _rows_to_bytes(_tree_reduce(levels, max_pairs))
+
+
+class ColumnHasher:
+    """One stream's incremental per-column hash on a device.  The stream's
+    length is known up front (the segments' compile-time bases):
+
+        h = ColumnHasher(total_len, R, device, held_bytes, transient_bytes)
+        for block in blocks: h.absorb(block)   # (L, R) uint8
+        hashes = h.finalize()                  # (R, 32) uint8
+
+    Each absorb of a whole chunk is one `chunk_cvs` (the chunk kernel on
+    CUDA, at chunk_base = the chunks absorbed before).  The node CVs held
+    between absorbs stay within held_bytes (at least two nodes): past it
+    they are paired into the CV stack.  That pairing and the tree of
+    finalize hold at most transient_bytes of parent compressions at once
+    (at least one).  The torch tail runs in finalize, once a stream."""
+
+    def __init__(self, total_len: int, R: int, device, held_bytes: int, transient_bytes: int):
+        self.total_len, self.R = total_len, R
+        self.max_nodes = max(2, held_bytes // (CV_BYTES * max(R, 1)))
+        self.max_pairs = max(1, transient_bytes // (COMPRESS_BYTES * max(R, 1)))
+        self.n_chunks = max(1, (total_len + CHUNK_LEN - 1) // CHUNK_LEN)
+        self.levels = [torch.empty((8, 0, R), dtype=torch.int32, device=device)]
+        self.rem = torch.zeros((CHUNK_LEN, R), dtype=torch.uint8, device=device)
+        self.rem_len = 0
+        self.chunk_base = 0
+
+    def absorb(self, new: torch.Tensor) -> None:
+        L = new.shape[0]
+        if L == 0:
+            return
+        avail = self.rem_len + L
+        if self.chunk_base * CHUNK_LEN + avail > self.total_len:
+            raise ValueError("ColumnHasher: absorbed past the stream's length")
+        n_absorb = min(avail // CHUNK_LEN, self.n_chunks - 1 - self.chunk_base)
+        cvs = absorb_columns(self.rem, self.rem_len, new, n_absorb, self.chunk_base)
+        self.chunk_base += n_absorb
+        self.rem_len = avail - n_absorb * CHUNK_LEN
+        if n_absorb:
+            self.levels[0] = torch.cat([self.levels[0], cvs], dim=1)
+            if sum(x.shape[1] for x in self.levels) > self.max_nodes:
+                _tree_reduce(self.levels, self.max_pairs, root=False)
+
+    def finalize(self) -> torch.Tensor:
+        if self.chunk_base * CHUNK_LEN + self.rem_len != self.total_len:
+            raise ValueError("ColumnHasher: finalized before the whole stream was absorbed")
+        return finalize_columns(self.levels, self.rem, self.total_len, self.max_pairs)
 
 
 def hash_columns_transient_bytes(T: int, R: int) -> int:
@@ -240,7 +361,7 @@ def hash_columns_transient_bytes(T: int, R: int) -> int:
     twice as int64, and half a compression)."""
     n = max(1, -(-T // CHUNK_LEN))
     tail = 64 * max(1, -(-(T - (n - 1) * CHUNK_LEN) // 64))
-    return R * max(1472, 15 * tail, 832 * n)
+    return R * max(COMPRESS_BYTES, 15 * tail, 832 * n)
 
 
 def hash_pair_columns(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -13,7 +13,13 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from reverie_tpu_torch import TorchKKW, device_footprint, largest_batch, pipeline_footprint
+from reverie_tpu_torch import (
+    StreamingKKW,
+    TorchKKW,
+    device_footprint,
+    largest_batch,
+    pipeline_footprint,
+)
 from reverie_tpu_torch.backend import host, scan
 from reverie_tpu_torch.circuit.builders import (
     mixed_b2a_circuit,
@@ -58,10 +64,10 @@ def card_table_bytes(ex) -> int:
 
 @pytest.fixture
 def kernel_outputs_only(monkeypatch):
-    monkeypatch.setattr(aes_tape, "aes_ctr_tape_gf2", lambda rk, m2, omit=None: torch.zeros(
-        (m2, rk.shape[0] // 8), dtype=torch.uint8))
-    monkeypatch.setattr(aes_tape_z64, "aes_ctr_tape_z64", lambda rk, mz, omit=None: torch.zeros(
-        (mz, 8, rk.shape[0] // 8), dtype=torch.int64))
+    monkeypatch.setattr(aes_tape, "aes_ctr_tape_gf2", lambda rk, m2, omit=None, block=0:
+                        torch.zeros((m2, rk.shape[0] // 8), dtype=torch.uint8))
+    monkeypatch.setattr(aes_tape_z64, "aes_ctr_tape_z64", lambda rk, mz, omit=None, block=0:
+                        torch.zeros((mz, 8, rk.shape[0] // 8), dtype=torch.int64))
     monkeypatch.setattr(b3, "chunk_cvs", lambda buf, n, base=0: torch.zeros(
         (8, n, buf.shape[1]), dtype=torch.int32))
 
@@ -158,3 +164,47 @@ def test_chunked_peak_tracks_pipeline_footprint(kernel_outputs_only, name):
     pred = pipeline_footprint(port.cc, 256)
     assert abs(pred - peak) <= 0.25 * peak, (pred, peak)
     assert peak <= chip_smoke.PEAK_OVER_FOOTPRINT * pred, (peak, pred)
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op torch thread while the test runs: its ops are small, and
+    the suite runs in parallel workers, where a pool of threads per op
+    costs more than the op."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+class HostPull:
+    """host._Pull without its host tensor: on the card a pull lands in
+    pinned host memory, not on the device."""
+
+    def __init__(self, t):
+        self._a = t.numpy().copy()
+
+    def numpy(self):
+        return self._a
+
+
+def test_streamed_peak_does_not_grow_with_the_circuit(kernel_outputs_only, monkeypatch,
+                                                     one_thread):
+    """StreamingKKW's peak over a prove of 4,596 and 33,268 ANDs in segments
+    of 256 ops differs by the CVs its hashes may hold at most: the device
+    holds one segment's tapes, executor and streams, and hash states of at
+    most a segment's stream bytes of CVs (8 nodes a stream here), paired
+    into the CV stack past them (a node a height).  The larger circuit's
+    33 chunks a stream would hold 56 nodes more without the stack.  Both
+    streams end 500 bytes into a chunk, so that the final chunk's
+    transient, which sets the peak at this size, is the same."""
+    monkeypatch.setattr(host, "_Pull", HostPull)
+    peaks = []
+    for n in (4 * 1024 + 500, 32 * 1024 + 500):
+        prog, wit2, witz = mul_bench_circuit(n)
+        sk = StreamingKKW(prog, 256, device=torch.device("cpu"))
+        assert sk._hashers(256)["onl2"].max_nodes == 8
+        seeds = np.random.RandomState(n).randint(0, 256, (256, 16), dtype=np.uint8)
+        peaks.append(live_peak(lambda: sk.prove(wit2, witz, seeds)))
+    # two GF(2) streams, each 8 nodes and a stack of 6 heights at most
+    assert abs(peaks[1] - peaks[0]) <= 2 * (8 + 6) * b3.CV_BYTES * 256, peaks

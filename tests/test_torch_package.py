@@ -29,12 +29,13 @@ sys.modules["jax"] = None
 import reverie_tpu_torch
 import reverie_tpu_torch._build, reverie_tpu_torch.device, reverie_tpu_torch.parity
 import reverie_tpu_torch.backend.executor, reverie_tpu_torch.backend.host
-import reverie_tpu_torch.backend.scan, reverie_tpu_torch.circuit.sha256
+import reverie_tpu_torch.backend.scan, reverie_tpu_torch.backend.streaming
+import reverie_tpu_torch.circuit.sha256
 import reverie_tpu_torch.crypto.kernels.aes_tape, reverie_tpu_torch.crypto.kernels.blake3
 import reverie_tpu_torch.crypto.kernels.aes_tape_z64, reverie_tpu_torch.crypto.kernels.aes_planes
 import reverie_tpu_torch.tools.r2_measure, reverie_tpu_torch.tools.r4_bwroof
 import reverie_tpu_torch.tools.r5_u8emit, reverie_tpu_torch.tools.r4_extract_probe
-import reverie_tpu_torch.tools.wave_times
+import reverie_tpu_torch.tools.wave_times, reverie_tpu_torch.tools.stream_peak
 import chip_smoke
 assert not any(m.split(".")[0] in ("jax", "reverie_tpu") for m in sys.modules if sys.modules[m] is not None)
 print("no-jax import ok")
@@ -883,3 +884,75 @@ def test_wave_kernels_chain_segment_carries(cuda_device, mode, name, seg_ops):
         assert set(g) == set(w)
         for key in w:
             assert torch.equal(g[key].cpu(), w[key]), key
+
+
+# -- streaming on the card: the tape kernels at a window's start_block, the
+# chunk kernel at a stream's chunk_base --------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [256, 40, 216])
+def test_column_hasher_on_cuda_matches_cpu(cuda_device, R):
+    """ColumnHasher on the card, a 5-chunk ragged stream in blocks of 1,500
+    bytes, its held CVs bound to two (paired into the CV stack past them,
+    one parent at a time):
+    the chunk kernel launched at chunk_base 1, 2 and 4; the hashes equal
+    the hasher's on the CPU."""
+    T = 5 * 1024 + 300
+    buf = torch.from_numpy(np.random.RandomState(R).randint(0, 256, (T, R), dtype=np.uint8))
+    hashes, bases = [], []
+    for dev in (torch.device("cpu"), cuda_device):
+        h = b3.ColumnHasher(T, R, dev, 2 * b3.CV_BYTES * R, b3.COMPRESS_BYTES * R)
+        n0 = b3.LAUNCHES
+        for lo in range(0, T, 1500):
+            if dev.type == "cuda" and (h.rem_len + min(1500, T - lo)) // 1024:
+                bases.append(h.chunk_base)
+            h.absorb(buf[lo : lo + 1500].to(dev))
+        hashes.append(h.finalize().cpu())
+    assert b3.LAUNCHES - n0 == len(bases) and bases == [0, 1, 2, 4]
+    assert torch.equal(hashes[0], hashes[1])
+
+
+def _streaming_case(name):
+    from reverie_tpu_torch.circuit.builders import mixed_b2a_circuit, mul_bench_circuit
+
+    if name == "mul":
+        return mul_bench_circuit(3000) + (500,)
+    if name == "b2a":
+        return mixed_b2a_circuit() + (7,)
+    prog = deep_chain(400)
+    return prog, [True, False], [], 140
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["mul", "b2a", "deep"])
+def test_streaming_on_cuda_matches_cpu(cuda_device, name):
+    """StreamingKKW on the card: the proof equals TorchKKW's on the CPU with
+    the same seeds, it verifies, a tampered one does not; the tape kernels
+    ran at each window's start_block, the chunk kernel on 3,000 ANDs'
+    streams, B2A's deep last segment on W2 and the deep chain's first two
+    on W1."""
+    from reverie_tpu_torch import StreamingKKW, TorchKKW
+    from reverie_tpu_torch.proof import Proof
+
+    prog, wit2, witz, seg_ops = _streaming_case(name)
+    seeds = np.random.RandomState(5).randint(0, 256, (256, 16), dtype=np.uint8)
+    want = TorchKKW(prog, device=torch.device("cpu")).prove(wit2, witz, seeds=seeds)
+    sk = StreamingKKW(prog, seg_ops, device=cuda_device)
+    assert len(sk.segments) >= 3
+    proof = sk.prove(wit2, witz, seeds=seeds)
+    assert proof.to_bytes() == want.to_bytes()
+    launches = sk.last_timings["pass1"]["launches"]
+    assert launches["aes_tape_gf2"] >= 3
+    if name == "mul":  # the streams pass 1 KiB
+        assert launches["blake3_chunk_cvs"] >= 2
+    if name == "b2a":  # the last segment, 190 levels, on W2
+        assert launches["aes_tape_z64"] >= 1 and launches["scan_z64"] == 1
+    if name == "deep":
+        assert launches["scan_gf2"] >= 2
+    assert sk.verify(proof) is True
+    for leg in ("onl_exec", "pre_exec"):
+        assert sk.last_timings[leg]["launches"]["aes_tape_gf2"] >= 3
+    raw = bytearray(proof.to_bytes())
+    raw[len(raw) // 2] ^= 0x40
+    assert sk.verify(Proof.from_bytes(bytes(raw))) is False
