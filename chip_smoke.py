@@ -102,7 +102,27 @@ prints no result line:
  12. the probes (reverie_tpu_torch/tools: r2_measure at B = 15,626,
      r4_bwroof, r5_u8emit, r4_extract_probe at the tools' shapes), with the
      launches of the planes, copy, emission and pack-shift kernels in them;
- 13. one JSON line of kernels, the nvidia-smi line, and the last line
+ 13. the CLI phase (cli_phase): `python -m reverie_tpu_torch.cli` as
+     subprocesses on the card with its default backend (make_system), in a
+     temporary directory, each with its wall.  One at a time: the SHA-256
+     statement of parity.SHA256_MESSAGE (written by
+     tools/make_sha256_statement) proved and verified (Ok(())); the
+     1M-AND program and its witness from files, proved and verified.
+     Seven at once: the SHA-256 statement proved in thirds
+     (--segment-ops: W1 with carries), a flipped byte in a GF(2) online
+     opening rejected (rc 1, "Unverifiable Proof", no traceback), oneshot,
+     tests/golden/b2a_proof.bin verified (W2, K4), a 64-bit ripple-carry
+     adder in Bristol format with its right output (rc 0) and a wrong one
+     (non-zero), tools/inspect_proof.  A fresh process's start (import
+     torch, the CLI, the kernels' library, CUDA), and cli.main in this
+     process on the SHA-256 and 1M-AND files, split into load_program,
+     make_system, prove and the rest; the first with os.urandom giving the
+     sha256_1block seeds, its launches counted from 0 (K1, K3 and W1 must
+     launch) and its proof equal to the golden's digest; the
+     subprocesses' proof files (SHA-256, streamed too, and 1M-AND) read
+     with Proof.from_bytes and verified here by the TorchKKW make_system
+     gave;
+ 14. one JSON line of kernels, the nvidia-smi line, and the last line
      {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or reverie_tpu.  Needs the CUDA toolkit (nvcc), gcc
@@ -111,11 +131,17 @@ and one card.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
 import gc
+import io
+import itertools
 import json
+import os
+import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -132,7 +158,8 @@ REPS = (256, 40, 216)  # prove, online verify, preprocessing verify
 N_MUL_Z64 = 50_000
 MZ = 2 * N_MUL_Z64 + 2  # z64 tape slots of z64_mul_bench_circuit(N_MUL_Z64)
 ONLZ = 64 * N_MUL_Z64 + 16  # onlz rows of z64_mul_bench_circuit(N_MUL_Z64)
-GOLDEN = Path(__file__).resolve().parent / "tests" / "golden"
+ROOT = Path(__file__).resolve().parent
+GOLDEN = ROOT / "tests" / "golden"
 #: the probes' shapes (reverie_tpu's tools)
 PLANES_BLOCKS = 15_626  # r2_measure at the 1M tape: 2,048 keys
 EMIT_T = 1_000_001  # r5_u8emit at the 1M tape
@@ -1427,6 +1454,289 @@ def probes(dev) -> dict:
     return launches
 
 
+#: the CLI phase's Bristol circuit: a ripple-carry adder of this many bits
+ADDER_BITS = 64
+#: the longest one CLI subprocess may take
+CLI_TIMEOUT_S = 300
+#: a fresh process's start, each stage timed (python -c)
+CLI_START = """
+import json, time
+t0 = time.perf_counter()
+import torch
+t1 = time.perf_counter()
+import reverie_tpu_torch.cli
+t2 = time.perf_counter()
+from reverie_tpu_torch import _build
+_build.kernels()
+t3 = time.perf_counter()
+torch.empty(1, device="cuda")
+torch.cuda.synchronize()
+t4 = time.perf_counter()
+print(json.dumps({"import_torch_s": t1 - t0, "import_cli_s": t2 - t1,
+                  "kernel_library_load_s": t3 - t2, "cuda_init_s": t4 - t3}))
+"""
+
+
+def ripple_adder_bristol(n: int) -> str:
+    """A Bristol-fashion n-bit adder, (a + b) mod 2^n: a on wires 0..n-1 and
+    b on n..2n-1, least significant bit first; the sum's bits, least
+    significant first, copied (EQW) to the last n wires."""
+    wire = itertools.count(2 * n)
+    gates, sums, carry = [], [], None
+    for i in range(n):
+        x = next(wire)
+        gates.append(f"2 1 {i} {n + i} {x} XOR")
+        if carry is None:
+            sums.append(x)
+        else:
+            sums.append(next(wire))
+            gates.append(f"2 1 {x} {carry} {sums[-1]} XOR")
+        if i < n - 1:
+            ab = next(wire)
+            gates.append(f"2 1 {i} {n + i} {ab} AND")
+            if carry is not None:
+                cx, c = next(wire), next(wire)
+                gates += [f"2 1 {carry} {x} {cx} AND", f"2 1 {ab} {cx} {c} XOR"]
+                ab = c
+            carry = ab
+    out = next(wire)
+    gates += [f"1 1 {w} {out + i} EQW" for i, w in enumerate(sums)]
+    return "\n".join([f"{len(gates)} {out + n}", f"2 {n} {n}", f"1 {n}", "", *gates]) + "\n"
+
+
+CLI = "reverie_tpu_torch.cli"
+
+
+def cli_env() -> dict:
+    """The environment of a fresh process that imports this checkout's
+    reverie_tpu_torch."""
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT), *filter(None, [os.environ.get("PYTHONPATH")])]))
+
+
+def cli_runs(*jobs) -> list:
+    """Run each job, (tag, argv, expect) or (tag, argv, expect, module), as
+    `python -m module argv` (module: the CLI) in a fresh process on the
+    card, all at once, and log each one's wall and last lines.  expect:
+    "ok" (rc 0; for the CLI, "Ok(())" or "proof written" on stdout),
+    "reject" (rc 1, stderr exactly "Unverifiable Proof": no traceback) or
+    "fail" (non-zero).  Returns their stdouts."""
+    runs = []
+    try:
+        for tag, argv, expect, *module in jobs:
+            module = module[0] if module else CLI
+            out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+            runs.append({"tag": tag, "expect": expect, "module": module, "out": out,
+                         "err": err, "t": time.perf_counter(), "proc": subprocess.Popen(
+                             [sys.executable, "-m", module, *map(str, argv)], cwd=ROOT,
+                             env=cli_env(), stdout=out, stderr=err, text=True)})
+        deadline = time.perf_counter() + CLI_TIMEOUT_S
+        while any("rc" not in r for r in runs):
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"cli: a run took more than {CLI_TIMEOUT_S} s")
+            for r in runs:
+                if "rc" not in r and r["proc"].poll() is not None:
+                    r["rc"], r["wall_s"] = r["proc"].returncode, time.perf_counter() - r["t"]
+            time.sleep(0.02)
+    finally:
+        for r in runs:
+            if r["proc"].poll() is None:
+                r["proc"].kill()
+                r["proc"].wait()
+    stdouts = []
+    for r in runs:
+        r["out"].seek(0)
+        r["err"].seek(0)
+        out, err = r["out"].read(), r["err"].read()
+        r["out"].close()
+        r["err"].close()
+        rc, module = r["rc"], r["module"]
+        last = " | ".join([*out.splitlines()[-2:], *err.splitlines()[-1:]])
+        alone = "" if len(runs) == 1 else f" (one of {len(runs)} at once)"
+        log("cli", f"{r['tag']} rc={rc} wall_s={r['wall_s']:.3f}{alone} | {last}")
+        ok = {"ok": rc == 0 and (module != CLI or "Ok(())" in out or "proof written" in out),
+              "reject": rc == 1 and err.strip() == "Unverifiable Proof",
+              "fail": rc != 0}[r["expect"]]
+        if not ok:
+            raise AssertionError(f"cli {r['tag']}: expected {r['expect']}, rc {rc}\n"
+                                 f"{out[-2000:]}\n{err[-4000:]}")
+        stdouts.append(out)
+    return stdouts
+
+
+def cli_inprocess(tag: str, argv, urandom: bytes = b""):
+    """cli.main(argv) in this process, its stages timed: load_program (and
+    the witness), make_system (the system the CLI builds: the compile),
+    prove or verify, and the rest (verify: Proof.from_bytes; prove:
+    to_bytes and the write).  With `urandom`, os.urandom of its length
+    returns it (the proof's rep seeds).  Returns the system the CLI built."""
+    from reverie_tpu_torch import cli
+
+    split, systems = {}, []
+
+    def stage(name, fn):
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                split[name] = split.get(name, 0.0) + time.perf_counter() - t
+        return run
+
+    def system(*args, **kwargs):
+        s = saved["_backend_system"](*args, **kwargs)
+        s.prove, s.verify = stage("prove", s.prove), stage("verify", s.verify)
+        systems.append(s)
+        return s
+
+    saved = {n: getattr(cli, n) for n in ("_load_program", "_load_witness", "_backend_system")}
+    real_urandom = os.urandom
+    cli._load_program = stage("load_program", saved["_load_program"])
+    cli._load_witness = stage("load_program", saved["_load_witness"])
+    cli._backend_system = stage("make_system", system)
+    if urandom:
+        os.urandom = lambda n: urandom if n == len(urandom) else real_urandom(n)
+    out = io.StringIO()
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main([str(a) for a in argv])
+        total = time.perf_counter() - t
+    finally:
+        os.urandom = real_urandom
+        for name, fn in saved.items():
+            setattr(cli, name, fn)
+    split["rest"] = total - sum(split.values())
+    split = {"total": total, **split}
+    log("cli", f"{tag} in-process rc={rc} system={type(systems[0]).__name__} split_s="
+        + json.dumps({k: round(v, 4) for k, v in split.items()}) + " | "
+        + " | ".join(out.getvalue().splitlines()))
+    if rc != 0:
+        raise AssertionError(f"cli {tag} in-process: rc {rc}")
+    return systems[0]
+
+
+def cli_verify_file(tag: str, kkw, path: Path) -> None:
+    """A proof file read with Proof.from_bytes, verified here by `kkw`, a
+    TorchKKW."""
+    from reverie_tpu_torch import TorchKKW
+    from reverie_tpu_torch.proof import Proof
+
+    if not isinstance(kkw, TorchKKW):
+        raise AssertionError(f"cli {tag}: make_system gave {type(kkw).__name__}")
+    t = time.perf_counter()
+    ok = kkw.verify(Proof.from_bytes(path.read_bytes()))
+    torch.cuda.synchronize()
+    log("cli", f"{tag}: the subprocess's proof file, verified in-process by TorchKKW: {ok} "
+        f"verify_s={time.perf_counter() - t:.4f}")
+    if ok is not True:
+        raise AssertionError(f"cli {tag}: the proof file did not verify in-process")
+
+
+def cli_phase(rng) -> dict:
+    """The CLI on the card (phase 13 of the docstring).  Returns the launches
+    of the in-process SHA-256 prove, which must include K1, K3 and W1."""
+    import hashlib
+
+    from reverie_tpu_torch import parity as golden
+    from reverie_tpu_torch.circuit import dumps_program, format_witness_bits
+    from reverie_tpu_torch.circuit.builders import mul_bench_circuit
+
+    started = time.perf_counter()
+    t = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", CLI_START], cwd=ROOT, capture_output=True,
+                       text=True, timeout=CLI_TIMEOUT_S, env=cli_env())
+    if r.returncode:
+        raise AssertionError(f"cli start: {r.stderr[-4000:]}")
+    log("cli", f"a fresh process's start wall_s={time.perf_counter() - t:.3f} "
+        f"split_s={r.stdout.strip()}")
+    with tempfile.TemporaryDirectory(prefix="reverie_cli_") as tmp:
+        d = Path(tmp)
+        from reverie_tpu_torch.proof import Proof
+        from reverie_tpu_torch.tools import make_sha256_statement
+
+        msg, out = golden.SHA256_MESSAGE, io.StringIO()
+        with contextlib.redirect_stdout(out):
+            make_sha256_statement.main(["--message", msg.decode(), str(d / "sha")])
+        log("cli", "make_sha256_statement: " + " | ".join(out.getvalue().splitlines()))
+        if hashlib.sha256(msg).hexdigest() not in out.getvalue():
+            raise AssertionError("make_sha256_statement printed another digest")
+        prog, wit, proof = d / "sha" / "program.bin", d / "sha" / "witness.txt", d / "sha.bin"
+        n_ops = int.from_bytes(prog.read_bytes()[:8], "little")
+        seg = -(-n_ops // 3)
+        prove = ["--operation", "prove", "--program-path", prog, "--witness-path", wit]
+        verify = ["--operation", "verify", "--program-path", prog]
+        cli_runs(("sha256 prove", [*prove, "--proof-path", proof], "ok"))
+        cli_runs(("sha256 verify", [*verify, "--proof-path", proof], "ok"))
+        (d / "bad.bin").write_bytes(flipped(Proof.from_bytes(proof.read_bytes()),
+                                            "gf2").to_bytes())
+        n = ADDER_BITS
+        a, b = (int.from_bytes(rng.bytes(8), "little") for _ in range(2))
+        bits = lambda v: "".join(str((v >> i) & 1) for i in range(n))  # noqa: E731
+        (d / "adder.txt").write_text(ripple_adder_bristol(n))
+        (d / "adder_wit.txt").write_text(bits(a) + bits(b))
+        right = bits((a + b) % (1 << n))
+        wrong = right[:-1] + ("1" if right[-1] == "0" else "0")
+        bristol = ["--operation", "oneshot-zk", "--program-path", d / "adder.txt",
+                   "--witness-path", d / "adder_wit.txt", "--format", "bristol"]
+        *_, out = cli_runs(
+            (f"sha256 prove --segment-ops {seg} ({n_ops} ops)",
+             [*prove, "--proof-path", d / "seg.bin", "--segment-ops", seg], "ok"),
+            ("sha256 verify, a flipped GF(2) online byte", [*verify, "--proof-path",
+                                                            d / "bad.bin"], "reject"),
+            ("sha256 oneshot", ["--operation", "oneshot", "--program-path", prog,
+                                "--witness-path", wit], "ok"),
+            ("b2a golden verify", ["--operation", "verify", "--program-path",
+                                   GOLDEN / "b2a_program.bin", "--proof-path",
+                                   GOLDEN / "b2a_proof.bin"], "ok"),
+            (f"bristol {n}-bit adder, its right output", [*bristol, "--bristol-output", right],
+             "ok"),
+            (f"bristol {n}-bit adder, a wrong output", [*bristol, "--bristol-output", wrong],
+             "fail"),
+            ("inspect_proof", [proof], "ok", "reverie_tpu_torch.tools.inspect_proof"))
+        if "[gf2] 40 online openings, 216 preprocessing openings" not in out:
+            raise AssertionError("inspect_proof printed another structure")
+
+        case = golden.CASES["sha256_1block"]
+        seeds = golden.inputs(case)[3]
+        reset_launches()
+        kkw = cli_inprocess("sha256 prove", [*prove, "--proof-path", d / "sha_golden.bin"],
+                            seeds.tobytes())
+        launches = launch_counts()
+        equal = golden.matches(case, (d / "sha_golden.bin").read_bytes())
+        log("cli", f"sha256 in-process proof (os.urandom: sha256_1block's seeds) "
+            f"equal_to_numpy_golden_digest={equal} launches={json.dumps(launches)}")
+        if not equal:
+            raise AssertionError("the CLI's SHA-256 proof differs from the golden's digest")
+        missing = [k for k in ("aes_tape_gf2", "blake3_chunk_cvs", "scan_gf2") if not launches[k]]
+        if missing:
+            raise AssertionError(f"the CLI's prove did not launch {missing}")
+        cli_verify_file("sha256", kkw, proof)
+        cli_verify_file("sha256 streamed (--segment-ops), unsegmented", kkw, d / "seg.bin")
+        del kkw
+
+        prog, w2, _ = mul_bench_circuit(N_MUL)
+        big, wit, proof = d / "mul1m.bin", d / "mul1m.txt", d / "mul1m_proof.bin"
+        big.write_bytes(dumps_program(prog))
+        wit.write_bytes(format_witness_bits(w2))
+        del prog
+        log("cli", f"mul_bench_circuit({N_MUL}) program file {big.stat().st_size} B")
+        cli_runs(("1M-AND prove", ["--operation", "prove", "--program-path", big,
+                                   "--witness-path", wit, "--proof-path", proof], "ok"))
+        cli_runs(("1M-AND verify", ["--operation", "verify", "--program-path", big,
+                                    "--proof-path", proof], "ok"))
+        kkw = cli_inprocess("1M-AND prove", ["--operation", "prove", "--program-path", big,
+                                                "--witness-path", wit, "--proof-path",
+                                                d / "mul1m_inproc.bin"])
+        cli_verify_file("1M-AND", kkw, proof)
+        del kkw
+
+    log("cli", f"phase_s={time.perf_counter() - started:.1f} launches={json.dumps(launches)}")
+    return launches
+
+
 KERNELS = (  # name, source, replaces (file:line of every TPU function)
     ("aes_tape_gf2", "reverie_tpu_torch/csrc/aes_tape.cu",
      "reverie_tpu/crypto/kernels/aes_pallas.py:128, reverie_tpu/crypto/kernels/aes_pallas.py:425"),
@@ -1503,6 +1813,7 @@ def main() -> int:
     stream = streaming_phase(dev, rng, checks)
     batch = batch_phase(dev, rng, checks)
     tools = probes(dev)
+    cli = cli_phase(rng)
 
     kernels = []
     for kname, source, replaces in KERNELS:
@@ -1510,7 +1821,7 @@ def main() -> int:
         kernels.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(run.get(kname, 0) for run in (gf2, z64, sha, zw, stream, batch,
-                                                          tools)),
+                                                          tools, cli)),
             "max_abs_err": c["max_abs_err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
             "library_ms": c["library_ms"]})

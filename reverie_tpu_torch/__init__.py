@@ -19,9 +19,12 @@ protocol parameters (`params.py`) and the host C crypto (`crypto/`,
 `circuit.load_program(reverie_tpu.circuit.dumps_program(p))` and
 `proof.Proof.from_bytes(p.to_bytes())`.
 
-`tools/` holds the measurement probes (the ports of reverie_tpu's
-`tools/r2_measure.py`, `r4_bwroof.py`, `r5_u8emit.py` and
-`r4_extract_probe.py`) with their CUDA kernels.
+`python -m reverie_tpu_torch.cli` is the command line (reverie_tpu's
+`cli.py`: prove, verify, oneshot, oneshot-zk, version_info) on
+`make_system`.  `tools/` holds the measurement probes (the ports of
+reverie_tpu's `tools/r2_measure.py`, `r4_bwroof.py`, `r5_u8emit.py` and
+`r4_extract_probe.py`) with their CUDA kernels, and the CLI's helpers
+`make_sha256_statement` and `inspect_proof`.
 """
 
 import os
@@ -32,6 +35,8 @@ from .backend.host import TorchKKW, device_footprint, largest_batch, pipeline_fo
 from .backend.streaming import StreamingKKW
 from .device import default_device
 from .params import DEFAULT_PARAMS
+
+__version__ = "0.1.0"
 
 __all__ = ["StreamingKKW", "TorchKKW", "default_device", "device_footprint", "largest_batch",
            "make_system", "pipeline_footprint"]
@@ -60,11 +65,13 @@ def device_budget(device, hbm_budget_bytes=None) -> int:
     return int(free / FREE_MARGIN)
 
 
-def make_system(program, params=DEFAULT_PARAMS, device=None, mesh=None, hbm_budget_bytes=None):
+def make_system(program, params=DEFAULT_PARAMS, mesh=None, hbm_budget_bytes=None, *,
+                device=None):
     """The prover and verifier for a circuit's size (reverie_tpu's
-    make_system): a `TorchKKW` when its device_footprint fits the budget
-    (device_budget), else a `StreamingKKW` whose segments take about an
-    eighth of the budget each.  Both give the same proof bytes.  `device`
+    make_system, its positional arguments in its order less `cache_key`):
+    a `TorchKKW` when its device_footprint fits the budget (device_budget),
+    else a `StreamingKKW` whose segments take about an eighth of the budget
+    each.  Both give the same proof bytes.  `device`, keyword-only,
     defaults to the CUDA device."""
     from .backend.host import check_program
     from .circuit.compile import compile_program

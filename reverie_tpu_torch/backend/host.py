@@ -478,6 +478,8 @@ def check_program(program: Sequence[CombineOp]) -> None:
 class TorchKKW:
     """Compile a circuit once; prove and verify on one device.
 
+    The positional arguments are TpuKKW's, in its order, less its
+    `cache_key` (the port keeps no compile cache); `device` is keyword-only.
     `device` defaults to the CUDA device (raising without one); the CPU
     device runs the kernels' plain PyTorch versions.  `params` sets the
     repetitions (a proof's lanes are params.total_reps); `cc`, the
@@ -498,9 +500,9 @@ class TorchKKW:
     chunk or proof."""
 
     def __init__(self, program: Sequence[CombineOp],
-                 device: Optional[torch.device] = None, mesh=None,
-                 params: ProtocolParams = DEFAULT_PARAMS,
-                 cc: Optional[CompiledCircuit] = None):
+                 params: ProtocolParams = DEFAULT_PARAMS, mesh=None,
+                 cc: Optional[CompiledCircuit] = None, *,
+                 device: Optional[torch.device] = None):
         if mesh is not None:
             raise NotImplementedError(
                 "TorchKKW runs on one device; sharding over several is "

@@ -91,16 +91,17 @@ def _column(w: np.ndarray, R: int, device) -> torch.Tensor:
 
 class StreamingKKW:
     """Prove and verify one circuit segment by segment, in segments of at
-    most `seg_ops` ops, on one device (the CUDA device unless `device`
-    says otherwise; the CPU runs the kernels' plain versions).  Proof
-    bytes equal `TorchKKW.prove`'s with the same seeds, verdicts its
+    most `seg_ops` ops, on one device (the CUDA device unless the
+    keyword-only `device` says otherwise; the CPU runs the kernels' plain
+    versions); the positional arguments are reverie_tpu's StreamingKKW's.
+    Proof bytes equal `TorchKKW.prove`'s with the same seeds, verdicts its
     verify's.  After each call `last_timings` holds its PhaseTimer report:
     pass1, hash_final, challenge, pass2, pack after `prove`; onl_inject,
     onl_exec, onl_hash, pre_tape, pre_exec, pre_hash after `verify`."""
 
     def __init__(self, program: Sequence[CombineOp], seg_ops: int,
-                 params: ProtocolParams = DEFAULT_PARAMS, device: Optional[torch.device] = None,
-                 mesh=None):
+                 params: ProtocolParams = DEFAULT_PARAMS, mesh=None, *,
+                 device: Optional[torch.device] = None):
         if mesh is not None:
             raise NotImplementedError(
                 "StreamingKKW runs on one device; sharding over several is "

@@ -1,10 +1,10 @@
 """Circuit intermediate representation.
 
 The port's copy of reverie_tpu/circuit/ir.py (the object form: `Op`,
-`Kind`, `Gate`, `CombineOp`).  A program is a list of `CombineOp`s, each
-either a single-domain gate (GF2 over bits, Z64 over the 2^64 ring), a
-bool->arith conversion (`B2A`), or a wire-arena `SizeHint` (reference
-src/interpreter/combine.rs:120-220 for consumed variants).
+`Kind`, `Gate`, `CombineOp`; and `largest_wires`).  A program is a list of
+`CombineOp`s, each either a single-domain gate (GF2 over bits, Z64 over the
+2^64 ring), a bool->arith conversion (`B2A`), or a wire-arena `SizeHint`
+(reference src/interpreter/combine.rs:120-220 for consumed variants).
 
 Opcode numbering follows the `mcircuit::Operation` enum declaration order so
 that bincode program files (enum tag = variant index, u32 LE) round-trip.
@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import List, Union
+from typing import List, Sequence, Tuple, Union
 
 
 class Op(enum.IntEnum):
@@ -32,6 +32,12 @@ class Op(enum.IntEnum):
     MULC = 7  # MulConst(dst, src, c)
     ASSERT_ZERO = 8  # AssertZero(src)
     CONST = 9  # Const(dst, c)
+
+
+# Opcodes with two wire sources.
+TWO_SRC_OPS = frozenset({Op.ADD, Op.SUB, Op.MUL})
+# Opcodes with one wire source (plus maybe a const).
+ONE_SRC_OPS = frozenset({Op.ADDC, Op.SUBC, Op.MULC})
 
 
 class Kind(enum.IntEnum):
@@ -81,3 +87,43 @@ class CombineOp:
 
 
 Program = List[CombineOp]
+
+
+# ---------------------------------------------------------------------------
+# Wire counting (mcircuit `largest_wires`, used at reference main.rs:73,107)
+# ---------------------------------------------------------------------------
+
+
+def largest_wires(program: Sequence[CombineOp]) -> Tuple[int, int]:
+    """Return (z64_wire_count, gf2_wire_count): 1 + the largest wire index
+    touched in each domain, also honouring SizeHint rows."""
+    z64_hi = 0
+    gf2_hi = 0
+    for op in program:
+        if op.kind == Kind.GF2:
+            g = op.gate
+            hi = _gate_max_wire(g)
+            gf2_hi = max(gf2_hi, hi + 1)
+        elif op.kind == Kind.Z64:
+            g = op.gate
+            hi = _gate_max_wire(g)
+            z64_hi = max(z64_hi, hi + 1)
+        elif op.kind == Kind.B2A:
+            z64_hi = max(z64_hi, op.a + 1)
+            gf2_hi = max(gf2_hi, op.b + 64)
+        elif op.kind == Kind.SIZE_HINT:
+            z64_hi = max(z64_hi, op.a)
+            gf2_hi = max(gf2_hi, op.b)
+    return z64_hi, gf2_hi
+
+
+def _gate_max_wire(g: Gate) -> int:
+    # Convention: AssertZero(src) stores its single operand in `src1`.
+    if g.op == Op.ASSERT_ZERO:
+        return g.src1
+    hi = g.dst
+    if g.op in TWO_SRC_OPS:
+        hi = max(hi, g.src1, g.src2)
+    elif g.op in ONE_SRC_OPS:
+        hi = max(hi, g.src1)
+    return hi

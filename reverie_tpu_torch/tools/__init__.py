@@ -10,4 +10,8 @@ which runs it on the card:
 `build_time` times the nvcc build of the kernels' library, parallel
 against one nvcc over all sources; `wave_times` the wave kernels W1 and W2
 (one tree against another's, in one call).
+
+The CLI's helpers, reverie_tpu's tools of the same names:
+`make_sha256_statement` writes a SHA-256 preimage statement's program and
+witness files, `inspect_proof` prints a proof file's structure.
 """

@@ -196,20 +196,27 @@ import chip_smoke
 bad = [m for m in sys.modules if sys.modules[m] is not None
        and (m.split(".")[0] in ("jax", "reverie_tpu"))]
 assert not bad, bad
+print(" ".join(names))
 print("poisoned import ok", len(names))
 """
 
+#: the CLI's modules, which the walk must reach
+CLI_MODULES = ("cli", "circuit.bristol", "circuit.witness", "circuit.eval", "utils.buildinfo",
+               "tools.make_sha256_statement", "tools.inspect_proof")
+
 
 def test_imports_with_jax_and_reverie_tpu_poisoned():
-    """Every module of the port and chip_smoke import with `jax` and
-    `reverie_tpu` made unimportable (in a subprocess, so the poison stays
-    out of this worker)."""
+    """Every module of the port (the CLI's among them) and chip_smoke
+    import with `jax` and `reverie_tpu` made unimportable (in a subprocess,
+    so the poison stays out of this worker)."""
     res = subprocess.run([sys.executable, "-c", _POISONED], cwd=REPO,
                          env=dict(os.environ, PYTHONPATH=str(REPO)),
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     n = int(res.stdout.split()[-1])
     assert n >= 20  # the walk found the package's modules
+    walked = set(res.stdout.split())
+    assert not [m for m in CLI_MODULES if f"reverie_tpu_torch.{m}" not in walked]
 
 
 def test_no_source_line_imports_jax_or_reverie_tpu():

@@ -291,3 +291,45 @@ def test_nondefault_params_match_tpukkw():
     assert sk.prove(wit2, witz, seeds=s).to_bytes() == want
     assert kkw.verify(proof) is True and sk.verify(proof) is True
     assert TorchKKW(prog, device=CPU).verify(proof) is False
+
+
+# -- the reference's positional order ------------------------------------------
+
+ORDER_PARAMS = ProtocolParams(online_reps=16, total_reps=64)
+
+POSITIONAL = {  # the reference's positional call, and the same by keyword
+    "TorchKKW": (lambda p: TorchKKW(p, ORDER_PARAMS, None, None, device=CPU),
+                 lambda p: TorchKKW(p, device=CPU, params=ORDER_PARAMS)),
+    "StreamingKKW": (lambda p: StreamingKKW(p, 40, ORDER_PARAMS, None, device=CPU),
+                     lambda p: StreamingKKW(p, 40, device=CPU, params=ORDER_PARAMS)),
+    "make_system": (lambda p: make_system(p, ORDER_PARAMS, None, 5_000, device=CPU),
+                    lambda p: make_system(p, device=CPU, hbm_budget_bytes=5_000,
+                                          params=ORDER_PARAMS)),
+}
+
+
+@pytest.mark.parametrize("name", list(POSITIONAL))
+def test_reference_positional_order(name):
+    """TorchKKW(program, params, mesh, cc), StreamingKKW(program, seg_ops,
+    params, mesh) and make_system(program, params, mesh, hbm_budget_bytes)
+    take reverie_tpu's positional order (device keyword-only) and give the
+    keyword form's proof."""
+    prog, wit2, witz = mul_bench_circuit(20)
+    positional, keyword = (make(prog) for make in POSITIONAL[name])
+    assert type(positional) is type(keyword) and positional.params is ORDER_PARAMS
+    s = seeds(5, 64)
+    proof = positional.prove(wit2, witz, seeds=s)
+    assert proof.to_bytes() == keyword.prove(wit2, witz, seeds=s).to_bytes()
+    assert keyword.verify(proof) is True
+
+
+@pytest.mark.parametrize("make", [
+    lambda p: TorchKKW(p, ProtocolParams(), None, None, CPU),
+    lambda p: StreamingKKW(p, 4, ProtocolParams(), None, CPU),
+    lambda p: make_system(p, ProtocolParams(), None, 1 << 40, CPU),
+], ids=list(POSITIONAL))
+def test_fifth_positional_argument_is_refused(make):
+    """The reference's fifth positional argument (cache_key; the port keeps
+    no compile cache) and a positional device raise TypeError."""
+    with pytest.raises(TypeError, match="positional argument"):
+        make(mul_bench_circuit(20)[0])
