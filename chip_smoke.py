@@ -52,15 +52,22 @@ prints no result line:
      statements, deeper than 128 levels, so that TorchKKW runs them on the
      wave executor's W2 (csrc/scan_z64.cu): the serial z64 MUL chain at
      5,000 MULs (depth 5,004), every z64 kind on a 200-level accumulator
-     and deep B2A (mixed_b2a with a 200-MUL GF(2) chain).  W2 through the
+     and deep B2A (mixed_b2a with a 200-MUL GF(2) chain), and 64 z64
+     chains side by side (150 MULs each: build_waves' widest z64 waves,
+     one wave a staged chunk).  W2 through the
      executors' slot-allocated programs against its plain version on the
      SSA tables, every stream and fail byte for byte, in each role (R =
-     256, 40 with random omits and records, 216), at a ragged R (37) and
-     with its values spilled, each timed with its bound and launch plan,
-     beside the levelized Executor on the same inputs (equal outputs, its
-     ms and torch ops); the chain at R = 16,384 (a 10.5 GB tape) against
+     256, 40 with random omits and records, 216, and 2,560 on one lane a
+     z64 slot), at a ragged R (37) and
+     with its values spilled, each timed with its bound and launch plan
+     (with its staged z64 chunk: bytes, words and bits rows a chunk, lanes
+     a z64 slot, and the kernel's own count of a block's shared memory,
+     which must equal the host's and fit 232,448 bytes), beside the
+     levelized Executor on the same inputs (equal outputs, its ms and
+     torch ops); the chain at R = 16,384 (a 10.5 GB tape) against
      the plain version 256 columns at a time; the chain in three segments,
-     each through W2 with its carries chained, against the plain version;
+     each through W2 with its carries chained, against the plain version
+     (R = 256, and 2,560 on one lane a z64 slot);
      then, with the launches counted from 0, the chain's TorchKKW prove,
      verify, a tampered proof and W2 in every leg's executor, its proof
      on the waves equal to the levelized route's, prove_batch of N chain
@@ -551,20 +558,35 @@ def wave_inputs(dev, rng, cc, mode: int, R: int):
 def wave_plan_line(prog, mode: int, R: int) -> str:
     """The launch of a WaveProgram at R lanes: reps and threads per block,
     shared memory per block, resident blocks per SM and on the card, and
-    its slots in shared memory and spilled."""
+    its slots in shared memory and spilled; for W2 also the z64 half's
+    staged chunk (its bytes, words and bits rows a chunk, the lanes a z64
+    slot) and the kernel's own count of the block's shared memory, which
+    must equal the host's and fit SMEM_PER_BLOCK."""
     from reverie_tpu_torch.backend import scan
 
+    p = prog.plan
     per_sm = scan.resident_blocks(prog, mode, R)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    blocks = -(-R // prog.plan.reps)
-    return (f"reps_per_block={prog.plan.reps} threads={prog.plan.reps // 4 * prog.plan.threads_y} "
-            f"slots_per_thread={prog.plan.k} chunk_waves={prog.plan.chunk} "
-            f"chunk_fields={prog.plan.fields} smem_bytes_per_block={prog.smem_bytes} "
+    blocks = -(-R // p.reps)
+    z = ""
+    if prog.has_z64:
+        W = prog.table.shape[1]
+        staged = (scan.staged_bytes(p.reps, W, p.chunk, p.fields, p.Wz, p.zwords, p.zbits)
+                  - scan.staged_bytes(p.reps, W, p.chunk, p.fields))
+        kernel = scan.kernel_smem_bytes(prog, mode, R)
+        z = (f" shared_slots_z64={prog.n_sharedz} spilled_slots_z64={prog.n_spillz} "
+             f"staged_z64_bytes={staged} z64_words_per_chunk={p.zwords} "
+             f"z64_bits_rows_per_chunk={p.zbits} z64_lanes={p.zlanes} "
+             f"kernel_smem_bytes={kernel}")
+        if kernel != prog.smem_bytes or kernel > scan.SMEM_PER_BLOCK:
+            raise AssertionError(f"W2's shared memory: the kernel's {kernel} B, the host's "
+                                 f"{prog.smem_bytes} B, at most {scan.SMEM_PER_BLOCK} B")
+    return (f"reps_per_block={p.reps} threads={p.reps // 4 * p.threads_y} "
+            f"slots_per_thread={p.k} chunk_waves={p.chunk} "
+            f"chunk_fields={p.fields} smem_bytes_per_block={prog.smem_bytes} "
             f"blocks={blocks} resident_blocks={per_sm * sms} ({per_sm}/SM) "
             f"rounds={-(-blocks // (per_sm * sms))} shared_slots={prog.n_shared} "
-            f"spilled_slots={prog.n_spill}"
-            + (f" shared_slots_z64={prog.n_sharedz} spilled_slots_z64={prog.n_spillz}"
-               if prog.has_z64 else ""))
+            f"spilled_slots={prog.n_spill}" + z)
 
 
 def check_waves(dev, rng, cc, clock: float, ptxas: list) -> dict:
@@ -762,6 +784,9 @@ def sha256_phase(dev, rng, clock: float, ptxas: list):
 Z64_BATCH_MOST = 64
 #: ops a segment of the chain in the segmented run (three segments)
 Z64_SEG_OPS = 1_700
+#: W2's one-lane width (past 8 x 132 reps, one thread a (rep, z64 slot)),
+#: in each role
+Z64_ONE_LANE = ((0, 2560), (1, 2560), (2, 2560))
 
 
 WAVE_OUTS = ("onl2", "pre2", "fail", "onlz", "prez")
@@ -788,9 +813,10 @@ def z64_work(cc, mode: int, R: int):
 def check_z64_waves(dev, rng, name: str, cc, clock: float, res: dict) -> None:
     """W2 on one statement's tables, through the programs the executors run
     (scan.circuit_program), byte-equal to the plain version on the SSA
-    tables and the same inputs in each role at its width and at a ragged R
-    (37): every stream and fail; each timed (CUDA events: the kernel the
-    mean of 5, the plain version one run) with its bound and launch plan;
+    tables and the same inputs in each role at its width, at a ragged R
+    (37) and at Z64_ONE_LANE: every stream and fail; each timed (CUDA
+    events: the kernel the mean of 5, the plain version one run) with its
+    bound and launch plan;
     the levelized Executor on the same inputs (equal outputs, its warm ms
     and torch ops); and a spill case (every z64 value but the zero and most
     GF(2) values in the global arenas).  The kernels line takes the chain's
@@ -807,7 +833,7 @@ def check_z64_waves(dev, rng, name: str, cc, clock: float, res: dict) -> None:
     log("z64waves", f"{name} depth={cc.depth} n_waves={wv.op.shape[0]} W={wv.op.shape[1]} "
         f"Wz={wv.zop.shape[1]} mz={cc.mz} m2={cc.m2} onlz={cc.onlz} onl2={cc.onl2} "
         f"live_sets={list(scan.live_sets(t2, ztab, bits))} table_bytes={scan.table_bytes(cc)}")
-    for mode, R in (*WAVE_WIDTHS, (0, 37), (0, -256)):
+    for mode, R in (*WAVE_WIDTHS, (0, 37), *Z64_ONE_LANE, (0, -256)):
         spill = R < 0
         R = abs(R)
         prog = (scan.circuit_program(cc, mode, dev, R, capacity=3, capacityz=1) if spill
@@ -886,12 +912,12 @@ def z64_chain_wide(dev, rng, cc, clock: float, res: dict) -> None:
         raise AssertionError(f"W2 at R={R} disagrees with its plain version")
 
 
-def z64_segments(dev, rng, res: dict) -> None:
+def z64_segments(dev, rng, res: dict, R: int) -> None:
     """compile_segments of the chain into segments of Z64_SEG_OPS ops, each
-    run through W2 (ScanExecutor on the card, prove) with its carries chained
-    from the segments before, against the plain version of each segment's
-    program on the card (the same inputs and carried rows): streams, fail
-    and carry outputs byte-equal."""
+    run through W2 (ScanExecutor on the card, prove, R lanes) with its
+    carries chained from the segments before, against the plain version of
+    each segment's program on the card (the same inputs and carried rows):
+    streams, fail and carry outputs byte-equal."""
     from reverie_tpu_torch.tools import wave_times
 
     from reverie_tpu_torch.backend import scan
@@ -900,8 +926,8 @@ def z64_segments(dev, rng, res: dict) -> None:
     prog = wave_times.z64_statements()["chain"]()[0]
     segs = compile_segments(prog, Z64_SEG_OPS)
     whole = compile_program(prog)
-    inp = wave_times.z64_wave_inputs(dev, rng, whole, 0, 256)
-    outs, err, n0 = [], 0, scan.LAUNCHES_Z64
+    inp = wave_times.z64_wave_inputs(dev, rng, whole, 0, R)
+    outs, err, n0, lanes = [], 0, scan.LAUNCHES_Z64, set()
     for seg in segs:
         cc = seg.cc
         sub = {"tapez": inp["tapez"][seg.tapez0 : seg.tapez0 + cc.mz],
@@ -910,8 +936,9 @@ def z64_segments(dev, rng, res: dict) -> None:
         if seg.carry_srcz:
             for k in ("carry_maskz", "carry_corrz"):
                 sub[k] = torch.stack([outs[s][k][row] for s, row in seg.carry_srcz])
-        ex = scan.ScanExecutor(cc, 0, 256, dev, carry_inz=len(seg.carry_inz),
+        ex = scan.ScanExecutor(cc, 0, R, dev, carry_inz=len(seg.carry_inz),
                                carry_outz_vals=seg.carry_outz_vals)
+        lanes.add(ex.program.plan.zlanes)
         got = ex(sub)
         want = scan.wave_plain(ex.program, 0, sub["tape"], sub["wit2"], None, None, cc.onl2,
                                cc.pre2, sub["tapez"], sub["witz"], None, None, cc.onlz, cc.prez,
@@ -923,7 +950,8 @@ def z64_segments(dev, rng, res: dict) -> None:
                                            else getattr(want, key)))
         outs.append(got)
     res["max_abs_err"] = max(res["max_abs_err"], err)
-    log("z64waves", f"segments of the chain ops={Z64_SEG_OPS} n={len(segs)} carried_in="
+    log("z64waves", f"segments of the chain R={R} z64_lanes={sorted(lanes)} "
+        f"ops={Z64_SEG_OPS} n={len(segs)} carried_in="
         f"{[len(s.carry_inz) for s in segs]} carried_out={[len(s.carry_outz) for s in segs]} "
         f"launches={scan.LAUNCHES_Z64 - n0} max_abs_err_vs_plain={err}")
     if len(segs) < 3 or err or scan.LAUNCHES_Z64 - n0 != len(segs):
@@ -1002,14 +1030,16 @@ def z64_batch(dev, rng) -> None:
 def z64_wave_phase(dev, rng, clock: float, ptxas: list):
     """Deep z64 and B2A circuits on the wave executor (W2, csrc/scan_z64.cu):
     the kernel against its plain version and the levelized Executor on the
-    three statements (check_z64_waves), the chain at a batch's width and
-    its segments with their carries chained; then, with the launches
+    three statements and 64 chains side by side (check_z64_waves), the
+    chain at a batch's width and its segments with their carries chained
+    (at R = 256 and on one lane a z64 slot); then, with the launches
     counted from 0, the chain's main path (TorchKKW prove, verify, a
     tampered proof, W2 in every leg's executor), its proof on both routes,
     a prove_batch of chain proofs, and the golden B2A blob (190 levels, now
     on the waves).  Returns (W2's check, the launch counts)."""
     from reverie_tpu_torch.tools import wave_times
 
+    from reverie_tpu_torch.circuit.builders import z64_chains_circuit
     from reverie_tpu_torch.circuit.compile import compile_program
 
     for row in ptxas:
@@ -1018,10 +1048,12 @@ def z64_wave_phase(dev, rng, clock: float, ptxas: list):
     res = {"max_abs_err": 0}
     made = wave_times.z64_statements()
     ccs = {name: compile_program(make()[0]) for name, make in made.items()}
+    ccs["chains64"] = compile_program(z64_chains_circuit(64, 150)[0])
     for name, cc in ccs.items():
         check_z64_waves(dev, rng, name, cc, clock, res)
     z64_chain_wide(dev, rng, ccs["chain"], clock, res)
-    z64_segments(dev, rng, res)
+    for R in (256, Z64_ONE_LANE[0][1]):
+        z64_segments(dev, rng, res, R)
     del ccs
     reset_launches()
     main_path(dev, "z64waves", made["chain"], "z64", rng, executor_kernel="scan_z64")

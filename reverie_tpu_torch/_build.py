@@ -121,7 +121,8 @@ def kernels() -> ctypes.CDLL:
         for launch in (lib.reverie_scan_gf2, lib.reverie_scan_z64):
             launch.argtypes = [vp]  # the launch's int64 words (backend/scan.py wave_run)
             launch.restype = i32
-        for plan in (lib.reverie_scan_gf2_plan, lib.reverie_scan_z64_plan):
+        for plan in (lib.reverie_scan_gf2_plan, lib.reverie_scan_z64_plan,
+                     lib.reverie_scan_z64_smem):
             plan.argtypes = [vp, vp]
             plan.restype = i32
         lib.reverie_cuda_error_string.argtypes = [i32]

@@ -25,11 +25,13 @@ values, and a B2A_OUT's `zr` a read of a z64 value.  The kernels keep a
 block's live values in shared memory and spill the longest-lived to global
 arenas only past it; `launch_plan` picks the block width and the waves
 staged at once from the live sets and R, and `pack_table` words the GF(2)
-table for the kernel.  The z64 table (`zwave_table`) is the kernel's form
-already: one row of int32 words a slot, its event rows as bases (the host
-checks that they are runs) and its B2A bits as a row of a bits table.  A
-`WaveProgram` holds the result, once per circuit, width and role
-(`circuit_program`); the plain version runs the same slot tables.
+table for the kernel.  The z64 table (`zwave_table`: one row of int32
+words a slot, its event rows as bases, the host checking that they are
+runs, and its B2A bits as a row of a bits table) is worded for W2 by
+`pack_ztable`: the input words each chunk of waves reads, listed for the
+kernel to stage ahead of its waves.  A `WaveProgram` holds the result,
+once per circuit, width and role (`circuit_program`); the plain version
+runs the slot tables.
 
 The segment carries of streaming (tpu_scan.py:128-227): values 1..k of a
 domain start from the inputs 'carry_mask2' and 'carry_corr2' ((k, R)
@@ -117,6 +119,17 @@ ZSLOT_COLS = ("op", "dst", "a", "b", "bits", "t0", "t1", "xin", "rec", "corr", "
 #: bytes of one live z64 value a rep: 8 players' mask words and the
 #: correction word
 ZBYTES = 72
+#: int32 words of one packed z64 slot (pack_ztable): op | dst << 8, a, b,
+#: its first staged word | its bits row << 16 (both counted from its
+#: chunk's first), onl (bonl for a B2A_OUT), pre, the constant's lo and hi
+#: words (csrc/scan_z64.cu `decode`)
+ZPACKED_WORDS = 8
+#: the sources of W2's staged words: (words a field takes, its row of the
+#: source for word p): the tapez rows of a slot's tape row t (t * 8 + p),
+#: its xinz or coz row, its rez rows (rec * 8 + p) and the 64 re2 bytes of a
+#: B2A_OUT's bit records from brec on, eight rows a word of each rep
+_ZSOURCES = {0: (8, lambda v, p: 8 * v + p), 1: (1, lambda v, p: v), 2: (1, lambda v, p: v),
+             3: (8, lambda v, p: 8 * v + p), 4: (8, lambda v, p: v + 8 * p)}
 
 
 def default_wave_width(cc: CompiledCircuit) -> int:
@@ -195,13 +208,21 @@ def zwave_table(wv: WaveTable, mode: int) -> Tuple[np.ndarray, np.ndarray]:
 _READS_A = (G_ADD, G_ADDC, G_SUBC, G_MULC, G_MUL, G_ASSERT)
 _READS_B = (G_ADD, G_MUL)
 
-#: dynamic shared memory one block may take on sm_90 (the H100's 227 KB)
+#: dynamic shared memory one block may take on sm_90 (the H100's 227 KB),
+#: an SM's shared memory (228 KB), and what the runtime keeps of it for
+#: each resident block (1 KB)
 SMEM_PER_BLOCK = 232_448
+SMEM_PER_SM = 233_472
+SMEM_RESERVED = 1_024
 #: waves the wave kernel stages in shared memory at once (a chunk), most
 #: first.  A block holds two chunks of packed slots (PACKED_WORDS int32
 #: each), two chunks of input fields (one int32 each) and one chunk of the
 #: fields' bytes (one a rep)
 CHUNKS = (32, 16, 8, 4)
+#: W2's chunks: also 2 and 1, for the staged words of wide z64 waves (one
+#: wave of build_waves' widest, 64 MULs, stages 102,400 bytes online at 8
+#: reps a block)
+ZCHUNKS = CHUNKS + (2, 1)
 #: int32 words of one packed slot (pack_table): head (op | cbit << 7 |
 #: dst << 8), a, b, onl, pre, its first input field, ma | mb << 16 and
 #: kind | sub << 2 | k << 8 (csrc/scan_gf2.cu `decode`)
@@ -220,7 +241,7 @@ _FIELDS = {
 }
 #: reps (lanes) one block may own, most first, and the block's most threads
 #: (W1; W2's blocks take at most MAX_THREADS_Z64, so that a thread may hold
-#: 128 registers: a z64 MUL keeps 16 tape words and 3 sums of 64 bits)
+#: 128 registers)
 REPS_PER_BLOCK = (32, 16, 8)
 MAX_THREADS = 1024
 MAX_THREADS_Z64 = 512
@@ -232,6 +253,20 @@ MAX_SLOTS = 1 << 24
 _ZREADS_A = (G_ADD, Z_SUB, G_ADDC, G_SUBC, G_MULC, G_MUL, G_ASSERT)
 _ZREADS_B = (G_ADD, Z_SUB, G_MUL, B2A_OUT)
 _B2A = (B2A_CORR, B2A_OUT)
+#: the staged words each z64 kind reads, in order, by role: (source,
+#: zwave_table column) with _ZSOURCES' sources 0 tapez, 1 xinz (witz or
+#: inz), 2 coz, 3 rez, 4 re2 (csrc/scan_z64.cu `exec`: a MUL's t0 words at
+#: 0-7, t1 at 8-15, rez at 16-23, coz at 24)
+_ZFIELDS = {
+    PROVER: {G_INPUT: ((0, _ZT0), (1, _ZXIN)), G_RANDOM: ((0, _ZT0),),
+             B2A_CORR: ((0, _ZT0),), G_MUL: ((0, _ZT0), (0, _ZT1))},
+    VERIFY_ONL: {G_INPUT: ((0, _ZT0), (1, _ZXIN)), G_RANDOM: ((0, _ZT0),),
+                 B2A_CORR: ((0, _ZT0), (2, _ZCORR)),
+                 G_MUL: ((0, _ZT0), (0, _ZT1), (3, _ZREC), (2, _ZCORR)),
+                 G_ASSERT: ((3, _ZREC),), B2A_OUT: ((4, _ZBREC),)},
+    VERIFY_PRE: {G_INPUT: ((0, _ZT0),), G_RANDOM: ((0, _ZT0),), B2A_CORR: ((0, _ZT0),),
+                 G_MUL: ((0, _ZT0), (0, _ZT1))},
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -497,14 +532,43 @@ def _field_counts(op: np.ndarray, mode: int) -> np.ndarray:
     return n
 
 
+def _most_per_chunk(per_wave: np.ndarray, chunk: int) -> int:
+    """The largest sum of `chunk` consecutive entries of per_wave, from 0
+    on (0 for none)."""
+    n_chunks = -(-len(per_wave) // chunk)
+    per_chunk = np.add.reduceat(per_wave, np.arange(n_chunks) * chunk) if len(per_wave) else [0]
+    return int(np.max(per_chunk))
+
+
 def chunk_fields(table: np.ndarray, chunk: int) -> int:
     """The most input fields of any `chunk` consecutive waves of `table`
     (from wave 0 on) in the role that reads most (VERIFY_ONL): the rows
     of a block's staged fields."""
     per_wave = _field_counts(np.asarray(table)[..., _OP], VERIFY_ONL).sum(axis=1)
-    n_chunks = -(-len(per_wave) // chunk)
-    per_chunk = np.add.reduceat(per_wave, np.arange(n_chunks) * chunk) if len(per_wave) else [0]
-    return max(1, int(np.max(per_chunk)))
+    return max(1, _most_per_chunk(per_wave, chunk))
+
+
+def _zfield_counts(op: np.ndarray, mode: int) -> np.ndarray:
+    """Staged words each z64 slot reads in `mode` (_ZFIELDS)."""
+    n = np.zeros(op.shape, dtype=np.int64)
+    for kind, fields in _ZFIELDS[mode].items():
+        n[op == kind] = sum(_ZSOURCES[src][0] for src, _ in fields)
+    return n
+
+
+def chunk_zwords(ztable: np.ndarray, mode: int, chunk: int) -> int:
+    """The most staged z64 words (_ZFIELDS) of any `chunk` consecutive
+    waves of a z64 table (zwave_table) in `mode`, from wave 0 on: W2 stages
+    that many words for each rep of a block."""
+    per_wave = _zfield_counts(np.asarray(ztable)[..., _ZOP], mode).sum(axis=1)
+    return _most_per_chunk(per_wave, chunk)
+
+
+def chunk_zbits(ztable: np.ndarray, chunk: int) -> int:
+    """The most B2A slots (rows of the bits table) of any `chunk`
+    consecutive waves of a z64 table, from wave 0 on."""
+    per_wave = np.isin(np.asarray(ztable)[..., _ZOP], _B2A).sum(axis=1)
+    return _most_per_chunk(per_wave, chunk)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -514,7 +578,10 @@ class WavePlan:
     `fields` input fields a chunk), `k` GF(2) slots of a wave per thread
     over `threads_y` rows of threads, and the GF(2) and z64 slots a block
     can hold in shared memory (`capacity`, `capacityz`; 0 for a pure-GF(2)
-    table)."""
+    table); with z64 slots (`Wz` a wave), the most staged z64 words and
+    B2A bits rows of a chunk (`zwords`, `zbits`: chunk_zwords,
+    chunk_zbits) and the threads W2 gives a (rep, z64 slot) (`zlanes`, 8
+    or 1, each taking 8 / zlanes of the players)."""
 
     reps: int
     chunk: int
@@ -523,13 +590,24 @@ class WavePlan:
     threads_y: int
     capacity: int
     capacityz: int = 0
+    Wz: int = 0
+    zwords: int = 0
+    zbits: int = 0
+    zlanes: int = 0
 
 
-def staged_bytes(reps: int, W: int, chunk: int, fields: int) -> int:
+def staged_bytes(reps: int, W: int, chunk: int, fields: int, Wz: int = 0, zwords: int = 0,
+                 zbits: int = 0) -> int:
     """Shared memory of a block that is not slots: two chunks of packed
     slots and of input fields, one chunk of the fields' bytes, and 32 fail
-    flags."""
-    return 2 * chunk * W * PACKED_WORDS * 4 + 2 * fields * 4 + fields * reps + 32
+    flags; with Wz z64 slots a wave, W2's staged chunk in front of them
+    (csrc/scan_z64.cu zstage_bytes): two chunks of packed z64 slots, one
+    chunk's `zwords` staged words (8 bytes a rep), two chunks of `zbits`
+    bits rows (256 bytes each) and of their fields (4 bytes each, a
+    multiple of 4)."""
+    z = (2 * chunk * Wz * ZPACKED_WORDS * 4 + zwords * reps * 8 + 2 * zbits * 256
+         + 2 * -(-zwords // 4) * 4 * 4)
+    return z + 2 * chunk * W * PACKED_WORDS * 4 + 2 * fields * 4 + fields * reps + 32
 
 
 def slot_capacity(reps: int, W: int, chunk: int, fields: int) -> int:
@@ -539,38 +617,69 @@ def slot_capacity(reps: int, W: int, chunk: int, fields: int) -> int:
 
 
 def launch_plan(n_live: int, table: np.ndarray, R: int = 0, reps: int = 0,
-                n_livez: int = 0, Wz: int = 0) -> WavePlan:
+                n_livez: int = 0, Wz: int = 0, ztable: Optional[np.ndarray] = None,
+                mode: int = VERIFY_ONL) -> WavePlan:
     """The wave kernel's plan at R lanes for a GF(2) wave table whose live
     set is n_live slots (live_set) and, with Wz z64 slots a wave, a z64
-    live set of n_livez slots of ZBYTES a rep.  Where the blocks of 8 reps
-    fit the card at once (R <= 8 x SMS), 8 reps a block: its barrier and
-    its waves have the fewest warps.  Past that, the widest block of
+    live set of n_livez slots of ZBYTES a rep, and W2 staging the z64
+    table's (`ztable`, zwave_table) input words of a chunk in `mode`
+    (chunk_zwords) beside its slots and bits rows.  Where the blocks of 8
+    reps fit the card at once (R <= 8 x SMS), 8 reps a block: its barrier
+    and its waves have the fewest warps.  Past that, the widest block of
     REPS_PER_BLOCK that holds both live sets: each SM then runs the fewest
-    rounds of the chain.  The chunk is the longest of CHUNKS that fits
-    beside them, so that its staging is paid the fewest times; where none
-    fits, 8 reps and chunks of 4, the z64 slots taking at most half the
-    room (the rest spill).  `reps` forces the block width.  Each thread
-    takes k of a wave's GF(2) slots, the fewest (a power of two, at most 4)
-    that keep the block within MAX_THREADS; with z64 slots the block has
-    rows enough for one thread a (rep, z64 slot) where MAX_THREADS allows.
-    Raises ValueError where the staged waves leave a block no room for
-    slots."""
+    rounds of the chain.  The chunk is the longest of CHUNKS (W2: ZCHUNKS)
+    that fits beside them, so that its staging is paid the fewest times;
+    where none fits, 8 reps and chunks of 4 (W2: shorter where its staged
+    words need it), the z64 slots taking at most half the room (the rest
+    spill).  `reps` forces the block width.  Each thread takes k of a
+    wave's GF(2) slots, the fewest (a power of two, at most 4) that keep
+    the block within MAX_THREADS.  With z64 slots (W2: blocks of at most
+    MAX_THREADS_Z64, in whole warps, and one GF(2) slot a thread, so that a
+    thread holds its work in 128 registers) each (rep, z64 slot) takes
+    `zlanes` threads: 8, one a player, where the blocks fit the card at
+    once, else 1; and past that W2's chunk is the longest whose blocks
+    share the SMs' shared memory in the fewest rounds over R (its staged
+    words grow with reps x chunk; at R = 0 the longest that fits).  Raises
+    ValueError where the staged waves leave a block no room for slots, or a
+    thread more GF(2) slots than it may take."""
     W = np.asarray(table).shape[1]
-    most = MAX_THREADS_Z64 if Wz else MAX_THREADS
-    fields = {c: chunk_fields(table, c) for c in CHUNKS}
-    widths = (reps,) if reps else (REPS_PER_BLOCK[::-1] if 0 < R <= 8 * SMS else REPS_PER_BLOCK)
+    most, kmax = (MAX_THREADS_Z64, 1) if Wz else (MAX_THREADS, 4)
+    chunks = ZCHUNKS if Wz else CHUNKS
+    fields = {c: chunk_fields(table, c) for c in chunks}
+    zstaged = {c: (0, 0) for c in chunks}
+    if Wz and ztable is not None:
+        zstaged = {c: (chunk_zwords(ztable, mode, c), chunk_zbits(ztable, c)) for c in chunks}
+    one_round = 0 < R <= 8 * SMS
+    widths = (reps,) if reps else (REPS_PER_BLOCK[::-1] if one_round else REPS_PER_BLOCK)
+    zlanes = (8 if one_round else 1) if Wz else 0
 
     def room(p: int, c: int) -> int:
-        return SMEM_PER_BLOCK - staged_bytes(p, W, c, fields[c])
+        return SMEM_PER_BLOCK - staged_bytes(p, W, c, fields[c], Wz, *zstaged[c])
 
-    fits = [(p, c) for p in widths for c in fields
+    def rounds(pc: Tuple[int, int]) -> int:
+        """Rounds of the blocks over the card's shared memory at R lanes."""
+        p, c = pc
+        smem = SMEM_PER_BLOCK - room(p, c) + p * (2 * n_live + ZBYTES * n_livez)
+        return -(-(-(-R // p)) // (SMS * (SMEM_PER_SM // (smem + SMEM_RESERVED))))
+
+    fits = [(p, c) for p in widths for c in chunks
             if room(p, c) >= p * (2 * n_live + ZBYTES * n_livez)
-            and p // 4 * -(-W // 4) <= most]
-    reps, chunk = fits[0] if fits else (reps or REPS_PER_BLOCK[-1], CHUNKS[-1])
+            and p // 4 * -(-W // kmax) <= most]
+    if fits and Wz and not one_round:  # the widest block's chunk of fewest rounds
+        reps, chunk = min((f for f in fits if f[0] == fits[0][0]), key=rounds)
+    elif fits:
+        reps, chunk = fits[0]
+    else:  # spilled: the longest chunk of 4 waves or fewer with room for 2 + 1 slots
+        reps = reps or REPS_PER_BLOCK[-1]
+        short = [c for c in chunks if c <= CHUNKS[-1]]
+        chunk = next((c for c in short if room(reps, c) >= reps * (4 + ZBYTES * (Wz > 0))),
+                     short[-1])
     if reps not in REPS_PER_BLOCK:
         raise ValueError(f"launch_plan: reps per block must be one of {REPS_PER_BLOCK}")
     free = room(reps, chunk)
-    capz = min(n_livez, max(1, free // 2 // (ZBYTES * reps))) if Wz else 0
+    capz = 0
+    if Wz:  # both live sets where they fit, else half the room for z64 slots
+        capz = n_livez if fits else min(n_livez, max(1, free // 2 // (ZBYTES * reps)))
     capacity = (free - ZBYTES * reps * capz) // (2 * reps)
     if capacity < 2:
         raise ValueError(f"launch_plan: {chunk} waves of {W} slots leave no shared memory "
@@ -578,13 +687,15 @@ def launch_plan(n_live: int, table: np.ndarray, R: int = 0, reps: int = 0,
     k = 1
     while reps // 4 * -(-W // k) > most:
         k *= 2
-    if k > 4:
+    if k > kmax:
         raise ValueError(f"launch_plan: a wave of {W} slots needs {k} slots a thread (at "
-                         f"most 4)")
+                         f"most {kmax})")
     threads_y = -(-W // k)
-    if Wz:
-        threads_y = max(threads_y, min(4 * Wz, most // (reps // 4)))
-    return WavePlan(reps, chunk, fields[chunk], k, threads_y, capacity, capz)
+    if Wz:  # rows for zlanes threads a (rep, z64 slot) up to MAX_THREADS_Z64, in warps
+        per = 32 // (reps // 4)
+        threads_y = -(-max(threads_y, min(4 * zlanes * Wz, most // (reps // 4))) // per) * per
+    return WavePlan(reps, chunk, fields[chunk], k, threads_y, capacity, capz, Wz,
+                    *zstaged[chunk], zlanes)
 
 
 def pack_table(table: np.ndarray, mode: int, chunk: int):
@@ -635,6 +746,61 @@ def pack_table(table: np.ndarray, mode: int, chunk: int):
     return slots, fields.astype(np.uint32).view(np.int32), chunk_off
 
 
+def pack_ztable(ztable: np.ndarray, mode: int, chunk: int):
+    """A slot-allocated z64 table (allocate_waves' ztable) in W2's form for
+    one role -> (zslots (n_waves, Wz, ZPACKED_WORDS) int32, zfields
+    (n_fields,) int32, zchunk_off (n_chunks + 1, 2) int32).  A slot's staged
+    words (_ZFIELDS, _ZSOURCES) are consecutive entries of `zfields`, each
+    source << 29 | row; chunk c's are zchunk_off[c, 0] .. zchunk_off[c + 1,
+    0] - 1, and its B2A slots' rows of the bits table zchunk_off[c, 1] ..
+    zchunk_off[c + 1, 1] - 1.  A slot's word 3 holds its first staged word
+    and its bits row, each counted from its chunk's first; words 4 and 5 its
+    event rows (a B2A_OUT's onl2 rows in word 4).  Raises ValueError where
+    a row passes 2**29, a chunk 2**16 words or bits rows, or the B2A slots'
+    bits rows are not in the order of the slots."""
+    t = np.asarray(ztable, dtype=np.int64)
+    n_waves, Wz = t.shape[:2]
+    flat = t.reshape(-1, t.shape[2])
+    op = flat[:, _ZOP]
+    count = _zfield_counts(op, mode)
+    first = np.cumsum(count) - count
+    fields = np.zeros(int(count.sum()), dtype=np.int64)
+    for kind, parts in _ZFIELDS[mode].items():
+        idx = np.nonzero(op == kind)[0]
+        at = first[idx]
+        for src, col in parts:
+            width, row = _ZSOURCES[src]
+            v = flat[idx, col]
+            for p in range(width):
+                r = row(v, p)
+                if r.size and (r.min() < 0 or r.max() >= 1 << 29):
+                    raise ValueError("pack_ztable: an input row past 2**29")
+                fields[at + p] = (src << 29) | r
+            at = at + width
+    b2a = np.isin(op, _B2A)
+    brow = np.where(b2a, flat[:, _ZBITS], 0)
+    if not np.array_equal(brow[b2a], np.arange(int(b2a.sum()))):
+        raise ValueError("pack_ztable: the bits rows are not in the order of the B2A slots")
+    # per slot, its chunk's first field and bits row
+    wave_start = np.arange(0, n_waves * Wz, Wz)
+    n_b2a = np.cumsum(b2a) - b2a
+    starts = np.stack([first[wave_start[::chunk]], n_b2a[wave_start[::chunk]]], axis=-1) \
+        if n_waves else np.zeros((0, 2), dtype=np.int64)
+    chunk_off = np.concatenate([starts, [[len(fields), int(b2a.sum())]]]).astype(np.int32)
+    base = np.repeat(starts, chunk * Wz, axis=0)[: n_waves * Wz]
+    rel_f = np.where(count > 0, first - base[:, 0], 0)
+    rel_b = np.where(b2a, brow - base[:, 1], 0)
+    if n_waves and (rel_f.max() >= 1 << 16 or rel_b.max() >= 1 << 16):
+        raise ValueError("pack_ztable: a chunk of more than 2**16 staged words or bits rows")
+    onl = np.where(op == B2A_OUT, flat[:, _ZBONL], flat[:, _ZONL])
+    head = (op & 0xFF) | (flat[:, _ZDST] << 8)
+    words = np.stack([head, flat[:, _ZA], flat[:, _ZB], rel_f | rel_b << 16, onl,
+                      flat[:, _ZPRE], flat[:, _ZCLO], flat[:, _ZCHI]], axis=-1)
+    zslots = np.ascontiguousarray(words.astype(np.uint32).view(np.int32)).reshape(
+        n_waves, Wz, ZPACKED_WORDS)
+    return zslots, fields.astype(np.uint32).view(np.int32), chunk_off
+
+
 @dataclasses.dataclass
 class WaveProgram:
     """One role's waves, ready for `wave_run`: the slot-allocated GF(2)
@@ -642,9 +808,11 @@ class WaveProgram:
     fields and chunk offsets (pack_table) on the device (None on the CPU),
     the GF(2) slots in shared memory and spilled, and the launch plan; for
     a circuit with z64 gates, the z64 table and the bits table (on the CPU,
-    and `zdev`, their copies on the device), the z64 slots in shared memory
-    and spilled; and the carried slots (`carry`: cin, cout, cinz, coutz as
-    int32 tensors on the program's device)."""
+    for the plain version), and `zdev` on the device: the packed z64 slots,
+    their staged words' fields and chunk offsets (pack_ztable) and the bits
+    table; the z64 slots in shared memory and spilled; and the carried
+    slots (`carry`: cin, cout, cinz, coutz as int32 tensors on the
+    program's device)."""
 
     table: torch.Tensor
     slots: Optional[torch.Tensor]
@@ -655,7 +823,7 @@ class WaveProgram:
     plan: WavePlan
     ztable: Optional[torch.Tensor] = None
     bits: Optional[torch.Tensor] = None
-    zdev: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    zdev: Optional[Tuple[torch.Tensor, ...]] = None
     n_sharedz: int = 0
     n_spillz: int = 0
     carry: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
@@ -678,10 +846,12 @@ class WaveProgram:
 
     @property
     def smem_bytes(self) -> int:
-        """Dynamic shared memory of one block: the staged waves and fail
-        flags (staged_bytes) and the shared slots of both domains."""
+        """Dynamic shared memory of one block: the staged waves of both
+        domains and the fail flags (staged_bytes) and the shared slots of
+        both domains."""
         p = self.plan
-        return (staged_bytes(p.reps, self.table.shape[1], p.chunk, p.fields)
+        return (staged_bytes(p.reps, self.table.shape[1], p.chunk, p.fields, p.Wz, p.zwords,
+                             p.zbits)
                 + 2 * self.n_shared * p.reps + ZBYTES * self.n_sharedz * p.reps)
 
 
@@ -709,7 +879,7 @@ def wave_program(table: np.ndarray, mode: int, device: torch.device, R: int = 0,
         Wz = ztable.shape[1]
     if plan is None:
         n_live, n_livez = live_sets(table, ztable, bits, carry)
-        plan = launch_plan(n_live, table, R, reps, n_livez, Wz)
+        plan = launch_plan(n_live, table, R, reps, n_livez, Wz, ztable, mode)
     cap = min(capacity, plan.capacity) if capacity > 0 else plan.capacity
     capz = min(capacityz, plan.capacityz) if capacityz > 0 else plan.capacityz
     if slots is None:
@@ -730,7 +900,14 @@ def wave_program(table: np.ndarray, mode: int, device: torch.device, R: int = 0,
         prog.bits = torch.from_numpy(slots.bits)
         prog.n_sharedz, prog.n_spillz = slots.n_sharedz, slots.n_spillz
         if device.type == "cuda":
-            prog.zdev = (prog.ztable.to(device), prog.bits.to(device))
+            zslots, zfields, zoff = pack_ztable(slots.ztable, mode, plan.chunk)
+            most = np.diff(zoff, axis=0).max(axis=0, initial=0)
+            if plan.Wz != zslots.shape[1] or most[0] > plan.zwords or most[1] > plan.zbits:
+                raise ValueError(f"wave_program: the plan stages {plan.zwords} z64 words and "
+                                 f"{plan.zbits} bits rows a chunk of {plan.Wz} slots a wave, "
+                                 f"the table needs {most[0]} and {most[1]} of {zslots.shape[1]}")
+            prog.zdev = tuple(torch.from_numpy(a).to(device)
+                              for a in (zslots, zfields, zoff, slots.bits))
     prog.carry = {k: torch.from_numpy(np.asarray(getattr(slots, k), dtype=np.int32)).to(device)
                   for k in ("cin", "cout", "cinz", "coutz")}
     return prog
@@ -741,8 +918,9 @@ class CircuitWaves:
     """What the wave executor derives once per circuit and wave width, kept
     on the circuit (`CompiledCircuit.wave_tables`): build_waves' table and,
     on first use, its PROVER tables (wave_table, zwave_table), live sets and
-    input fields, the launch plans (a plan depends on R only through R <= 8
-    x SMS, and footprints ask for one at every batch width) and the slot
+    input fields, the launch plans (a GF(2) plan depends on R only through
+    R <= 8 x SMS, a z64 one on its rounds of blocks and its role; footprints
+    ask for one at every batch width) and the slot
     allocations by capacities and carries (a SHA-256 table takes about a
     second)."""
 
@@ -779,14 +957,17 @@ class CircuitWaves:
         """Input fields of the packed PROVER table."""
         return int(_field_counts(self.waves.op, PROVER).sum())
 
-    def plan(self, R: int = 0, reps: int = 0, carry: Carry = NO_CARRY) -> WavePlan:
-        """launch_plan at R lanes (`reps` forces the block width, uncached)."""
+    def plan(self, R: int = 0, reps: int = 0, carry: Carry = NO_CARRY,
+             mode: int = PROVER) -> WavePlan:
+        """launch_plan at R lanes in `mode` (W2 stages a role's own input
+        words; `reps` forces the block width, uncached)."""
         n_live, n_livez = self.live(carry)
+        args = (n_livez, self.Wz, self.ztables[0], mode)
         if reps:
-            return launch_plan(n_live, self.table, R, reps, n_livez, self.Wz)
-        key = (0 < R <= 8 * SMS, carry)
+            return launch_plan(n_live, self.table, R, reps, *args)
+        key = (R, carry, mode) if self.Wz else (0 < R <= 8 * SMS, carry)
         if key not in self.plans:
-            self.plans[key] = launch_plan(n_live, self.table, R, 0, n_livez, self.Wz)
+            self.plans[key] = launch_plan(n_live, self.table, R, 0, *args)
         return self.plans[key]
 
     def allocation(self, capacity: int, capacityz: int = 0,
@@ -819,7 +1000,7 @@ def circuit_program(cc: CompiledCircuit, mode: int, device: torch.device, R: int
     spills) with the segment carries `carry`, its slots shared by every
     role and every plan whose shared memory holds them."""
     rec = circuit_waves(cc, wave_width)
-    plan = rec.plan(R, reps, carry)
+    plan = rec.plan(R, reps, carry, mode)
     cap = min(capacity, plan.capacity) if capacity > 0 else plan.capacity
     capz = min(capacityz, plan.capacityz) if capacityz > 0 else plan.capacityz
     alloc = rec.allocation(cap, capz, carry)
@@ -836,13 +1017,18 @@ def circuit_program(cc: CompiledCircuit, mode: int, device: torch.device, R: int
 def table_bytes(cc: CompiledCircuit, R: int = 0) -> int:
     """Bytes of the packed PROVER wave program at R lanes on the device
     (the default width): its GF(2) slots, input fields and chunk offsets
-    (pack_table) and its z64 and bits tables."""
+    (pack_table) and its packed z64 slots, their staged words' fields and
+    chunk offsets (pack_ztable) and the bits table."""
     rec = circuit_waves(cc)
     n_waves, W = rec.waves.op.shape
-    chunk = rec.plan(R).chunk
+    n_chunks = -(-n_waves // rec.plan(R).chunk)
     ztable, bits = rec.ztables
-    zbytes = 0 if ztable is None else ztable.nbytes + bits.nbytes
-    return 4 * (n_waves * W * PACKED_WORDS + rec.n_fields + -(-n_waves // chunk) + 1) + zbytes
+    zbytes = 0
+    if ztable is not None:
+        n_zfields = int(_zfield_counts(ztable[..., _ZOP], PROVER).sum())
+        zbytes = 4 * (ztable[..., 0].size * ZPACKED_WORDS + n_zfields + 2 * (n_chunks + 1)) \
+            + bits.nbytes
+    return 4 * (n_waves * W * PACKED_WORDS + rec.n_fields + n_chunks + 1) + zbytes
 
 
 def spill_rows(cc: CompiledCircuit, R: int = 0) -> int:
@@ -1268,9 +1454,11 @@ def wave_run(prog: WaveProgram, mode: int, tape: torch.Tensor, xin: Optional[tor
         LAUNCHES += 1
         return out
     spillz = torch.empty((max(prog.n_spillz, 1), 9, R), **i64)
-    zt, zb = prog.zdev
-    words += [zt.data_ptr(), zt.shape[1], zb.data_ptr(), prog.n_sharedz, _ptr(tapez), _ptr(xinz),
-              _ptr(coz), _ptr(rez), spillz.data_ptr(), out.onlz.data_ptr(), out.prez.data_ptr(),
+    zs, zf, zo, zb = prog.zdev
+    p = prog.plan
+    words += [zs.data_ptr(), zs.shape[1], _ptr(zf), zo.data_ptr(), _ptr(zb), prog.n_sharedz,
+              p.zwords, p.zbits, p.zlanes, _ptr(tapez), _ptr(xinz), _ptr(coz), _ptr(rez),
+              spillz.data_ptr(), out.onlz.data_ptr(), out.prez.data_ptr(),
               _ptr(prog.carry["cinz"]), len(prog.carry["cinz"]), _ptr(carry_maskz),
               _ptr(carry_corrz), _ptr(prog.carry["coutz"]), nc[1], out.carry_maskz.data_ptr(),
               out.carry_corrz.data_ptr()]
@@ -1281,21 +1469,38 @@ def wave_run(prog: WaveProgram, mode: int, tape: torch.Tensor, xin: Optional[tor
     return out
 
 
+def _plan_words(prog: WaveProgram, mode: int, R: int) -> np.ndarray:
+    """A launch's int64 words (`wave_run`) with its sizes and plan, every
+    pointer 0."""
+    p = prog.plan
+    words = [0, 0, 0, prog.table.shape[0], prog.table.shape[1], mode, R, prog.n_shared, p.reps,
+             p.k, p.chunk, p.fields, p.threads_y] + [0] * 17
+    if prog.has_z64:
+        words += [0, prog.ztable.shape[1], 0, 0, 0, prog.n_sharedz, p.zwords, p.zbits,
+                  p.zlanes] + [0] * 15
+    return np.asarray(words, dtype=np.int64)
+
+
 def resident_blocks(prog: WaveProgram, mode: int, R: int) -> int:
     """Blocks of `prog`'s launch at R lanes that one SM holds at once (the
     CUDA occupancy calculator, with the kernel's shared memory allowed as
     for a launch); needs the card."""
     out = ctypes.c_int(0)
-    p = prog.plan
-    words = [0, 0, 0, prog.table.shape[0], prog.table.shape[1], mode, R, prog.n_shared, p.reps,
-             p.k, p.chunk, p.fields, p.threads_y] + [0] * 17
-    if prog.has_z64:
-        words += [0, prog.ztable.shape[1], 0, prog.n_sharedz] + [0] * 15
     fn = _build.kernels().reverie_scan_z64_plan if prog.has_z64 else \
         _build.kernels().reverie_scan_gf2_plan
-    words = np.asarray(words, dtype=np.int64)  # alive through the call
-    rc = fn(words.ctypes.data, ctypes.addressof(out))
-    _build.check(rc, "scan plan")
+    words = _plan_words(prog, mode, R)  # alive through the call
+    _build.check(fn(words.ctypes.data, ctypes.addressof(out)), "scan plan")
+    return out.value
+
+
+def kernel_smem_bytes(prog: WaveProgram, mode: int, R: int) -> int:
+    """W2's own count of the dynamic shared memory of a block of `prog`'s
+    launch at R lanes (csrc/scan_z64.cu z_smem_bytes and the GF(2) half's),
+    which `prog.smem_bytes` must equal; needs the built kernels."""
+    out = ctypes.c_longlong(0)
+    words = _plan_words(prog, mode, R)  # alive through the call
+    _build.check(_build.kernels().reverie_scan_z64_smem(words.ctypes.data,
+                                                        ctypes.addressof(out)), "scan smem")
     return out.value
 
 

@@ -121,3 +121,19 @@ def z64_all_ops_circuit(iters: int = 200, seed: int = 5
                 prog.append(z(Gate(k2, dst=d, src1=a, src2=c)))
     prog += [z(Gate(Op.SUB, dst=width, src1=0, src2=0)), z(Gate(Op.ASSERT_ZERO, src1=width))]
     return prog, [], [rng.getrandbits(64) for _ in range(width)]
+
+
+def z64_chains_circuit(chains: int = 64, n_mul: int = 150
+                       ) -> Tuple[List[CombineOp], List[bool], List[int]]:
+    """`chains` serial z64 MUL chains side by side, n_mul + 3 levels deep:
+    z64_chain_circuit's chain in each, so that build_waves packs `chains`
+    MULs a wave (at 64, its widest z64 waves, Wz = 64)."""
+    z = CombineOp.z64
+    prog = [z(Gate(Op.INPUT, dst=w)) for w in range(2 * chains)]
+    for _ in range(n_mul):
+        prog += [z(Gate(Op.MUL, dst=2 * c + 1, src1=2 * c, src2=2 * c + 1))
+                 for c in range(chains)]
+    prog += [z(Gate(Op.SUB, dst=2 * chains + c, src1=2 * c + 1, src2=2 * c + 1))
+             for c in range(chains)]
+    prog += [z(Gate(Op.ASSERT_ZERO, src1=2 * chains + c)) for c in range(chains)]
+    return prog, [], [3 + c for c in range(2 * chains)]

@@ -19,7 +19,6 @@ constexpr int kNop = 127;
 constexpr int kSlotWords = 8;   // int32 words of a packed slot
 constexpr int kFailBytes = 32;  // one fail word per group of 4 reps (8 groups at most)
 constexpr int kMaxThreads = 1024;
-constexpr int kZBytes = 72;     // a live z64 value a rep: 8 mask words, a corr
 
 constexpr int kProver = 0, kVerifyOnl = 1, kVerifyPre = 2;
 // what a decoded slot does after the barrier (backend/scan.py pack_table)
@@ -54,6 +53,11 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(gmem) : "memory");
 }
 
 __device__ __forceinline__ void cp_async_wait_all() {
@@ -321,11 +325,20 @@ __device__ __forceinline__ void store_carry(const Args& g, const CarryArgs& k, c
   }
 }
 
-// The z64 half of a wave kernel: none (W1).
+// The z64 half of a wave kernel: none (W1). Its hooks: the shared memory it
+// stages in front of W1's (front_bytes), slot 0 and the first chunk's
+// staging (init), a chunk's staging (stage: the next chunk's slots, this
+// chunk's input words), the decode of a chunk's first wave (begin), a
+// wave (wave: its z64 slots, then the next wave's decoded) and the chunk's
+// end (next_chunk). Here they are empty, and W1 compiles as without them.
 struct NoZ {
+  __device__ static constexpr int front_bytes(int, int) { return 0; }
   __device__ __forceinline__ void init(const Ctx&) {}
   __device__ __forceinline__ void load_carry(const Ctx&) {}
-  __device__ __forceinline__ void wave(const Ctx&, int) {}
+  __device__ __forceinline__ void stage(const Ctx&, int, int, int) {}
+  __device__ __forceinline__ void begin(const Ctx&, int) {}
+  __device__ __forceinline__ void wave(const Ctx&, int, int, int) {}
+  __device__ __forceinline__ void next_chunk() {}
   __device__ __forceinline__ void store_carry(const Ctx&) {}
 };
 
@@ -333,9 +346,11 @@ struct NoZ {
 // half `z` of each wave (W2) between the same barriers. A wave's slots of
 // either domain read only values of earlier waves and write slots that no
 // slot of the wave reads (backend/scan.py allocate_waves), so the halves
-// need no order between them. The carries' code is compiled only into the
-// kernels that take carries (kCarry): outside the loop as it is, its mere
-// presence made W1 15% slower on the H100.
+// need no order between them. The z64 half stages its chunks in the same
+// cp.async batch and wait as the GF(2) half's, in shared memory in front
+// of W1's. The carries' code is compiled only into the kernels that take
+// carries (kCarry): outside the loop as it is, its mere presence made W1
+// 15% slower on the H100.
 template <int kMode, int kK, bool kCarry, class Z>
 __device__ __forceinline__ void run_waves(const Args& g, const CarryArgs& carry, Z& z) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -350,8 +365,9 @@ __device__ __forceinline__ void run_waves(const Args& g, const CarryArgs& carry,
   l.staged = g.R % 4 == 0;  // 4-byte row segments; else byte loads and stores
   const bool live = l.n_live > 0;
   const int slot_words = g.chunk * g.Wp * kSlotWords;
-  int* slots = reinterpret_cast<int*>(smem);  // two chunks of packed slots
-  int* fields = slots + 2 * slot_words;       // two chunks of input fields
+  // two chunks of packed slots, after the z64 half's staged chunk (W2)
+  int* slots = reinterpret_cast<int*>(smem + z.front_bytes(g.chunk, reps));
+  int* fields = slots + 2 * slot_words;  // two chunks of input fields
   uint8_t* bytes = reinterpret_cast<uint8_t*>(fields + 2 * g.max_fields);
   uint32_t* s_fail = reinterpret_cast<uint32_t*>(bytes + g.max_fields * reps);
   uint2* vals = reinterpret_cast<uint2*>(s_fail + kFailBytes / 4);
@@ -387,6 +403,7 @@ __device__ __forceinline__ void run_waves(const Args& g, const CarryArgs& carry,
     const int f3 = __ldg(g.chunk_off + min(c + 3, n_chunks));
     stage_slots(slots + (buf ^ 1) * slot_words, fields + (buf ^ 1) * g.max_fields, g,
                 w0 + g.chunk, f1, f2, tid, nthreads);
+    z.stage(ctx, c, buf, w0);
     if (l.staged) stage_bytes(bytes, cf, g, f1 - f0, reps, l.r0, tid, nthreads);
     cp_async_wait_all();
     __syncthreads();
@@ -400,6 +417,7 @@ __device__ __forceinline__ void run_waves(const Args& g, const CarryArgs& carry,
         decode<kMode>(cur[k], rows[2 * j], rows[2 * j + 1], bytes, cf, f0, g, reps, l);
       }
     }
+    z.begin(ctx, buf);
     for (int i = 0; i < n; ++i) {
       // the next wave's slots, read before this wave's operands
       int4 lo[kK], hi[kK];
@@ -414,7 +432,7 @@ __device__ __forceinline__ void run_waves(const Args& g, const CarryArgs& carry,
       }
 #pragma unroll
       for (int k = 0; k < kK; ++k) apply<kMode>(cur[k], vals, g, l, failed);
-      z.wave(ctx, w0 + i);
+      z.wave(ctx, buf, i, n);
 #pragma unroll
       for (int k = 0; k < kK; ++k) {
         nxt[k].kind = kNone;
@@ -429,6 +447,7 @@ __device__ __forceinline__ void run_waves(const Args& g, const CarryArgs& carry,
     f0 = f1;
     f1 = f2;
     f2 = f3;
+    z.next_chunk();
   }
   if constexpr (kCarry) {
     if (carry.n_cout) store_carry(g, carry, ctx);
@@ -441,15 +460,14 @@ __device__ __forceinline__ void run_waves(const Args& g, const CarryArgs& carry,
   }
 }
 
-// Dynamic shared memory of one block: two chunks of packed slots and of
-// input fields, one chunk of the fields' bytes, the fail words, the shared
-// GF(2) slots and the shared z64 slots (backend/scan.py
-// WaveProgram.smem_bytes).
-size_t smem_bytes(int Wp, int chunk, int max_fields, int n_shared, int reps, int n_sharedz) {
+// Dynamic shared memory of one block's GF(2) half: two chunks of packed
+// slots and of input fields, one chunk of the fields' bytes, the fail
+// words and the shared GF(2) slots (backend/scan.py WaveProgram.smem_bytes,
+// W2's z64 half apart: csrc/scan_z64.cu z_smem_bytes).
+size_t smem_bytes(int Wp, int chunk, int max_fields, int n_shared, int reps) {
   return 2 * static_cast<size_t>(chunk) * Wp * kSlotWords * 4 +
          2 * static_cast<size_t>(max_fields) * 4 + static_cast<size_t>(max_fields) * reps +
-         kFailBytes + 2 * static_cast<size_t>(n_shared) * reps +
-         kZBytes * static_cast<size_t>(n_sharedz) * reps;
+         kFailBytes + 2 * static_cast<size_t>(n_shared) * reps;
 }
 
 // Lets `kernel` take the device's most dynamic shared memory per block
@@ -487,14 +505,14 @@ struct Launch {
 };
 
 // Launches `kernel` with `params` for a Launch (its block, grid, stream and
-// dynamic shared memory, n_sharedz z64 slots included), or, with
+// dynamic shared memory, the z64 half's z_bytes included), or, with
 // blocks_per_sm, gives its resident blocks per SM.
 template <auto kernel, class... P>
-cudaError_t launch_kernel(const Launch& L, int n_sharedz, int* blocks_per_sm, P... params) {
+cudaError_t launch_kernel(const Launch& L, size_t z_bytes, int* blocks_per_sm, P... params) {
   cudaError_t e = allow_smem<kernel>();
   if (e != cudaSuccess) return e;
   const Args& g = L.g;
-  const size_t smem = smem_bytes(g.Wp, g.chunk, g.max_fields, g.n_shared, L.reps, n_sharedz);
+  const size_t smem = smem_bytes(g.Wp, g.chunk, g.max_fields, g.n_shared, L.reps) + z_bytes;
   if (blocks_per_sm != nullptr) {
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel,
                                                          L.reps / 4 * L.threads_y, smem);

@@ -7,9 +7,14 @@ w1: W1 (csrc/scan_gf2.cu) on the SHA-256 statement (parity.sha256_bench),
 prove, at R = 256 and 16,384, three means of 10 launches each (CUDA
 events), and the one-slot chain (chain_ms: 5,874 waves of 32 slots) twice.
 w2: W2 (csrc/scan_z64.cu) on the deep z64 statements (the 5,000-MUL z64
-chain at R = 256 and 16,384, deep B2A and every z64 kind at 256), two means
-of 5 each, with each launch plan (reps, threads_y, k).  Both without an
-argument.  Prints one JSON line, then the card's name and power limit.
+chain proved at R = 256 and 16,384, verified online at 40 and
+preprocessing at 216; deep B2A and every z64 kind proved at 256), two
+means of 20 each, with each launch plan (reps, threads_y, k).  Both without
+an argument.  w2chunk: W2 on the chain at R = 16,384, prove and online
+verify, under launch_plan's chunk (the fewest rounds of blocks over the
+card's shared memory) and under the longest chunk that fits (its plan at
+R = 0), two means of 20 each.  Prints one JSON line, then the card's name
+and power limit.
 
 The module imports its own package by name and w1 uses only what the
 wave executor had before W2, so another tree's package can be timed with
@@ -117,16 +122,43 @@ def w1_times(dev: torch.device) -> dict:
     return out
 
 
+#: W2's cases: (statement, role, R)
+W2_CASES = (("chain", 0, 256), ("chain", 1, 40), ("chain", 2, 216), ("chain", 0, 16_384),
+            ("deep_b2a", 0, 256), ("all_ops", 0, 256))
+
+
 def w2_times(dev: torch.device) -> dict:
     rng = np.random.RandomState(3)
     out = {}
     made = z64_statements()
-    for name, R in (("chain", 256), ("chain", 16_384), ("deep_b2a", 256), ("all_ops", 256)):
-        cc = compile_program(made[name]()[0])
-        prog = scan.circuit_program(cc, 0, dev, R)
-        args = z64_wave_args(prog, 0, cc, z64_wave_inputs(dev, rng, cc, 0, R))
-        out[f"{name}@{R}"] = [cuda_ms(lambda: scan.wave_run(*args), dev, 5) for _ in range(2)]
+    ccs = {name: compile_program(made[name]()[0]) for name in {c[0] for c in W2_CASES}}
+    for name, mode, R in W2_CASES:
+        cc = ccs[name]
+        prog = scan.circuit_program(cc, mode, dev, R)
+        args = z64_wave_args(prog, mode, cc, z64_wave_inputs(dev, rng, cc, mode, R))
+        out[f"{name}@{R}"] = [cuda_ms(lambda: scan.wave_run(*args), dev, 20) for _ in range(2)]
         out[f"{name}@{R}/plan"] = [prog.plan.reps, prog.plan.threads_y, prog.plan.k]
+    return out
+
+
+#: w2chunk's cases: (role, R) of the chain
+W2_CHUNK_CASES = ((0, 16_384), (1, 16_384))
+
+
+def w2_chunk_times(dev: torch.device) -> dict:
+    rng = np.random.RandomState(4)
+    cc = compile_program(z64_statements()["chain"]()[0])
+    out = {}
+    for mode, R in W2_CHUNK_CASES:
+        inp = z64_wave_inputs(dev, rng, cc, mode, R)
+        for tag, plan_r in (("plan", R), ("longest", 0)):
+            prog = scan.circuit_program(cc, mode, dev, plan_r)
+            args = z64_wave_args(prog, mode, cc, inp)
+            key = f"chain@{R}/{mode}/{tag}"
+            out[key] = [cuda_ms(lambda: scan.wave_run(*args), dev, 20) for _ in range(2)]
+            out[key + "/chunk"] = prog.plan.chunk
+            del prog, args
+        del inp
     return out
 
 
@@ -136,7 +168,7 @@ def main(argv) -> int:
     _build.kernels()
     out = {}
     for part in which:
-        out.update({"w1": w1_times, "w2": w2_times}[part](dev))
+        out.update({"w1": w1_times, "w2": w2_times, "w2chunk": w2_chunk_times}[part](dev))
     print(json.dumps(out), flush=True)
     print(card(), flush=True)
     return 0

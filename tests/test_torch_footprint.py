@@ -53,12 +53,16 @@ def live_peak(fn) -> int:
 def card_table_bytes(ex) -> int:
     """Bytes of the tables an executor holds on the card: the levelized
     Executor's index tables, or the wave executor's packed program (its
-    slots, input fields and chunk offsets, and its z64 and bits tables),
-    which the CPU keeps as the slot-allocated tables."""
+    slots, input fields and chunk offsets, and its packed z64 slots, their
+    staged words' fields and chunk offsets and the bits table), which the
+    CPU keeps as the slot-allocated tables."""
     if isinstance(ex, scan.ScanExecutor):
-        packed = scan.pack_table(ex.table.numpy(), ex.mode, ex.program.plan.chunk)
-        z = [t for t in (ex.program.ztable, ex.program.bits) if t is not None]
-        return sum(a.nbytes for a in packed) + sum(t.numel() * 4 for t in z)
+        prog = ex.program
+        packed = scan.pack_table(ex.table.numpy(), ex.mode, prog.plan.chunk)
+        if prog.has_z64:
+            packed += scan.pack_ztable(prog.ztable.numpy(), ex.mode, prog.plan.chunk)
+            packed += (prog.bits.numpy(),)
+        return sum(a.nbytes for a in packed)
     return sum(t.numel() * t.element_size() for t in ex.tables.values())
 
 

@@ -17,6 +17,7 @@ from reverie_tpu_torch.circuit import CombineOp, Gate, Op
 from reverie_tpu_torch.circuit.builders import deep_b2a_circuit as deep_b2a
 from reverie_tpu_torch.circuit.builders import z64_all_ops_circuit as z64_all_ops
 from reverie_tpu_torch.circuit.builders import z64_chain_circuit as z64_chain
+from reverie_tpu_torch.circuit.builders import z64_chains_circuit as z64_chains
 from reverie_tpu_torch.circuit.compile import _NOP, G_ASSERT, compile_program, compile_segments
 from reverie_tpu_torch.crypto.kernels import aes_planes, aes_tape, aes_tape_z64, blake3 as b3
 from reverie_tpu_torch.tools import r4_bwroof, r4_extract_probe, r5_u8emit
@@ -821,21 +822,77 @@ def test_z64_wave_kernel_matches_plain(cuda_device, mode, name, R):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("W, k", [(128, 2), (256, 4)])
+@pytest.mark.parametrize("W, reps", [(128, 16), (256, 8)])
 @pytest.mark.parametrize("mode", MODES)
-def test_z64_wave_kernel_wide_waves_match_plain(cuda_device, mode, W, k):
-    """Deep B2A in waves of W GF(2) slots at R = 2,051 (32 reps a block, a
-    ragged last one): W2's blocks of at most 512 threads take k GF(2) slots
-    a thread; equal to the plain version on the CPU."""
+def test_z64_wave_kernel_wide_waves_match_plain(cuda_device, mode, W, reps):
+    """Deep B2A in waves of W GF(2) slots at R = 2,051 (a ragged last
+    block): W2's blocks of at most 512 threads take one GF(2) slot a
+    thread, so the wide waves take narrower blocks; equal to the plain
+    version on the CPU."""
     cc = compile_program(deep_b2a(200)[0])
     R = 2051
     inp = executor_inputs(cc, mode, R, seed=W + mode)
     want = scan.ScanExecutor(cc, mode, R, torch.device("cpu"), wave_width=W)(on(inp, "cpu"))
     ex = scan.ScanExecutor(cc, mode, R, cuda_device, wave_width=W)
-    assert (ex.program.plan.reps, ex.program.plan.k) == (32, k)
+    assert (ex.program.plan.reps, ex.program.plan.k) == (reps, 1)
     got = ex(on(inp, cuda_device))
     for key in OUT_KEYS:
         assert torch.equal(got[key].cpu(), want[key]), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [256, 2560])
+@pytest.mark.parametrize("mode", MODES)
+def test_z64_wave_kernel_widest_z64_waves_match_plain(cuda_device, mode, R):
+    """64 z64 chains side by side (Wz = 64, 64 MULs a wave): W2 stages one
+    wave a chunk (chunks of 4 do not fit a block: 409,600 bytes of staged
+    words online), the online verifier's z64 values partly spilled; on 8
+    lanes a slot and on 1 (R = 2,560); equal to the plain version on the
+    CPU."""
+    cc = compile_program(z64_chains(64, 150)[0])
+    inp = executor_inputs(cc, mode, R, seed=3 * R + mode)
+    want = scan.ScanExecutor(cc, mode, R, torch.device("cpu"))(on(inp, "cpu"))
+    ex = scan.ScanExecutor(cc, mode, R, cuda_device)
+    p = ex.program.plan
+    assert (p.Wz, p.chunk, p.zlanes) == (64, 1, 8 if R <= 8 * scan.SMS else 1)
+    assert (ex.program.n_spillz > 0) == (mode == tex.VERIFY_ONL)
+    got = ex(on(inp, cuda_device))
+    for key in OUT_KEYS:
+        assert torch.equal(got[key].cpu(), want[key]), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("carries", [False, True])
+@pytest.mark.parametrize("mode", MODES)
+def test_z64_wave_kernel_one_lane_matches_plain(cuda_device, mode, carries):
+    """W2's one-lane kernels (one thread a (rep, z64 slot), past R = 8 x
+    SMS) in each role, without carries and with them (the chain's segments,
+    their carries chained from the segments before): streams, fail and
+    carry outputs equal the plain version's on the CPU at R = 2,560."""
+    R = 2560
+    prog = z64_chain(150)[0]
+    segments = compile_segments(prog, 40) if carries else []
+    whole = compile_program(prog)
+    inp = executor_inputs(whole, mode, R, seed=R + mode)
+    if carries:
+        assert len(segments) >= 3 and any(s.carry_inz for s in segments)
+        want = run_segments(segments, segment_executor(scan.ScanExecutor, mode, R,
+                                                       torch.device("cpu")), on(inp, "cpu"))
+        execs = []
+
+        def on_card(seg):
+            execs.append(segment_executor(scan.ScanExecutor, mode, R, cuda_device)(seg))
+            return execs[-1]
+        got = run_segments(segments, on_card, on(inp, cuda_device))
+    else:
+        want = [scan.ScanExecutor(whole, mode, R, torch.device("cpu"))(on(inp, "cpu"))]
+        execs = [scan.ScanExecutor(whole, mode, R, cuda_device)]
+        got = [execs[0](on(inp, cuda_device))]
+    assert all(ex.program.has_z64 and ex.program.plan.zlanes == 1 for ex in execs)
+    for g, w in zip(got, want):
+        assert set(g) == set(w)
+        for key in w:
+            assert torch.equal(g[key].cpu(), w[key]), key
 
 
 @pytest.mark.cuda

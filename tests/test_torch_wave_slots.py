@@ -16,8 +16,10 @@ import torch
 from reverie_tpu_torch import parity
 from reverie_tpu_torch.backend import executor as tex, scan
 from reverie_tpu_torch.circuit import sha256 as tsha
+from reverie_tpu_torch.circuit.builders import (
+    deep_b2a_circuit, z64_all_ops_circuit, z64_chain_circuit, z64_chains_circuit)
 from reverie_tpu_torch.circuit.compile import (
-    _NOP, G_ADD, G_ASSERT, G_MUL, G_RANDOM, compile_program)
+    _NOP, B2A_CORR, B2A_OUT, G_ADD, G_ASSERT, G_INPUT, G_MUL, G_RANDOM, compile_program)
 
 from test_torch_package import boundary_waves, random_waves, run_waves, wave_inputs
 
@@ -343,3 +345,199 @@ def test_packed_program_decodes_to_the_plain_version(mode):
                          sizes["n_pre"])
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g, w.numpy())
+
+
+# -- W2's staged chunks: the z64 words each chunk reads, the plan, the packing
+
+
+DEEP = {"chain": lambda: z64_chain_circuit(5_000), "all_ops": lambda: z64_all_ops_circuit(200),
+        "deep_b2a": lambda: deep_b2a_circuit(200)}
+
+
+@pytest.fixture(scope="module")
+def deep_circuits():
+    """reverie_tpu's deep-scan statements, compiled once."""
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            cache[name] = compile_program(DEEP[name]()[0])
+        return cache[name]
+    return get
+
+
+@pytest.mark.parametrize("R", [256, 40, 216, 16_384])
+@pytest.mark.parametrize("name", list(DEEP))
+def test_w2_plans_of_the_deep_statements(deep_circuits, name, R):
+    """W2's launch plan of each deep statement in each role at R: the
+    block's shared memory (WaveProgram.smem_bytes, the sum of staged_bytes
+    and the shared slots of both domains) within SMEM_PER_BLOCK with every
+    live value shared; the chunk's staged z64 words and bits rows those of
+    chunk_zwords and chunk_zbits in the role; one GF(2) slot a thread in
+    whole warps of at most MAX_THREADS_Z64; where the blocks fit the card at
+    once, 8 reps a block, 8 lanes a (rep, z64 slot) and the longest chunk
+    that fits; past that, one lane.  At R = 16,384 the chain's online
+    verify stages a shorter chunk than at 256 (25 words a MUL at 32 reps a
+    block: 32 waves would take 204,800 bytes; the chunk whose blocks fit
+    the card's shared memory in the fewest rounds) and proves at 32 reps a
+    block."""
+    cc = deep_circuits(name)
+    zt = scan.circuit_waves(cc).ztables[0]
+    for mode in MODES:
+        prog = scan.circuit_program(cc, mode, CPU, R)
+        p = prog.plan
+        assert prog.smem_bytes == (
+            scan.staged_bytes(p.reps, prog.table.shape[1], p.chunk, p.fields, p.Wz, p.zwords,
+                              p.zbits)
+            + 2 * prog.n_shared * p.reps + scan.ZBYTES * prog.n_sharedz * p.reps)
+        assert prog.smem_bytes <= scan.SMEM_PER_BLOCK
+        assert prog.n_spill == prog.n_spillz == 0
+        assert (p.Wz, p.zwords, p.zbits) == (zt.shape[1], scan.chunk_zwords(zt, mode, p.chunk),
+                                             scan.chunk_zbits(zt, p.chunk))
+        threads = p.reps // 4 * p.threads_y
+        assert p.k == 1 and threads <= scan.MAX_THREADS_Z64 and threads % 32 == 0
+        if R <= 8 * scan.SMS:  # 8 reps, 8 lanes, the longest chunk that fits
+            assert (p.reps, p.zlanes) == (8, 8)
+            longer = [c for c in scan.CHUNKS if c > p.chunk]
+            assert all(scan.staged_bytes(8, prog.table.shape[1], c, scan.chunk_fields(
+                prog.table.numpy(), c), p.Wz, scan.chunk_zwords(zt, mode, c),
+                scan.chunk_zbits(zt, c)) + prog.smem_bytes - scan.staged_bytes(
+                8, prog.table.shape[1], p.chunk, p.fields, p.Wz, p.zwords, p.zbits)
+                > scan.SMEM_PER_BLOCK for c in longer)
+        else:
+            assert p.zlanes == 1
+    if name == "chain":
+        online = [scan.circuit_program(cc, tex.VERIFY_ONL, CPU, r).plan for r in (256, R)]
+        assert online[1].chunk < online[0].chunk if R == 16_384 else online[1] == online[0]
+        if R == 16_384:
+            prove = scan.circuit_program(cc, tex.PROVER, CPU, R).plan
+            assert (prove.reps, prove.zlanes) == (32, 1)
+
+
+@pytest.mark.parametrize("R", [256, 40, 216, 16_384])
+def test_w2_plans_of_the_widest_z64_waves(R):
+    """64 z64 chains side by side: build_waves' widest z64 waves (Wz = 64,
+    64 MULs a wave), whose staged words fit a block only one wave a chunk
+    (online: 64 x 25 words x 8 reps x 8 bytes = 102,400 bytes a wave; the
+    shortest of CHUNKS, 4, would take 409,600).  In every role the plan
+    stages one wave a chunk within SMEM_PER_BLOCK; the online verifier's
+    z64 values, with its staged words, pass the block and partly spill."""
+    cc = compile_program(z64_chains_circuit(64, 150)[0])
+    rec = scan.circuit_waves(cc)
+    zt = rec.ztables[0]
+    assert rec.Wz == 64
+    for mode in MODES:
+        prog = scan.circuit_program(cc, mode, CPU, R)
+        p = prog.plan
+        W = prog.table.shape[1]
+        assert (p.Wz, p.reps, p.chunk) == (64, 8, 1)
+        assert p.zwords == scan.chunk_zwords(zt, mode, 1) == 64 * {0: 16, 1: 25, 2: 16}[mode]
+        assert p.zlanes == (8 if R <= 8 * scan.SMS else 1)
+        assert prog.smem_bytes <= scan.SMEM_PER_BLOCK
+        assert all(scan.staged_bytes(8, W, c, scan.chunk_fields(prog.table.numpy(), c), 64,
+                                     scan.chunk_zwords(zt, mode, c), scan.chunk_zbits(zt, c))
+                   > scan.SMEM_PER_BLOCK for c in scan.CHUNKS)
+        assert (prog.n_spillz > 0) == (mode == tex.VERIFY_ONL) and prog.n_spill == 0
+
+
+def hand_ztable(kinds):
+    """A z64 table (ZSLOT_COLS) of waves of the given kinds, NOP-padded to
+    the widest: slot s of wave w takes tape rows 10 w + s and 50 + s, xin,
+    rec, corr and brec rows 3 s, 4 s, 5 s and 64 s, bits rows in order."""
+    Wz = max(map(len, kinds))
+    t = np.zeros((len(kinds), Wz, len(scan.ZSLOT_COLS)), dtype=np.int32)
+    col = {c: scan.ZSLOT_COLS.index(c) for c in scan.ZSLOT_COLS}
+    t[..., col["op"]] = _NOP
+    b2a = 0
+    for w, ops in enumerate(kinds):
+        for s, op in enumerate(ops):
+            t[w, s, col["op"]], t[w, s, col["dst"]] = op, 10 * w + s + 1
+            t[w, s, col["t0"]], t[w, s, col["t1"]] = 10 * w + s, 50 + s
+            t[w, s, col["xin"]], t[w, s, col["rec"]] = 3 * s, 4 * s
+            t[w, s, col["corr"]], t[w, s, col["brec"]] = 5 * s, 64 * s
+            t[w, s, col["onl"]], t[w, s, col["pre"]], t[w, s, col["bonl"]] = 7 * w, 8 * w, 9 * w
+            t[w, s, col["clo"]], t[w, s, col["chi"]] = -w, s
+            if op in (B2A_CORR, B2A_OUT):
+                t[w, s, col["bits"]] = b2a
+                b2a += 1
+    return t
+
+
+#: the words W2 stages for a slot of each kind, by role, counted by hand:
+#: a MUL's t0 and t1 (8 each), the online verifier's rez (8) and coz; an
+#: INPUT's t0 and its witness or input word (none to preprocess); a B2A
+#: correction's t0 (and coz online); a B2A_OUT's 64 re2 bytes (8 words)
+#: and an ASSERT_ZERO's rez online
+HAND_WORDS = {tex.PROVER: {G_MUL: 16, G_INPUT: 9, G_RANDOM: 8, B2A_CORR: 8},
+              tex.VERIFY_ONL: {G_MUL: 25, G_INPUT: 9, G_RANDOM: 8, B2A_CORR: 9, B2A_OUT: 8,
+                               G_ASSERT: 8},
+              tex.VERIFY_PRE: {G_MUL: 16, G_INPUT: 8, G_RANDOM: 8, B2A_CORR: 8}}
+HAND_WAVES = [[G_MUL, _NOP], [G_INPUT, G_ASSERT], [B2A_OUT, G_RANDOM], [G_ADD, B2A_CORR],
+              [G_MUL, G_MUL]]
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_chunk_zwords_counts_by_hand(mode):
+    """chunk_zwords: the most staged words of any chunk of waves, from wave
+    0, against HAND_WORDS summed by hand; chunk_zbits: the B2A slots."""
+    t = hand_ztable(HAND_WAVES)
+    per = [sum(HAND_WORDS[mode].get(op, 0) for op in ops) for ops in HAND_WAVES]
+    assert per == {tex.PROVER: [16, 9, 8, 8, 32], tex.VERIFY_ONL: [25, 17, 16, 9, 50],
+                   tex.VERIFY_PRE: [16, 8, 8, 8, 32]}[mode]
+    for chunk, want in ((1, max(per)), (2, max(per[0] + per[1], per[2] + per[3], per[4])),
+                        (4, max(sum(per[:4]), per[4])), (8, sum(per))):
+        assert scan.chunk_zwords(t, mode, chunk) == want, chunk
+    assert [scan.chunk_zbits(t, c) for c in (1, 2, 4, 8)] == [1, 2, 2, 2]
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_pack_ztable_round_trip(mode):
+    """pack_ztable's words decode to the table's columns; each slot's staged
+    words, from its chunk's first field on, are its rows of each source in
+    _ZFIELDS order (a tape row t as t * 8 + p, a rez row rec * 8 + p, a
+    B2A_OUT's re2 rows brec + 8 m); zchunk_off cuts the fields and the bits
+    rows by chunks of waves."""
+    t = hand_ztable(HAND_WAVES)
+    chunk = 2
+    zslots, zfields, zoff = scan.pack_ztable(t, mode, chunk)
+    assert zslots.shape == t.shape[:2] + (scan.ZPACKED_WORDS,) and zslots.dtype == np.int32
+    col = {c: scan.ZSLOT_COLS.index(c) for c in scan.ZSLOT_COLS}
+    w32 = zslots.view(np.uint32).astype(np.int64)
+    f = zfields.view(np.uint32).astype(np.int64)
+    assert zoff.shape == (3 + 1, 2) and list(zoff[-1]) == [len(f), 2]
+    assert list(zoff[:, 1]) == [0, 0, 2, 2]
+    n = 0
+    for w, ops in enumerate(HAND_WAVES):
+        c = w // chunk
+        if w % chunk == 0:
+            assert zoff[c, 0] == n
+        for s in range(t.shape[1]):
+            op = int(t[w, s, col["op"]])
+            assert (w32[w, s, 0] & 0xFF, w32[w, s, 0] >> 8) == (op, t[w, s, col["dst"]])
+            assert (w32[w, s, 1], w32[w, s, 2]) == (t[w, s, col["a"]], t[w, s, col["b"]])
+            if op == _NOP:
+                continue
+            assert w32[w, s, 4] == t[w, s, col["bonl" if op == B2A_OUT else "onl"]]
+            assert w32[w, s, 5] == t[w, s, col["pre"]]
+            assert (zslots[w, s, 6], zslots[w, s, 7]) == (t[w, s, col["clo"]],
+                                                         t[w, s, col["chi"]])
+            if op in (B2A_CORR, B2A_OUT):
+                assert zoff[c, 1] + (w32[w, s, 3] >> 16) == t[w, s, col["bits"]]
+            t0, t1 = t[w, s, col["t0"]], t[w, s, col["t1"]]
+            rec, corr, xin = t[w, s, col["rec"]], t[w, s, col["corr"]], t[w, s, col["xin"]]
+            tape = lambda r: [(0, 8 * r + p) for p in range(8)]  # noqa: E731
+            want = {G_MUL: tape(t0) + tape(t1) + ([(3, 8 * rec + p) for p in range(8)]
+                                                  + [(2, corr)] if mode == tex.VERIFY_ONL
+                                                  else []),
+                    G_INPUT: tape(t0) + ([(1, xin)] if mode != tex.VERIFY_PRE else []),
+                    G_RANDOM: tape(t0),
+                    B2A_CORR: tape(t0) + ([(2, corr)] if mode == tex.VERIFY_ONL else []),
+                    B2A_OUT: ([(4, t[w, s, col["brec"]] + 8 * m) for m in range(8)]
+                              if mode == tex.VERIFY_ONL else []),
+                    G_ASSERT: ([(3, 8 * rec + p) for p in range(8)]
+                               if mode == tex.VERIFY_ONL else [])}.get(op, [])
+            first = zoff[c, 0] + (w32[w, s, 3] & 0xFFFF) if want else n
+            assert first == n
+            assert [(x >> 29, x & 0x1FFFFFFF) for x in f[first : first + len(want)]] == want
+            n += len(want)
+    assert n == len(f)

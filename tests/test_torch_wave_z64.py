@@ -2,8 +2,9 @@
 the plain version `wave_ref` of the CUDA kernel W2) on the CPU, against
 reverie_tpu: `ScanExecutor` against reverie_tpu's ScanExecutor (JAX on the
 CPU) in all three roles on the deep z64 chain, deep B2A, every z64 kind
-and random mixed programs; the slot allocator across the two domains and a
-numpy emulation of W2's z64 half on the slot tables; TorchKKW's routing of
+and random mixed programs; the slot allocator across the two domains and
+two numpy emulations of W2's z64 half, on the slot tables and on the
+packed slots and staged words of its chunks; TorchKKW's routing of
 deep mixed circuits to the waves, with proofs equal to the NumPy golden's
 (to which reverie_tpu's tests hold TpuKKW on the same statements and
 seeds).  Everything is integer: the tolerance is 0.  W2 itself
@@ -153,9 +154,10 @@ def test_allocator_holds_b2a_bits(circuits, name):
 
 def emulate_z64(zt: np.ndarray, bits: np.ndarray, mode: int, inp: dict, n_valsz: int,
                 gf2_state, cc) -> dict:
-    """W2's z64 half (csrc/scan_z64.cu `Z64::wave`) in numpy over the reps,
-    one wave at a time, reading each slot's 16 words as the kernel does;
-    gf2_state(w) gives the GF(2) (mask, corr) arenas before wave w."""
+    """W2's z64 half in numpy over the reps, one wave at a time, from each
+    slot's 16 words of the slot table (zwave_table's columns, which the
+    kernel first read as they are); gf2_state(w) gives the GF(2) (mask,
+    corr) arenas before wave w."""
     R = inp["tapez"].shape[2]
     u = lambda a: a.view(np.uint64)  # noqa: E731
     vz = np.zeros((n_valsz + 1, 9, R), dtype=np.uint64)
@@ -233,6 +235,38 @@ def emulate_z64(zt: np.ndarray, bits: np.ndarray, mode: int, inp: dict, n_valsz:
     return dict(onlz=onlz, prez=prez, onl2=onl2, fail=fail)
 
 
+def gf2_states(prog, mode: int, inp: dict, cc, R: int) -> list:
+    """The GF(2) (mask, corr) arenas before each wave of prog, from the
+    plain version's GF(2) waves on the inputs."""
+    states = []
+    st = dict(mask2=torch.zeros((prog.n_vals + 1, R), dtype=torch.uint8),
+              corr2=torch.zeros((prog.n_vals + 1, R), dtype=torch.uint8),
+              onl2=torch.zeros((cc.onl2 + 1, R), dtype=torch.uint8),
+              pre2=torch.zeros((cc.pre2 + 1, R), dtype=torch.uint8),
+              fail=torch.zeros(R, dtype=torch.bool))
+    x = on({k: inp[k] for k in ("tape", "wit2", "in2", "co2", "re2") if k in inp}, CPU)
+    xin = x.get("wit2") if mode == 0 else x.get("in2")
+    cols = prog.table.to(torch.int64).permute(0, 2, 1)
+    for w in range(cols.shape[0]):
+        states.append((st["mask2"].numpy().copy(), st["corr2"].numpy().copy()))
+        scan._gf2_wave(st, cols[w].contiguous(), mode, x["tape"], scan._rows(xin, R, CPU),
+                       scan._rows(x.get("co2"), R, CPU), scan._rows(x.get("re2"), R, CPU))
+    return states
+
+
+def assert_z64_events(got: dict, want: dict, prog, cc, mode: int) -> None:
+    """An emulation's onlz, prez, B2A onl2 rows and z64 fails against the
+    plain version's outputs."""
+    for key, n in (("onlz", cc.onlz), ("prez", cc.prez)):
+        np.testing.assert_array_equal(got[key][:n], want[key][:n].numpy(), err_msg=key)
+    for row, ev in got["onl2"].items():
+        np.testing.assert_array_equal(ev, want["onl2"][row : row + 64].numpy())
+    n_out = int((prog.ztable[..., scan._ZOP] == B2A_OUT).sum())
+    assert n_out and len(got["onl2"]) == (0 if mode == 2 else n_out)
+    if mode != tex.VERIFY_PRE:
+        assert not (got["fail"] & ~want["fail"].numpy()).any()
+
+
 @pytest.mark.parametrize("mode", MODES)
 def test_emulated_w2_equals_the_plain_version(circuits, mode):
     """The z64 slot table's words, emulated as W2 reads them (emulate_z64),
@@ -245,30 +279,140 @@ def test_emulated_w2_equals_the_plain_version(circuits, mode):
         prog = scan.circuit_program(cc, mode, CPU, R, capacityz=capz)
         assert (prog.n_spillz > 0) == (capz == 1)
         want = scan.ScanExecutor(cc, mode, R, CPU)(on(inp, CPU))
-        # the GF(2) arenas before each wave, from the plain version itself
-        states = []
-        st = dict(mask2=torch.zeros((prog.n_vals + 1, R), dtype=torch.uint8),
-                  corr2=torch.zeros((prog.n_vals + 1, R), dtype=torch.uint8),
-                  onl2=torch.zeros((cc.onl2 + 1, R), dtype=torch.uint8),
-                  pre2=torch.zeros((cc.pre2 + 1, R), dtype=torch.uint8),
-                  fail=torch.zeros(R, dtype=torch.bool))
-        x = on({k: inp[k] for k in ("tape", "wit2", "in2", "co2", "re2") if k in inp}, CPU)
-        xin = x.get("wit2") if mode == 0 else x.get("in2")
-        cols = prog.table.to(torch.int64).permute(0, 2, 1)
-        for w in range(cols.shape[0]):
-            states.append((st["mask2"].numpy().copy(), st["corr2"].numpy().copy()))
-            scan._gf2_wave(st, cols[w].contiguous(), mode, x["tape"], scan._rows(xin, R, CPU),
-                           scan._rows(x.get("co2"), R, CPU), scan._rows(x.get("re2"), R, CPU))
+        states = gf2_states(prog, mode, inp, cc, R)
         got = emulate_z64(prog.ztable.numpy(), prog.bits.numpy(), mode, inp, prog.n_valsz,
                           lambda w: states[w], cc)
-        for key, n in (("onlz", cc.onlz), ("prez", cc.prez)):
-            np.testing.assert_array_equal(got[key][:n], want[key][:n].numpy(), err_msg=key)
-        for row, ev in got["onl2"].items():
-            np.testing.assert_array_equal(ev, want["onl2"][row : row + 64].numpy())
-        n_out = int((prog.ztable[..., scan._ZOP] == B2A_OUT).sum())
-        assert n_out and len(got["onl2"]) == (0 if mode == 2 else n_out)
-        if mode != tex.VERIFY_PRE:
-            assert not (got["fail"] & ~want["fail"].numpy()).any()
+        assert_z64_events(got, want, prog, cc, mode)
+
+
+def _put8(rows, row, v):
+    rows[row : row + 8] = ((v[None, :] >> (8 * np.arange(8, dtype=np.uint64))[:, None])
+                           & 0xFF).astype(np.uint8)
+
+
+def _compose(bits64):
+    return (bits64.astype(np.uint64) << np.arange(64, dtype=np.uint64)[:, None]).sum(0)
+
+
+def _parity(v):
+    return np.vectorize(lambda b: bin(int(b)).count("1") & 1)(v).astype(np.uint64)
+
+
+def emulate_staged(packed, bits: np.ndarray, mode: int, inp: dict, n_sharedz: int,
+                   n_spillz: int, gf2_state, cc, chunk: int) -> dict:
+    """W2's z64 half as csrc/scan_z64.cu stages and runs it, in numpy over
+    the R reps as one block: for each chunk of waves, its staged words from
+    its fields of pack_ztable (field e's word for rep x at words[e, x]; a
+    re2 field's eight rows of R bytes in its R words) and its bits rows;
+    each slot decoded once from its packed words (its operands and its
+    destination settled in shared memory or the spill arena, its first
+    staged word and bits row counted from the chunk's) and run on them."""
+    zslots, zfields, zoff = packed
+    R = inp["tapez"].shape[2]
+    u = lambda a: np.ascontiguousarray(a).view(np.uint64)  # noqa: E731
+    src = {0: u(inp["tapez"]).reshape(-1, R), 1: inp.get("witz" if mode == 0 else "inz"),
+           2: inp.get("coz"), 3: None if "rez" not in inp else u(inp["rez"]).reshape(-1, R)}
+    shared = np.zeros((n_sharedz, 9, R), dtype=np.uint64)
+    spill = np.zeros((max(n_spillz, 1), 9, R), dtype=np.uint64)
+    onlz = np.zeros((max(cc.onlz, 1), R), dtype=np.uint8)
+    prez = np.zeros((max(cc.prez, 1), R), dtype=np.uint8)
+    onl2, fail = {}, np.zeros(R, dtype=bool)
+    f = zfields.view(np.uint32).astype(np.int64)
+
+    def ref(s):
+        return (shared, s) if s < n_sharedz else (spill, s - n_sharedz)
+
+    with np.errstate(over="ignore"):
+        for ci, w0 in enumerate(range(0, zslots.shape[0], chunk)):
+            fields = f[zoff[ci, 0] : zoff[ci + 1, 0]]
+            words = np.zeros((len(fields), R), dtype=np.uint64)
+            for e, field in enumerate(fields):
+                source, row = field >> 29, field & 0x1FFFFFFF
+                if source == 4:  # eight re2 rows, R bytes each
+                    words[e].view(np.uint8)[:] = inp["re2"][row : row + 8].reshape(-1)
+                else:
+                    words[e] = u(src[source][row])
+            brows = bits[zoff[ci, 1] : zoff[ci + 1, 1]]
+            for w in range(w0, min(w0 + chunk, zslots.shape[0])):
+                m2, c2 = gf2_state(w)
+                new = []
+                for word in zslots[w].view(np.uint32).astype(np.int64):
+                    op = word[0] & 0xFF
+                    if op == _NOP:
+                        continue
+                    dst, (aa, ai), (ba, bi) = ref(word[0] >> 8), ref(word[1]), ref(word[2])
+                    A, B = aa[ai], ba[bi]
+                    e, row = word[3] & 0xFFFF, word[3] >> 16
+                    onl, pre = word[4], word[5]
+                    k = np.uint64(word[7] << 32 | word[6])
+                    IN = words[e : e + 25]
+                    out = np.zeros((9, R), dtype=np.uint64)
+                    if op == 5:  # MUL: t0, t1, rez, coz
+                        s = B[:8] * A[8] + A[:8] * B[8] + IN[0:8] - IN[8:16]
+                        if mode == 1:
+                            s = s + IN[16:24]
+                        d = IN[24] if mode == 1 else A[:8].sum(0) * B[:8].sum(0) - IN[0:8].sum(0)
+                        out[:8] = IN[8:16]
+                        out[8] = (np.uint64(0) if mode == 2 else s.sum(0) + d) + A[8] * B[8]
+                        _put8(prez, pre, d)
+                        if mode != 2:
+                            for p in range(8):
+                                _put8(onlz, onl + 8 * p, s[p])
+                    elif op == G_ASSERT:
+                        if mode != 2:
+                            s = A[:8] + (IN[0:8] if mode == 1 else np.uint64(0))
+                            fail |= (s.sum(0) + A[8]) != 0
+                            for p in range(8):
+                                _put8(onlz, onl + 8 * p, s[p])
+                        continue
+                    elif op in (0, 7, B2A_CORR):  # INPUT, RANDOM, B2A_CORR: t0, then xin / coz
+                        out[:8] = IN[0:8]
+                        if op == 0 and mode != 2:
+                            out[8] = IN[8] - (IN[0:8].sum(0) if mode == 0 else np.uint64(0))
+                            _put8(onlz, onl, out[8])
+                        elif op == B2A_CORR:
+                            out[8] = (IN[8] if mode == 1 else
+                                      _compose(_parity(m2[brows[row]])) - IN[0:8].sum(0))
+                            _put8(prez, pre, out[8])
+                    elif op == B2A_OUT:  # re2's 64 rows in the eight words
+                        sb = m2[brows[row]].astype(np.uint64)
+                        if mode == 1:
+                            sb ^= IN[0:8].view(np.uint8).reshape(64, R)
+                        ob = c2[brows[row]] if mode == 2 else _parity(sb) ^ c2[brows[row]]
+                        out[:8] = np.uint64(0) - B[:8]
+                        out[8] = _compose(ob) - B[8]
+                        if mode != 2:
+                            onl2[int(onl)] = sb.astype(np.uint8)
+                    else:  # ADD, SUB, ADDC, SUBC, MULC, CONST
+                        out[:8] = {1: A[:8] + B[:8], 9: A[:8] - B[:8], 4: A[:8] * k,
+                                   8: np.zeros_like(A[:8])}.get(op, A[:8])
+                        out[8] = {1: A[8] + B[8], 9: A[8] - B[8], 2: A[8] + k, 3: A[8] - k,
+                                  4: A[8] * k, 8: np.full(R, k)}[op]
+                    new.append((dst, out))
+                for (arr, i), out in new:  # after the wave's reads, as after its barrier
+                    arr[i] = out
+    return dict(onlz=onlz, prez=prez, onl2=onl2, fail=fail)
+
+
+@pytest.mark.parametrize("chunk", [4, 32, 1])
+@pytest.mark.parametrize("R", [16, 13])
+@pytest.mark.parametrize("mode", MODES)
+def test_staged_w2_equals_the_plain_version(circuits, mode, R, chunk):
+    """pack_ztable's packed slots and each chunk's staged words and bits
+    rows, emulated at the offsets W2 reads them (emulate_staged), give the
+    plain version's onlz, prez, B2A onl2 rows and z64 fails: deep B2A with
+    its z64 slots shared and spilled, a random mixed program spilled."""
+    for name, capz in (("deep_b2a", 0), ("deep_b2a", 1), ("random4", 1)):
+        _, cc = circuits(name)
+        inp = executor_inputs(cc, mode, R, seed=5 * R + mode)
+        prog = scan.circuit_program(cc, mode, CPU, R, capacityz=capz)
+        assert (prog.n_spillz > 0) == (capz == 1)
+        want = scan.ScanExecutor(cc, mode, R, CPU)(on(inp, CPU))
+        states = gf2_states(prog, mode, inp, cc, R)
+        packed = scan.pack_ztable(prog.ztable.numpy(), mode, chunk)
+        got = emulate_staged(packed, prog.bits.numpy(), mode, inp, prog.n_sharedz,
+                             prog.n_spillz, lambda w: states[w], cc, chunk)
+        assert_z64_events(got, want, prog, cc, mode)
 
 
 # -- proofs ---------------------------------------------------------------------
