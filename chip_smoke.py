@@ -129,11 +129,32 @@ prints no result line:
      subprocesses' proof files (SHA-256, streamed too, and 1M-AND) read
      with Proof.from_bytes and verified here by the TorchKKW make_system
      gave;
- 14. one JSON line of kernels, the nvidia-smi line, and the last line
+ 14. the mesh phase (mesh_phase): the lanes of every stage sharded over
+     a mesh of shards on cuda:0 (reverie_tpu_torch.parallel), each path's
+     launches counted from 0 just before it and read just after.  4
+     shards: phase 4's circuit and seeds, the proof equal to phase 4's,
+     verify True, a flipped byte False, sharded and unsharded walls in
+     turns with their phases, the launches per kernel, the peak memory
+     against device_footprint (at most 1.25x); the 50k-AND golden digest.
+     12 shards (dividing none of 256, 40, 216): the SHA-256 statement
+     equal to its digest (W1) and tests/golden/b2a_proof.bin (W2), and K1,
+     K4, K3, W1 and W2 against their plain versions at the shard widths
+     (R = 22, 21, 4, 3, 18 in their roles).  48 shards (more than the 40
+     online reps) on 200 ANDs.  make_system at 512 MiB on 4 shards (1M
+     ANDs, equal to phase 4's proof, the peak within the budget) and the
+     z64 chain in 1,000-op segments on 4 shards (W2 with carries).  Two
+     processes on cuda:0 (this script with --mesh-child, gloo over
+     loopback): a global-mesh 1M-AND proof equal to phase 4's, verified in
+     both, and prove_batch_distributed of 8 and 7 SHA-256 statements, each
+     proof equal to TorchKKW.prove's with its seeds.  With two cards, 4
+     shards' case again on make_mesh(2); else a line that it was skipped.
+     K1, K3, K4, W1 and W2 must each launch;
+ 15. one JSON line of kernels, the nvidia-smi line, and the last line
      {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or reverie_tpu.  Needs the CUDA toolkit (nvcc), gcc
-and one card.
+and one card.  `python3 chip_smoke.py --mesh-child RANK N PORT DIR` is one
+process of phase 14's two-process case, started by the phase itself.
 """
 
 from __future__ import annotations
@@ -393,7 +414,9 @@ def main_path(dev, tag: str, make, domain: str, rng, executor_kernel: str = "") 
     """Prove and verify one circuit, cold then warm, through TorchKKW; a
     proof with one flipped recon byte in a `domain` online opening must
     not verify; with `executor_kernel`, each leg's executor phase must have
-    launched it.  Returns the kernels' launch counts of the run."""
+    launched it.  Returns the kernels' launch counts of the run
+    ('launches'), the program, witnesses and compiled circuit ('prog',
+    'w2', 'wz', 'cc'), the seeds and the proof."""
     from reverie_tpu_torch import TorchKKW
 
     t0 = time.perf_counter()
@@ -449,7 +472,7 @@ def main_path(dev, tag: str, make, domain: str, rng, executor_kernel: str = "") 
     log(tag, f"tampered {domain} online opening verify={tampered}")
     if tampered is not False:
         raise AssertionError(f"{tag}: a tampered proof verified")
-    return launches
+    return dict(launches=launches, prog=prog, w2=w2, wz=wz, cc=cc, seeds=seeds, proof=proof)
 
 
 def flipped(proof, domain: str):
@@ -1769,6 +1792,383 @@ def cli_phase(rng) -> dict:
     return launches
 
 
+# -- phase 14: the mesh --------------------------------------------------------
+
+#: the lanes of a shard of the 12-shard mesh in each leg (256 -> 22 / 21,
+#: 40 -> 4 / 3, 216 -> 18) and the role that runs them
+SHARD_WIDTHS = ((0, 22), (0, 21), (1, 4), (1, 3), (2, 18))
+#: the small GF(2) circuit of the 48-shard case (more shards than the 40
+#: online reps): its streams fit one BLAKE3 chunk, so that each of the 48
+#: shards' hash tails is short (25.5 s on an H100 at 2,000 ANDs)
+MESH_SMALL_ANDS = 200
+#: the two-process case: its processes (all on cuda:0) and the SHA-256
+#: statements of its prove_batch_distributed (then one fewer: uneven slices)
+MESH_PROCESSES, MESH_BATCH = 2, 8
+#: the first argument that makes this script one of those processes
+MESH_CHILD = "--mesh-child"
+#: the card every shard of the one-card meshes runs on
+MESH_DEVICE = "cuda:0"
+
+
+def card_mesh(k: int):
+    """k shards of this process on MESH_DEVICE."""
+    from reverie_tpu_torch.parallel import make_mesh
+
+    return make_mesh(devices=[torch.device(MESH_DEVICE)] * k)
+
+
+def counted(acc: dict, fn):
+    """fn(), with the launch counts set to 0 just before it and added into
+    acc just after."""
+    reset_launches()
+    out = fn()
+    for k, v in launch_counts().items():
+        acc[k] = acc.get(k, 0) + v
+    return out
+
+
+def shard_inputs(rng, cc, mode: int, R: int) -> dict:
+    """Random executor inputs of a role at R lanes on the host: both tapes;
+    the witnesses (prove); or (online verify) the tapes zero at each rep's
+    omitted player, the input and correction records, the GF(2) recon bits
+    at that player's bit and the z64 recon words at its share."""
+    def bits(n: int, high: int = 2):
+        return rng.randint(0, high, (n, R), dtype=np.uint8)
+
+    def words(*shape):
+        return rng.randint(-2**63, 2**63 - 1, shape, dtype=np.int64)
+
+    inp = {"tape": bits(cc.m2, 256), "tapez": words(cc.mz, 8, R)}
+    if mode == 0:
+        inp.update(wit2=bits(cc.n_wit2), witz=words(cc.n_witz, R))
+    elif mode == 1:
+        omit = rng.randint(0, 8, R)
+        inp["tape"] &= ~(0x80 >> omit).astype(np.uint8)
+        inp["tapez"] *= np.arange(8)[:, None] != omit
+        inp.update(in2=bits(cc.n_inputs2), co2=bits(cc.n_corrs2),
+                   re2=(bits(cc.n_recons2) << (7 - omit)).astype(np.uint8),
+                   inz=words(cc.n_inputsz, R), coz=words(cc.n_corrsz, R),
+                   rez=words(cc.n_reconsz, 1, R) * (np.arange(8)[:, None] == omit))
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in inp.items()}
+
+
+def mesh_kernels(dev, rng, sha_cc, b2a_cc, checks: dict) -> None:
+    """The kernels of the 12-shard path at its shard widths (SHARD_WIDTHS),
+    each byte-equal to its plain version on the same inputs: K1 at the
+    SHA-256 statement's m2 and K4 at the B2A golden's mz (random omits on
+    the online widths), K3 on the SHA-256 onl2 rows; W1 on the SHA-256
+    statement's and W2 on the B2A golden's wave programs in each width's
+    role, every output against the plain version's on the CPU (one plain
+    run a role over the lanes of all its widths side by side: the lanes
+    are independent)."""
+    from reverie_tpu_torch.backend import scan
+    from reverie_tpu_torch.crypto.kernels import aes_tape, aes_tape_z64, blake3 as b3
+
+    cpu = torch.device("cpu")
+    for mode, R in SHARD_WIDTHS:
+        line = f"shard width R={R} ({ROLES[mode]})"
+        rk = aes_tape.round_keys(rng.randint(0, 256, (R, 8, 16), dtype=np.uint8), dev)
+        omit = None if mode != 1 else torch.from_numpy(
+            rng.randint(0, 8, R).astype(np.uint8)).to(dev)
+        check("aes_tape_gf2", checks["aes_tape_gf2"], aes_tape.aes_ctr_tape_gf2(
+            rk, sha_cc.m2, omit), aes_tape.aes_ctr_tape_gf2_ref(rk, sha_cc.m2, omit),
+            f"{line} m2={sha_cc.m2}")
+        check("aes_tape_z64", checks["aes_tape_z64"], aes_tape_z64.aes_ctr_tape_z64(
+            rk, b2a_cc.mz, omit), aes_tape_z64.aes_ctr_tape_z64_ref(rk, b2a_cc.mz, omit),
+            f"{line} mz={b2a_cc.mz}")
+        n = sha_cc.onl2 // b3.CHUNK_LEN
+        buf = torch.from_numpy(rng.randint(0, 256, (sha_cc.onl2, R), dtype=np.uint8)).to(dev)
+        check("blake3_chunk_cvs", checks["blake3_chunk_cvs"], b3.chunk_cvs(buf, n),
+              b3.chunk_cvs_ref(buf, n), f"{line} n={n}")
+    for name, cc in (("scan_gf2", sha_cc), ("scan_z64", b2a_cc)):
+        for mode in ROLES:
+            widths = [R for m, R in SHARD_WIDTHS if m == mode]
+            inp = shard_inputs(rng, cc, mode, sum(widths))
+            want = scan.ScanExecutor(cc, mode, sum(widths), cpu)(inp)
+            off = 0
+            for R in widths:
+                got = scan.ScanExecutor(cc, mode, R, dev)(
+                    {k: v[..., off : off + R].contiguous().to(dev) for k, v in inp.items()})
+                for key in WAVE_OUTS:
+                    check(name, checks[name], got[key].cpu(), want[key][..., off : off + R],
+                          f"shard width R={R} ({ROLES[mode]}) {key}")
+                off += R
+
+
+def mesh_prove(dev, tag: str, mesh, main: dict, acc: dict) -> None:
+    """The GF(2) main path on a mesh (phase 14's cases 1 and 6): the proof
+    of phase 4's circuit and seeds equal to phase 4's, verify True, a
+    flipped byte False; sharded and unsharded walls in turns with their
+    phases; the launches of the sharded prove and verify; the peak
+    max_memory_allocated of a sharded prove against device_footprint (at
+    most PEAK_OVER_FOOTPRINT x)."""
+    from reverie_tpu_torch import TorchKKW, device_footprint
+
+    prog, w2, wz, cc, seeds = (main[k] for k in ("prog", "w2", "wz", "cc", "seeds"))
+    want = main["proof"].to_bytes()
+    kkw = TorchKKW(prog, cc=cc, mesh=mesh)
+    one = TorchKKW(prog, cc=cc, device=dev)
+    launches: dict = {}
+    proof, t = counted(launches, lambda: wall(lambda: kkw.prove(w2, wz, seeds=seeds)))
+    log(tag, f"shards={len(mesh)} cold prove wall_s={t:.4f} equal_to_phase_4={proof.to_bytes() == want}")
+    if proof.to_bytes() != want:
+        raise AssertionError(f"{tag}: the sharded proof differs from the unsharded one")
+    one.prove(w2, wz, seeds=seeds)  # warm
+    walls = {"unsharded": [], "sharded": []}
+    for who in ("unsharded", "sharded", "sharded", "unsharded"):
+        system = one if who == "unsharded" else kkw
+        _, t = wall(lambda: system.prove(w2, wz, seeds=seeds))
+        walls[who].append(t)
+        log(tag, f"warm prove {who} wall_s={t:.4f} phases "
+            + json.dumps(phase_summary(system.last_timings)))
+    for who, system in (("unsharded", one), ("sharded", kkw)):
+        ok, t = wall(lambda: system.verify(proof))
+        log(tag, f"verify {who}={ok} wall_s={t:.4f} phases "
+            + json.dumps(phase_summary(system.last_timings)))
+        if ok is not True:
+            raise AssertionError(f"{tag}: the {who} verify rejected the proof")
+    del one
+    ok = counted(launches, lambda: kkw.verify(proof))
+    for k, v in launches.items():
+        acc[k] = acc.get(k, 0) + v
+    log(tag, f"walls_s={json.dumps(walls)} launches(cold prove + verify)="
+        f"{json.dumps({k: v for k, v in launches.items() if v})}")
+    tampered = kkw.verify(flipped(proof, "gf2"))
+    log(tag, f"tampered gf2 online opening verify={tampered}")
+    if ok is not True or tampered is not False:
+        raise AssertionError(f"{tag}: a sharded verdict is wrong")
+    gc.collect()
+    torch.cuda.empty_cache()
+    fp = device_footprint(cc, 256)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    kkw.prove(w2, wz, seeds=seeds)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    log(tag, f"sharded prove peak_bytes={peak} allocated_before={base} footprint={fp} "
+        f"peak/footprint={peak / fp:.4f}")
+    if peak > PEAK_OVER_FOOTPRINT * fp:
+        raise AssertionError(f"{tag}: peak {peak} B above {PEAK_OVER_FOOTPRINT} x footprint")
+
+
+def mesh_child(rank: str, nproc: str, port: str, out: str) -> int:
+    """One process of phase 14's two-process case (started by mesh_phase
+    with MESH_CHILD): joins the gloo group, proves the 1M-AND circuit on a
+    global mesh of every process's cuda:0 (equal to phase 4's proof,
+    verified), then prove_batch_distributed of MESH_BATCH and MESH_BATCH -
+    1 SHA-256 statements (equal to TorchKKW.prove's with their seeds);
+    writes its walls and verdicts to <out>/child_<rank>.json."""
+    import datetime
+
+    from reverie_tpu_torch import TorchKKW
+    from reverie_tpu_torch import parity as golden
+    from reverie_tpu_torch.circuit.builders import mul_bench_circuit
+    from reverie_tpu_torch.parallel import distributed as dist
+
+    d, rank = Path(out), int(rank)
+    dist.initialize(f"127.0.0.1:{port}", int(nproc), rank,
+                    timeout=datetime.timedelta(seconds=300))
+    dev = torch.device(MESH_DEVICE)
+    gm = dist.global_mesh(devices=[dev])
+    res = {"rank": rank, "shards": len(gm), "multiprocess": dist.mesh_is_multiprocess(gm)}
+    prog, w2, wz = mul_bench_circuit(N_MUL)
+    seeds = np.load(d / "seeds.npy")
+    kkw = TorchKKW(prog, mesh=gm)
+    for run in ("cold", "warm"):
+        proof, res[f"{run}_prove_s"] = wall(lambda: kkw.prove(w2, wz, seeds=seeds))
+    res["prove_phases"] = phase_summary(kkw.last_timings)
+    res["equal_to_phase_4"] = proof.to_bytes() == (d / "proof.bin").read_bytes()
+    res["verify"], res["verify_s"] = wall(lambda: kkw.verify(proof))
+    res["tampered_verify"] = kkw.verify(flipped(proof, "gf2"))
+    del kkw
+    sha, sha_w2, sha_wz, _ = golden.inputs(golden.CASES["sha256_1block"])
+    sha_seeds = np.load(d / "sha_seeds.npy")
+    system = TorchKKW(sha, device=dev)
+    for n in (MESH_BATCH, MESH_BATCH - 1):
+        got, res[f"batch{n}_s"] = wall(lambda: dist.prove_batch_distributed(
+            system, [(sha_w2, sha_wz)] * n, sha_seeds[:n]))
+        res[f"batch{n}_equal"] = [p.to_bytes() == (d / f"sha_{i}.bin").read_bytes()
+                                  for i, p in enumerate(got)]
+    (d / f"child_{rank}.json").write_text(json.dumps(res))
+    ok = (res["equal_to_phase_4"] and res["verify"] is True and res["tampered_verify"] is False
+          and all(res[f"batch{MESH_BATCH}_equal"]) and all(res[f"batch{MESH_BATCH - 1}_equal"]))
+    return 0 if ok else 1
+
+
+def mesh_processes(dev, main: dict) -> None:
+    """Phase 14's two-process case: MESH_PROCESSES copies of this script on
+    cuda:0 (mesh_child) over a gloo group on a free loopback port, handed
+    phase 4's seeds and proof and the SHA-256 references
+    (TorchKKW.prove with each seed) through a temporary directory; every
+    child must exit 0 within its limit."""
+    import socket
+
+    from reverie_tpu_torch import TorchKKW
+    from reverie_tpu_torch import parity as golden
+
+    with tempfile.TemporaryDirectory() as tmp, socket.socket() as sock:
+        d = Path(tmp)
+        np.save(d / "seeds.npy", main["seeds"])
+        (d / "proof.bin").write_bytes(main["proof"].to_bytes())
+        sha, sha_w2, sha_wz, _ = golden.inputs(golden.CASES["sha256_1block"])
+        sha_seeds = np.random.RandomState(14).randint(0, 256, (MESH_BATCH, 256, 16),
+                                                      dtype=np.uint8)
+        np.save(d / "sha_seeds.npy", sha_seeds)
+        system = TorchKKW(sha, device=dev)
+        for i, s in enumerate(sha_seeds):
+            (d / f"sha_{i}.bin").write_bytes(system.prove(sha_w2, sha_wz, seeds=s).to_bytes())
+        del system
+        sock.bind(("127.0.0.1", 0))
+        port = str(sock.getsockname()[1])
+        sock.close()
+        env = dict(os.environ, PYTHONPATH=str(ROOT))
+        t = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), MESH_CHILD,
+                                   str(i), str(MESH_PROCESSES), port, tmp], env=env,
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for i in range(MESH_PROCESSES)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=300)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        log("mesh_procs", f"processes={MESH_PROCESSES} on cuda:0 wall_s="
+            f"{time.perf_counter() - t:.3f} rcs={[p.returncode for p in procs]}")
+        for i, (p, text) in enumerate(zip(procs, outs)):
+            res = d / f"child_{i}.json"
+            log("mesh_procs", res.read_text() if res.exists() else "no result")
+            if p.returncode != 0:
+                raise AssertionError(f"mesh child {i} exited {p.returncode}:\n{text[-3000:]}")
+
+
+def mesh_phase(dev, rng, checks: dict, main: dict) -> dict:
+    """Phase 14, lanes sharded over a mesh (reverie_tpu_torch.parallel) on
+    one card: 4 shards on phase 4's path; 12 shards (a non-divisor of 256,
+    40 and 216) on the SHA-256 statement (W1) and the B2A golden (W2), and
+    the kernels at those shard widths against their plain versions; 48
+    shards (more than the 40 online reps) on a small GF(2) circuit;
+    make_system's streaming on 4 shards (1M ANDs under 512 MiB, the z64
+    chain in 1,000-op segments); two processes on cuda:0; 4 shards on two
+    cards where there are two.  Each path's launches are counted from 0
+    just before it and read just after; K1, K3, K4, W1 and W2 must each
+    launch.  Returns those launches."""
+    from reverie_tpu_torch import StreamingKKW, TorchKKW, make_system
+    from reverie_tpu_torch import parity as golden
+    from reverie_tpu_torch.circuit import load_program
+    from reverie_tpu_torch.circuit.builders import mixed_b2a_circuit, mul_bench_circuit
+    from reverie_tpu_torch.parallel import lane_slices, make_mesh
+    from reverie_tpu_torch.proof import Proof
+    from reverie_tpu_torch.tools import wave_times
+
+    started = time.perf_counter()
+    acc: dict = {}
+    steps = {}
+
+    def step(name: str) -> None:
+        steps[name] = round(time.perf_counter() - started - sum(steps.values()), 3)
+
+    mesh4 = card_mesh(4)
+    # 1. four shards on phase 4's circuit and seeds, and the 50k-AND digest
+    mesh_prove(dev, "mesh4", mesh4, main, acc)
+    case = golden.CASES["gf2_50k"]
+    prog, w2, wz, seeds = golden.inputs(case)
+    got = counted(acc, lambda: TorchKKW(prog, mesh=mesh4).prove(w2, wz, seeds=seeds).to_bytes())
+    log("mesh4", f"gf2_50k equal_to_numpy_golden_digest={golden.matches(case, got)}")
+    if not golden.matches(case, got):
+        raise AssertionError("mesh4: the 50k-AND proof differs from the golden's")
+    step("mesh4")
+
+    # 2. twelve shards: SHA-256 (W1) and the B2A golden (W2)
+    mesh12 = card_mesh(12)
+    case = golden.CASES["sha256_1block"]
+    prog, w2, wz, seeds = golden.inputs(case)
+    kkw = TorchKKW(prog, mesh=mesh12)
+    for run in ("cold", "warm"):
+        proof, t = counted(acc, lambda: wall(lambda: kkw.prove(w2, wz, seeds=seeds)))
+        log("mesh12", f"sha256 {run} prove wall_s={t:.4f} phases "
+            + json.dumps(phase_summary(kkw.last_timings)))
+    one = TorchKKW(prog, cc=kkw.cc, device=dev)
+    one.prove(w2, wz, seeds=seeds)
+    _, t = wall(lambda: one.prove(w2, wz, seeds=seeds))
+    log("mesh12", f"sha256 unsharded warm prove wall_s={t:.4f} phases "
+        + json.dumps(phase_summary(one.last_timings)))
+    del one
+    ok, t = counted(acc, lambda: wall(lambda: kkw.verify(proof)))
+    log("mesh12", f"sha256 equal_to_golden_digest={golden.matches(case, proof.to_bytes())} "
+        f"verify={ok} wall_s={t:.4f} launches={json.dumps({k: v for k, v in acc.items() if v})}")
+    if not golden.matches(case, proof.to_bytes()) or ok is not True:
+        raise AssertionError("mesh12: the SHA-256 proof or its verify is wrong")
+    sha_cc = kkw.cc
+    del kkw
+    bprog = load_program((GOLDEN / "b2a_program.bin").read_bytes())
+    bseeds = np.frombuffer((GOLDEN / "b2a_seeds.bin").read_bytes(), np.uint8).reshape(256, 16)
+    blob = (GOLDEN / "b2a_proof.bin").read_bytes()
+    _, bw2, bwz = mixed_b2a_circuit()
+    kkw = TorchKKW(bprog, mesh=mesh12)
+    got = counted(acc, lambda: kkw.prove(bw2, bwz, seeds=bseeds).to_bytes())
+    ok = counted(acc, lambda: kkw.verify(Proof.from_bytes(blob)))
+    log("mesh12", f"golden b2a_proof.bin equal={got == blob} verify={ok} executors="
+        f"{sorted({type(e).__name__ for e in kkw._executors.values()})}")
+    if got != blob or ok is not True:
+        raise AssertionError("mesh12: the golden B2A proof was not reproduced")
+    step("mesh12")
+    mesh_kernels(dev, rng, sha_cc, kkw.cc, checks)
+    del kkw
+    step("mesh12_kernels")
+
+    # 3. 48 shards: more than the 40 online reps
+    mesh48 = card_mesh(48)
+    prog, w2, wz = mul_bench_circuit(MESH_SMALL_ANDS)
+    seeds = rng.randint(0, 256, (256, 16), dtype=np.uint8)
+    want = TorchKKW(prog, device=dev).prove(w2, wz, seeds=seeds).to_bytes()
+    kkw = TorchKKW(prog, mesh=mesh48)
+    proof = counted(acc, lambda: kkw.prove(w2, wz, seeds=seeds))
+    ok = counted(acc, lambda: kkw.verify(proof))
+    empty = sum(sl.stop == sl.start for sl in lane_slices(40, mesh48))
+    log("mesh48", f"mul_bench_circuit({MESH_SMALL_ANDS}) empty_online_shards={empty} "
+        f"equal={proof.to_bytes() == want} verify={ok}")
+    if proof.to_bytes() != want or ok is not True or empty != 8:
+        raise AssertionError("mesh48: the proof or its verify is wrong")
+    del kkw
+    step("mesh48")
+
+    # 4. streaming on four shards
+    sk = make_system(main["prog"], hbm_budget_bytes=STREAM_BUDGETS["gf2"], mesh=mesh4)
+    if not isinstance(sk, StreamingKKW) or sk.mesh is not mesh4:
+        raise AssertionError("mesh_stream: make_system did not stream on the mesh")
+    want = main["proof"].to_bytes()
+    stream_case(dev, "mesh_stream_gf2", sk, main["w2"], main["wz"], main["seeds"],
+                lambda b: b == want, "gf2", acc, STREAM_BUDGETS["gf2"])
+    del sk
+    prog, w2, wz = wave_times.z64_statements()["chain"]()
+    seeds = rng.randint(0, 256, (256, 16), dtype=np.uint8)
+    want = TorchKKW(prog, device=dev).prove(w2, wz, seeds=seeds).to_bytes()
+    sk = StreamingKKW(prog, STREAM_CHAIN_OPS, mesh=mesh4)
+    stream_case(dev, "mesh_stream_chain", sk, w2, wz, seeds, lambda b: b == want, "z64", acc)
+    del sk
+    step("mesh_stream")
+
+    # 5. two processes on one card; 6. two cards
+    mesh_processes(dev, main)
+    step("mesh_procs")
+    if torch.cuda.device_count() >= 2:
+        mesh_prove(dev, "mesh2cards", make_mesh(2), main, acc)
+    else:
+        log("mesh2cards", f"skipped: {torch.cuda.device_count()} CUDA device visible")
+    log("mesh", f"phase_s={time.perf_counter() - started:.1f} steps_s={json.dumps(steps)} "
+        f"launches={json.dumps(acc)}")
+    missing = [k for k in STREAM_KERNELS if not acc.get(k)]
+    if missing:
+        raise AssertionError(f"the mesh phase did not launch {missing}")
+    return acc
+
+
+
 KERNELS = (  # name, source, replaces (file:line of every TPU function)
     ("aes_tape_gf2", "reverie_tpu_torch/csrc/aes_tape.cu",
      "reverie_tpu/crypto/kernels/aes_pallas.py:128, reverie_tpu/crypto/kernels/aes_pallas.py:425"),
@@ -1798,6 +2198,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this test "
               "runs on a CUDA card only", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == [MESH_CHILD]:
+        return mesh_child(*sys.argv[2:])
     from reverie_tpu_torch import _build
     from reverie_tpu_torch.crypto import native
     from reverie_tpu_torch.device import default_device
@@ -1836,9 +2238,10 @@ def main() -> int:
               "copy": check_copy(dev, clock),
               "u32_to_u8_rows": check_u8emit(dev, clock),
               "pack_shift": check_pack_shift(dev, clock)}
-    gf2 = main_path(dev, "main", lambda: mul_bench_circuit(N_MUL), "gf2", rng)
+    main = main_path(dev, "main", lambda: mul_bench_circuit(N_MUL), "gf2", rng)
+    gf2 = main.pop("launches")
     parity(dev, "gf2_50k")
-    z64 = main_path(dev, "z64", lambda: z64_mul_bench_circuit(N_MUL_Z64), "z64", rng)
+    z64 = main_path(dev, "z64", lambda: z64_mul_bench_circuit(N_MUL_Z64), "z64", rng)["launches"]
     parity(dev, "z64_2k")
     checks["scan_gf2"], sha = sha256_phase(dev, rng, clock, ptxas)
     checks["scan_z64"], zw = z64_wave_phase(dev, rng, clock, ptxas)
@@ -1846,6 +2249,7 @@ def main() -> int:
     batch = batch_phase(dev, rng, checks)
     tools = probes(dev)
     cli = cli_phase(rng)
+    mesh = mesh_phase(dev, rng, checks, main)
 
     kernels = []
     for kname, source, replaces in KERNELS:
@@ -1853,7 +2257,7 @@ def main() -> int:
         kernels.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(run.get(kname, 0) for run in (gf2, z64, sha, zw, stream, batch,
-                                                          tools, cli)),
+                                                          tools, cli, mesh)),
             "max_abs_err": c["max_abs_err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
             "library_ms": c["library_ms"]})

@@ -1,7 +1,8 @@
 """reverie_tpu_torch -- the PyTorch / CUDA (H100) port of reverie_tpu.
 
 `TorchKKW` proves and verifies GF(2), Z_2^64 and B2A circuits on one CUDA
-card, one proof at a time or in batches and pipelines (`prove_batch`,
+card, or sharded over the cards and processes of a mesh (`parallel`), one
+proof at a time or in batches and pipelines (`prove_batch`,
 `prove_batch_chunked`, `prove_many`, `verify_many`; `device_footprint`,
 `pipeline_footprint` and `largest_batch` size a batch).  `StreamingKKW`
 proves and verifies a circuit segment by segment in O(segment) device
@@ -69,20 +70,21 @@ def make_system(program, params=DEFAULT_PARAMS, mesh=None, hbm_budget_bytes=None
                 device=None):
     """The prover and verifier for a circuit's size (reverie_tpu's
     make_system, its positional arguments in its order less `cache_key`):
-    a `TorchKKW` when its device_footprint fits the budget (device_budget),
-    else a `StreamingKKW` whose segments take about an eighth of the budget
-    each.  Both give the same proof bytes.  `device`, keyword-only,
-    defaults to the CUDA device."""
-    from .backend.host import check_program
+    a `TorchKKW` when its device_footprint at the full R fits the budget of
+    one device (device_budget), else a `StreamingKKW` whose segments take
+    about an eighth of the budget each.  Both give the same proof bytes.
+    `device`, keyword-only, defaults to the CUDA device; with a `mesh`
+    (reverie_tpu_torch.parallel) the system shards over it, and the budget
+    is read on its first device of this process."""
+    from .backend.host import Lanes, check_program
     from .circuit.compile import compile_program
     from .circuit.ir import Kind
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_system runs on one device; sharding over several is ROADMAP Queue 1 item 12")
     check_program(program)
-    device = default_device() if device is None else torch.device(device)
-    budget = device_budget(device, hbm_budget_bytes)
+    lanes = Lanes(mesh, device)
+    budget = device_budget(lanes.device, hbm_budget_bytes)
+    # the system is made on the mesh, or else on the one device
+    where = dict(mesh=mesh) if mesh is not None else dict(device=lanes.device)
     R = params.total_reps
     # a lower bound of the footprint, bytes a rep per op, that skips the
     # compile of circuits far past the budget: a GF(2) op makes at least one
@@ -93,10 +95,10 @@ def make_system(program, params=DEFAULT_PARAMS, mesh=None, hbm_budget_bytes=None
     lower = R * sum(per_op.get(op.kind, 0) for op in program)
     if lower > 4 * budget:
         seg_ops = max(1, int(len(program) * (budget / 8) / lower))
-        return StreamingKKW(program, seg_ops, params=params, device=device)
+        return StreamingKKW(program, seg_ops, params=params, **where)
     cc = compile_program(program)
     total = device_footprint(cc, R)
     if total <= budget:
-        return TorchKKW(program, device=device, params=params, cc=cc)
+        return TorchKKW(program, params=params, cc=cc, **where)
     seg_ops = max(1, int(len(program) * (budget / 8) / max(total, 1)))
-    return StreamingKKW(program, seg_ops, params=params, device=device)
+    return StreamingKKW(program, seg_ops, params=params, **where)

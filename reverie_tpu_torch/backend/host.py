@@ -1,4 +1,4 @@
-"""Host orchestration of the prove / verify path on one device.
+"""Host orchestration of the prove / verify path on one device or a mesh.
 
 Port of reverie_tpu/backend/tpu_host.py's `TpuKKW` (`_gf2_tape`,
 `_z64_tape`, `_hash_fn`, `prove`, `prove_batch`, `prove_batch_chunked`,
@@ -24,6 +24,14 @@ challenge, the blake3 of the rep hashes and proof assembly, as in the
 reference.  Each stage ends in an asynchronous device -> host pull that the
 next stage waits on, so that in a pipeline one proof's host work overlaps
 the next one's device work.
+
+On a mesh (reverie_tpu_torch.parallel; `Lanes`) every device stage runs on
+each shard, over its contiguous slice of the stage's lanes, exactly as on
+one device at that lane count; each stage is dispatched on every shard
+before the next.  The pulled rep hashes and opened records meet in host
+memory in lane order (on a mesh over several processes, all-gathered over
+gloo), where the challenge and assembly run as before: the proof bytes do
+not depend on the mesh.
 """
 
 from __future__ import annotations
@@ -31,7 +39,7 @@ from __future__ import annotations
 import os
 import time
 from contextlib import contextmanager
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,6 +57,8 @@ from ..proof.container import (
     ProofSingle,
 )
 from ..device import default_device
+from ..parallel.distributed import _allgather_rows, gather_rows, mesh_is_multiprocess
+from ..parallel.mesh import check_mesh, lane_slices, process_index
 from . import scan
 from .executor import (
     PROVER,
@@ -84,43 +94,45 @@ def launch_counts() -> Dict[str, int]:
 
 
 class PhaseTimer:
-    """Per phase: host wall time (time.perf_counter), the stream time between
-    two CUDA events on a CUDA device, and the kernel launches made."""
+    """Per phase: host wall time (time.perf_counter), the stream time
+    between two CUDA events on each CUDA device of `devices` (the longest
+    reported: on a mesh the phase ends with its slowest card), and the
+    kernel launches made."""
 
-    def __init__(self, device: torch.device):
-        self.device = device
+    def __init__(self, devices: Sequence[torch.device]):
+        cuda = [torch.device("cuda", torch.cuda.current_device() if d.index is None else d.index)
+                for d in map(torch.device, devices) if d.type == "cuda"]
+        self.devices = list(dict.fromkeys(cuda))
         self._rows = []
 
     @contextmanager
     def phase(self, name: str):
-        ev = None
-        if self.device.type == "cuda":
-            ev = (torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-            ev[0].record()
+        evs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+               for _ in self.devices]
+        for d, ev in zip(self.devices, evs):
+            ev[0].record(torch.cuda.current_stream(d))
         l0 = launch_counts()
         t0 = time.perf_counter()
         try:
             yield
         finally:
             host_ms = (time.perf_counter() - t0) * 1e3
-            if ev is not None:
-                ev[1].record()
+            for d, ev in zip(self.devices, evs):
+                ev[1].record(torch.cuda.current_stream(d))
             l1 = launch_counts()
-            self._rows.append((name, host_ms, ev,
-                               {k: l1[k] - l0[k] for k in l0}))
+            self._rows.append((name, host_ms, evs, {k: l1[k] - l0[k] for k in l0}))
 
     def report(self) -> Dict[str, dict]:
         """{phase: {host_ms, device_ms (None off CUDA), launches}}."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for d in self.devices:
+            torch.cuda.synchronize(d)
         return {
             name: {
                 "host_ms": host_ms,
-                "device_ms": ev[0].elapsed_time(ev[1]) if ev else None,
+                "device_ms": max((a.elapsed_time(b) for a, b in evs), default=None),
                 "launches": launches,
             }
-            for name, host_ms, ev, launches in self._rows
+            for name, host_ms, evs, launches in self._rows
         }
 
 
@@ -475,15 +487,93 @@ def check_program(program: Sequence[CombineOp]) -> None:
                 "(reverie_tpu_torch.circuit.load_program)")
 
 
+class Lanes:
+    """Where the lanes of a device stage run, and how their host buffers
+    meet: on one device (`device`, by default the CUDA device, raising
+    without one), or on the shards of a mesh (parallel.Mesh), each holding
+    a contiguous slice of every stage's lanes (parallel.lane_slices).  A
+    mesh that is not the port's raises TypeError."""
+
+    def __init__(self, mesh=None, device: Optional[torch.device] = None):
+        self.mesh = check_mesh(mesh)
+        if mesh is None:
+            self.devices = [default_device() if device is None else torch.device(device)]
+        elif device is not None:
+            raise ValueError("pass a mesh or a device, not both: the mesh names the devices")
+        else:
+            self.devices = mesh.local_devices()
+            if not self.devices:
+                raise ValueError("the mesh has no shard in this process")
+        self.device = self.devices[0]
+
+    def split(self, R: int) -> List[Tuple[torch.device, slice]]:
+        """This process's shards at R lanes, (device, lanes) in lane order;
+        a shard with no lanes is left out (it launches nothing and adds
+        nothing to a gather).  Without a mesh: the one device, every lane."""
+        if self.mesh is None:
+            return [(self.device, slice(0, R))]
+        me = process_index()
+        return [(sh.device, sl) for sh, sl in zip(self.mesh.shards, lane_slices(R, self.mesh))
+                if sh.process == me and sl.stop > sl.start]
+
+    def gather(self, blocks: Sequence[np.ndarray], width: int) -> np.ndarray:
+        """Every shard's (rows, width) host block, in lane order, on every
+        process (parallel.gather_rows)."""
+        return gather_rows(self.mesh, blocks, width)
+
+    def seeds(self, seeds: Optional[np.ndarray], n: int, R: int) -> np.ndarray:
+        """(n, R, 16) rep seeds (_seeds); fresh ones are process 0's on a
+        mesh over several processes, so that every process proves the
+        same proof."""
+        fresh = seeds is None
+        seeds = _seeds(seeds, n, R)
+        if fresh and mesh_is_multiprocess(self.mesh):
+            seeds = _allgather_rows(seeds.reshape(n, -1))[:n].reshape(n, R, KEY_SIZE)
+        return seeds
+
+
+def _lane_columns(cols: np.ndarray, lanes: slice, R: int, device) -> torch.Tensor:
+    """Per-proof columns (n, N) over `lanes` of the proof-major N * R lane
+    axis: only the shard's proofs' columns are uploaded, each repeated
+    over its lanes on the device."""
+    proof = np.arange(lanes.start, lanes.stop) // R
+    ps, counts = np.unique(proof, return_counts=True)
+    t = torch.from_numpy(np.ascontiguousarray(cols[:, ps])).to(device)
+    return t.repeat_interleave(torch.as_tensor(counts, device=device), dim=1,
+                               output_size=len(proof))
+
+
+def _lanes_of(arrays: dict, lanes: slice) -> dict:
+    """The lanes (last axis) `lanes` of each host array."""
+    return {k: np.ascontiguousarray(v[..., lanes]) for k, v in arrays.items()}
+
+
+def opened_rows(omit: np.ndarray, lanes: slice) -> slice:
+    """The rows of the opened lanes (omit < 8, in lane order) that `lanes`
+    holds."""
+    before = np.cumsum(np.asarray(omit) < 8)
+    lo = int(before[lanes.start - 1]) if lanes.start else 0
+    return slice(lo, int(before[lanes.stop - 1]) if lanes.stop else 0)
+
+
+#: the bytes a lane of a dispatch's pull holds: rep hash, ho2, hoz (32 each)
+#: and the fail flag
+HASH_ROW = 97
+
+
 class TorchKKW:
-    """Compile a circuit once; prove and verify on one device.
+    """Compile a circuit once; prove and verify on one device or a mesh.
 
     The positional arguments are TpuKKW's, in its order, less its
     `cache_key` (the port keeps no compile cache); `device` is keyword-only.
     `device` defaults to the CUDA device (raising without one); the CPU
-    device runs the kernels' plain PyTorch versions.  `params` sets the
-    repetitions (a proof's lanes are params.total_reps); `cc`, the
-    program's compiled circuit where the caller has it already
+    device runs the kernels' plain PyTorch versions.  `mesh`
+    (reverie_tpu_torch.parallel: make_mesh, global_mesh, local_mesh) shards
+    every stage's lanes over its devices and processes instead: each shard
+    runs this one-device work on its slice, and the rep hashes and opened
+    records meet in host memory (Lanes); the proofs are the same bytes.
+    `params` sets the repetitions (a proof's lanes are params.total_reps);
+    `cc`, the program's compiled circuit where the caller has it already
     (make_system), is used as is.
 
     Entry points: `prove` and `verify` (one proof); `prove_batch` (N proofs
@@ -503,46 +593,50 @@ class TorchKKW:
                  params: ProtocolParams = DEFAULT_PARAMS, mesh=None,
                  cc: Optional[CompiledCircuit] = None, *,
                  device: Optional[torch.device] = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "TorchKKW runs on one device; sharding over several is "
-                "ROADMAP Queue 1 item 12")
         check_program(program)
-        self.device = default_device() if device is None else torch.device(device)
+        self.lanes = Lanes(mesh, device)
+        self.mesh, self.device = self.lanes.mesh, self.lanes.device
         self.params = params
         self.cc = compile_program(program) if cc is None else cc
         self._executors: Dict[tuple, object] = {}
         self.last_timings: Dict[str, dict] = {}
 
-    def _executor(self, mode: int, R: int):
-        """The executor of one role at R lanes, built once: the wave
-        executor (scan.ScanExecutor) for circuits deeper than
-        SCAN_DEPTH_THRESHOLD levels, the levelized Executor otherwise
-        (uses_waves).  Every entry point takes its executors here."""
-        key = (mode, R)
+    def _executor(self, mode: int, R: int, device: Optional[torch.device] = None):
+        """The executor of one role at R lanes on `device` (by default the
+        first), built once: the wave executor (scan.ScanExecutor) for
+        circuits deeper than SCAN_DEPTH_THRESHOLD levels, the levelized
+        Executor otherwise (uses_waves).  Every entry point takes its
+        executors here."""
+        device = self.device if device is None else device
+        key = (mode, R, device)
         if key not in self._executors:
             make = scan.ScanExecutor if uses_waves(self.cc) else Executor
-            self._executors[key] = make(self.cc, mode, R, self.device)
+            self._executors[key] = make(self.cc, mode, R, device)
         return self._executors[key]
 
-    def _omit_tensor(self, omit: Optional[np.ndarray]) -> Optional[torch.Tensor]:
+    @staticmethod
+    def _omit_tensor(omit: Optional[np.ndarray], device) -> Optional[torch.Tensor]:
         if omit is None:
             return None
-        return torch.as_tensor(np.asarray(omit).astype(np.uint8), device=self.device)
+        return torch.as_tensor(np.asarray(omit).astype(np.uint8), device=device)
 
-    def _gf2_tape(self, player_keys: np.ndarray,
-                  omit: Optional[np.ndarray] = None) -> torch.Tensor:
-        """(R, 8, 16) player keys -> (m2, R) uint8 mask tape on the device
-        (the AES tape kernel on CUDA, whatever the size)."""
-        rk = aes_tape.round_keys(player_keys, self.device)
-        return aes_tape.aes_ctr_tape_gf2(rk, self.cc.m2, self._omit_tensor(omit))
+    def _gf2_tape(self, player_keys: np.ndarray, omit: Optional[np.ndarray] = None,
+                  device: Optional[torch.device] = None) -> torch.Tensor:
+        """(R, 8, 16) player keys -> (m2, R) uint8 mask tape on `device`
+        (by default the first; the AES tape kernel on CUDA, whatever the
+        size)."""
+        device = self.device if device is None else device
+        rk = aes_tape.round_keys(player_keys, device)
+        return aes_tape.aes_ctr_tape_gf2(rk, self.cc.m2, self._omit_tensor(omit, device))
 
-    def _z64_tape(self, player_keys: np.ndarray,
-                  omit: Optional[np.ndarray] = None) -> torch.Tensor:
-        """(R, 8, 16) player keys -> (mz, 8, R) int64 z64 mask tape on the
-        device (the z64 tape kernel on CUDA, whatever the size)."""
-        rk = aes_tape.round_keys(player_keys, self.device)
-        return aes_tape_z64.aes_ctr_tape_z64(rk, self.cc.mz, self._omit_tensor(omit))
+    def _z64_tape(self, player_keys: np.ndarray, omit: Optional[np.ndarray] = None,
+                  device: Optional[torch.device] = None) -> torch.Tensor:
+        """(R, 8, 16) player keys -> (mz, 8, R) int64 z64 mask tape on
+        `device` (by default the first; the z64 tape kernel on CUDA,
+        whatever the size)."""
+        device = self.device if device is None else device
+        rk = aes_tape.round_keys(player_keys, device)
+        return aes_tape_z64.aes_ctr_tape_z64(rk, self.cc.mz, self._omit_tensor(omit, device))
 
     def _hash_fn(self, out: Dict[str, torch.Tensor],
                  comm2: Optional[torch.Tensor] = None,
@@ -576,7 +670,8 @@ class TorchKKW:
         lane axis, proof-major (lane p * 256 + r is rep r of proof p): one
         tape per domain, one executor run and one hash of every stream; the
         challenges are per proof on the host, and one extraction gathers all
-        N * 40 opened lanes.  Peak device memory is about
+        N * 40 opened lanes.  On a mesh the lane axis is split as a whole (a
+        shard may hold lanes of two proofs).  Peak device memory is about
         device_footprint(cc, N * 256)."""
         return self._prove_pipeline(witnesses, seeds, max(len(witnesses), 1))
 
@@ -609,10 +704,10 @@ class TorchKKW:
         the assembly of group g - 2.  A group's state goes once its proofs
         are assembled."""
         n = len(witnesses)
-        seeds = _seeds(seeds, n, self.params.total_reps)
+        seeds = self.lanes.seeds(seeds, n, self.params.total_reps)
         bounds = [(lo, min(lo + width, n)) for lo in range(0, n, width)]
         k = len(bounds)
-        timer = PhaseTimer(self.device)
+        timer = PhaseTimer(self.lanes.devices)
         states: List[Optional[dict]] = [None] * k
         proofs: List[Proof] = []
         for g, (lo, hi) in enumerate(bounds):
@@ -634,99 +729,101 @@ class TorchKKW:
     def _prove_dispatch(self, witnesses, seeds: np.ndarray, first: int,
                         timer: PhaseTimer, tag: str) -> dict:
         """Pipeline stage 1 for N statements (the first numbered `first`):
-        seed expansion, both tapes, the executor and the transcript hashes
-        on N * 256 lanes, then the asynchronous pull of the rep hashes and
-        fail flags."""
-        cc, dev = self.cc, self.device
+        seed expansion, then on every shard (each stage dispatched on all
+        of them before the next) both tapes, the executor and the
+        transcript hashes on its slice of the N * 256 lanes, then the
+        asynchronous pull of its rep hashes and fail flags."""
+        cc = self.cc
         N, R = len(witnesses), self.params.total_reps
         wit2 = np.zeros((cc.n_wit2, N), dtype=np.uint8)
         witz = np.zeros((cc.n_witz, N), dtype=np.int64)
         for p, (wit_gf2, wit_z64) in enumerate(witnesses):
             wit2[:, p], witz[:, p] = witness_columns(wit_gf2, wit_z64, cc.n_wit2, cc.n_witz,
                                                      first + p)
+        shards = self.lanes.split(N * R)
         with timer.phase("expand_seeds" + tag):
             player_keys = expand_seeds(seeds.reshape(N * R, KEY_SIZE)).reshape(
                 N * R, 8, KEY_SIZE)
         with timer.phase("tape_gf2" + tag):
-            tape = self._gf2_tape(player_keys)
+            tapes = [self._gf2_tape(player_keys[sl], device=dev) for dev, sl in shards]
         with timer.phase("tape_z64" + tag):
-            tapez = self._z64_tape(player_keys)
+            tapezs = [self._z64_tape(player_keys[sl], device=dev) for dev, sl in shards]
         with timer.phase("execute" + tag):
-            # one witness column uploaded per proof, repeated over its 256
-            # lanes on the device
-            inp = {"tape": tape, "tapez": tapez,
-                   "wit2": torch.from_numpy(wit2).to(dev).repeat_interleave(R, dim=1),
-                   "witz": torch.from_numpy(witz).to(dev).repeat_interleave(R, dim=1)}
-            del tape, tapez  # the tapes go with the executor's inputs
-            out = self._executor(PROVER, N * R)(inp)
-            del inp
+            # one witness column uploaded per proof, repeated over its lanes
+            # on the device; each shard's tapes go with its executor run
+            outs = [self._executor(PROVER, sl.stop - sl.start, dev)(
+                {"tape": tapes.pop(0), "tapez": tapezs.pop(0),
+                 "wit2": _lane_columns(wit2, sl, R, dev), "witz": _lane_columns(witz, sl, R, dev)})
+                for dev, sl in shards]
         with timer.phase("hash" + tag):
-            rep_h, ho2, hoz = self._hash_fn(out)
-            pull = _Pull(torch.cat([rep_h.reshape(-1), ho2.reshape(-1), hoz.reshape(-1),
-                                    out["fail"].to(torch.uint8)]))
-        return dict(N=N, first=first, seeds=seeds, player_keys=player_keys, out=out,
-                    pull=pull, timer=timer, tag=tag)
+            pulls = [_Pull(torch.cat([*self._hash_fn(out), out["fail"].to(torch.uint8)[:, None]],
+                                     dim=1)) for out in outs]
+        return dict(N=N, first=first, seeds=seeds, player_keys=player_keys, shards=shards,
+                    outs=outs, pulls=pulls, timer=timer, tag=tag)
 
     def _prove_challenge(self, st: dict) -> None:
-        """Pipeline stage 2: wait for the hash pull; per statement, the
-        commitment and the Fiat-Shamir challenge on the host (raising
-        before any extraction if a witness failed an AssertZero); then one
-        extraction of all opened lanes and its asynchronous pull."""
+        """Pipeline stage 2: wait for the hash pulls and gather them in lane
+        order; per statement, the commitment and the Fiat-Shamir challenge
+        on the host (raising before any extraction if a witness failed an
+        AssertZero); then on every shard one extraction of the opened lanes
+        it holds and its asynchronous pull."""
         N, R = st["N"], self.params.total_reps
-        RT = N * R
         with st["timer"].phase("challenge" + st["tag"]):
-            buf = st.pop("pull").numpy()
-            rep_h = buf[: RT * 32].reshape(N, R, 32)
-            st["ho2"] = buf[RT * 32 : 2 * RT * 32].reshape(N, R, 32)
-            st["hoz"] = buf[2 * RT * 32 : 3 * RT * 32].reshape(N, R, 32)
-            failed = buf[3 * RT * 32 :].reshape(N, R).any(axis=1)
+            rows = self.lanes.gather([p.numpy() for p in st.pop("pulls")], HASH_ROW)
+            rep_h = rows[:, :32].reshape(N, R, 32)
+            st["ho2"] = rows[:, 32:64].reshape(N, R, 32)
+            st["hoz"] = rows[:, 64:96].reshape(N, R, 32)
+            failed = rows[:, 96].reshape(N, R).any(axis=1)
             if failed.any():
                 raise AssertionError(f"witness {st['first'] + int(np.argmax(failed))} "
                                      "is invalid (AssertZero failed)")
             comms = [blake3(rep_h[p].tobytes()) for p in range(N)]
             omits = np.stack([challenge_omits(c, self.params) for c in comms])
-            omit = omits.reshape(RT)
-            cols = np.nonzero(omit < 8)[0]
-            out = st.pop("out")
-            g2 = extract_gf2(self.cc, out["onl2"], out["pre2"], cols, omit[cols])
-            gz = extract_z64(self.cc, out["onlz"], out["prez"], cols, omit[cols])
-            del out
-            # one flat buffer, pulled once: [gf2 openings | z64 openings]
-            st["xpull"], st["n_g2"] = _Pull(torch.cat([g2, gz])), g2.numel()
-        st.update(comms=comms, omits=omits, K=len(cols))
+            omit = omits.reshape(N * R)
+            st["xpulls"] = []
+            for (dev, sl), out in zip(st.pop("shards"), st.pop("outs")):
+                cols = np.nonzero(omit[sl] < 8)[0]
+                if not len(cols):
+                    continue
+                g2 = extract_gf2(self.cc, out["onl2"], out["pre2"], cols, omit[sl][cols])
+                gz = extract_z64(self.cc, out["onlz"], out["prez"], cols, omit[sl][cols])
+                # one flat buffer a shard, pulled once: [gf2 openings | z64 openings]
+                st["xpulls"].append((_Pull(torch.cat([g2, gz])), g2.numel(), len(cols)))
+        st.update(comms=comms, omits=omits)
 
-    def _parse_gf2_buf(self, buf: np.ndarray, K: int):
-        """Pulled GF(2) extraction buffer -> per-rep (recons, corrs,
-        inputs)."""
+    def _gf2_parts(self, buf: np.ndarray, K: int):
+        """Pulled GF(2) extraction buffer of K lanes -> (recons, corrs,
+        inputs), each (K, bytes a lane)."""
         cc = self.cc
         nb_r, nb_c, nb_i = (packed_len(n) for n in (cc.n_recons2, cc.n_corrs2, cc.n_inputs2))
-        rec = buf[: K * nb_r].reshape(K, nb_r)
-        cor = buf[K * nb_r : K * (nb_r + nb_c)].reshape(K, nb_c)
-        inp = buf[K * (nb_r + nb_c) :].reshape(K, nb_i)
-        return [(rec[j].tobytes(), cor[j].tobytes(), inp[j].tobytes())
-                for j in range(K)]
+        return (buf[: K * nb_r].reshape(K, nb_r), buf[K * nb_r : K * (nb_r + nb_c)].reshape(K, nb_c),
+                buf[K * (nb_r + nb_c) :].reshape(K, nb_i))
 
-    def _parse_z64_buf(self, buf: np.ndarray, K: int):
-        """Pulled z64 extraction buffer -> per-rep (recons, corrs, inputs),
-        8 bytes per event."""
+    def _z64_parts(self, buf: np.ndarray, K: int):
+        """Pulled z64 extraction buffer of K lanes -> (recons, corrs,
+        inputs), each (K, 8 bytes an event)."""
         cc = self.cc
-        nr, nc = len(cc.recon_slotsz), len(cc.corr_slotsz)
-        ni = len(cc.input_slotsz)
+        nr, nc, ni = len(cc.recon_slotsz), len(cc.corr_slotsz), len(cc.input_slotsz)
         o1, o2 = K * nr * 8, K * (nr + nc) * 8
-        rec = buf[:o1].reshape(K, nr * 8)
-        cor = buf[o1:o2].reshape(K, nc * 8)
-        inp = buf[o2:].reshape(K, ni * 8)
-        return [(rec[j].tobytes(), cor[j].tobytes(), inp[j].tobytes())
-                for j in range(K)]
+        return buf[:o1].reshape(K, nr * 8), buf[o1:o2].reshape(K, nc * 8), buf[o2:].reshape(K, ni * 8)
 
     def _prove_assemble(self, st: dict) -> List[Proof]:
-        """Pipeline stage 3: wait for the openings' pull and assemble the N
-        proofs; the opened lanes come in lane order, proof by proof."""
-        R, K = self.params.total_reps, st["K"]
+        """Pipeline stage 3: wait for the openings' pulls, gather them in
+        lane order and assemble the N proofs; the opened lanes come in lane
+        order, proof by proof."""
+        R = self.params.total_reps
+        cc = self.cc
         with st["timer"].phase("extract_pull" + st["tag"]):
-            buf = st["xpull"].numpy()
-            open2 = self._parse_gf2_buf(buf[: st["n_g2"]], K)
-            openz = self._parse_z64_buf(buf[st["n_g2"] :], K)
+            parts2, partsz = [], []
+            for pull, n_g2, K in st.pop("xpulls"):
+                buf = pull.numpy()
+                parts2.append(self._gf2_parts(buf[:n_g2], K))
+                partsz.append(self._z64_parts(buf[n_g2:], K))
+            widths2 = [packed_len(n) for n in (cc.n_recons2, cc.n_corrs2, cc.n_inputs2)]
+            widthsz = [8 * len(s) for s in (cc.recon_slotsz, cc.corr_slotsz, cc.input_slotsz)]
+            open2, openz = ([tuple(r.tobytes() for r in rows) for rows in zip(*(
+                self.lanes.gather([p[i] for p in parts], w) for i, w in enumerate(widths)))]
+                for parts, widths in ((parts2, widths2), (partsz, widthsz)))
             proofs, j = [], 0
             for p in range(st["N"]):
                 omit = st["omits"][p]
@@ -747,7 +844,7 @@ class TorchKKW:
         injection and uploads overlap proof i's device work and pulls.
         Returns the verdicts in order, each equal to `verify`'s; a
         malformed proof gives False in its place."""
-        timer = PhaseTimer(self.device)
+        timer = PhaseTimer(self.lanes.devices)
         results: List[bool] = []
         prev = None
         for i, proof in enumerate(proofs):
@@ -761,65 +858,68 @@ class TorchKKW:
         return results
 
     def _verify_dispatch(self, proof: Proof, timer: PhaseTimer, tag: str):
-        """Both re-executions (online, preprocessing), their hashes and
-        the asynchronous pulls of those; False for a malformed proof."""
-        cc, dev = self.cc, self.device
+        """Both re-executions (online, preprocessing) on every shard, their
+        hashes and the asynchronous pulls of those; False for a malformed
+        proof."""
+        cc = self.cc
         if not check_formats(proof, self.params):
             return False
 
         # ---- online re-execution (the opened reps as one batch) -----------
         Ro = self.params.online_reps
+        shards = self.lanes.split(Ro)
         with timer.phase("onl_inject" + tag):
             streams = online_streams(proof.gf2.online, proof.z64.online, cc)
-            inj, omit, omitz = online_inputs(streams, cc, dev), streams["omit"], streams["omitz"]
+            injs = [online_inputs(_lanes_of(streams, sl), cc, dev) for dev, sl in shards]
+            omit, omitz = streams["omit"], streams["omitz"]
             del streams
             player_keys = opened_keys(proof.gf2.online)
             player_keysz = opened_keys(proof.z64.online)
         with timer.phase("onl_tape" + tag):
-            tape = self._gf2_tape(player_keys, omit)
-            tapez = self._z64_tape(player_keysz, omitz)
-            if os.environ.get("REVERIE_DEBUG"):
-                _check_omitted_lanes(tape, tapez, omit, omitz)
+            for (dev, sl), inj in zip(shards, injs):
+                inj.update(tape=self._gf2_tape(player_keys[sl], omit[sl], dev),
+                           tapez=self._z64_tape(player_keysz[sl], omitz[sl], dev))
+                if os.environ.get("REVERIE_DEBUG"):
+                    _check_omitted_lanes(inj["tape"], inj["tapez"], omit[sl], omitz[sl])
         with timer.phase("onl_exec" + tag):
-            out = self._executor(VERIFY_ONL, Ro)({"tape": tape, "tapez": tapez, **inj})
-            del tape, tapez, inj
+            # each shard's inputs go with its executor run
+            outs = [self._executor(VERIFY_ONL, sl.stop - sl.start, dev)(injs.pop(0))
+                    for dev, sl in shards]
         with timer.phase("onl_hash" + tag):
-            rep_h, _, _ = self._hash_fn(out)
             # pulled under the preprocessing leg's device work
-            pull_onl = _Pull(torch.cat([rep_h.reshape(-1), out["fail"].to(torch.uint8)]))
-            del out
+            pull_onl = [_Pull(torch.cat([self._hash_fn(out)[0],
+                                         out["fail"].to(torch.uint8)[:, None]], dim=1))
+                        for out in outs]
+            del outs
 
         # ---- preprocessing re-execution -----------------------------------
         Rp = self.params.preprocessing_reps
-
-        def comms(openings):
-            return torch.from_numpy(committed_hashes(openings)).to(dev)
-
+        shards = self.lanes.split(Rp)
         with timer.phase("pre_tape" + tag):
             pk2 = expand_seeds(preprocessing_seeds(proof.gf2.preprocessing)).reshape(
                 Rp, 8, KEY_SIZE)
             pkz = expand_seeds(preprocessing_seeds(proof.z64.preprocessing)).reshape(
                 Rp, 8, KEY_SIZE)
-            tape = self._gf2_tape(pk2)
-            tapez = self._z64_tape(pkz)
+            inps = [{"tape": self._gf2_tape(pk2[sl], device=dev),
+                     "tapez": self._z64_tape(pkz[sl], device=dev)} for dev, sl in shards]
         with timer.phase("pre_exec" + tag):
-            out = self._executor(VERIFY_PRE, Rp)({"tape": tape, "tapez": tapez})
-            del tape, tapez
+            outs = [self._executor(VERIFY_PRE, sl.stop - sl.start, dev)(inps.pop(0))
+                    for dev, sl in shards]
         with timer.phase("pre_hash" + tag):
-            rep_h, _, _ = self._hash_fn(out, comms(proof.gf2.preprocessing),
-                                        comms(proof.z64.preprocessing))
-            pull_pre = _Pull(rep_h)
+            comm2 = committed_hashes(proof.gf2.preprocessing)
+            commz = committed_hashes(proof.z64.preprocessing)
+            pull_pre = [_Pull(self._hash_fn(out, torch.from_numpy(comm2[sl]).to(dev),
+                                            torch.from_numpy(commz[sl]).to(dev))[0])
+                        for (dev, sl), out in zip(shards, outs)]
         return dict(pull_onl=pull_onl, pull_pre=pull_pre, comm=proof.comm,
                     timer=timer, tag=tag)
 
     def _verify_finish(self, st: dict, strict_zero_check: bool = True) -> bool:
-        """Wait for the hash pulls, reorder the rep hashes per the
-        challenge and compare the commitment."""
-        Ro = self.params.online_reps
+        """Wait for the hash pulls and gather them in lane order, reorder
+        the rep hashes per the challenge and compare the commitment."""
         with st["timer"].phase("finish" + st["tag"]):
-            buf = st["pull_onl"].numpy()
-            hashes_online = buf[: Ro * 32].reshape(Ro, 32)
-            if strict_zero_check and buf[Ro * 32 :].any():
+            onl = self.lanes.gather([p.numpy() for p in st["pull_onl"]], 33)
+            hashes_pre = self.lanes.gather([p.numpy() for p in st["pull_pre"]], 32)
+            if strict_zero_check and onl[:, 32].any():
                 return False
-            return commitment_ok(st["comm"], hashes_online, st["pull_pre"].numpy(),
-                                 self.params)
+            return commitment_ok(st["comm"], onl[:, :32], hashes_pre, self.params)

@@ -1449,7 +1449,8 @@ def wave_run(prog: WaveProgram, mode: int, tape: torch.Tensor, xin: Optional[tor
                   stream, (carry_mask2, carry_corr2), (out.carry_mask2, out.carry_corr2))
     if not has_z:
         words = np.asarray(words, dtype=np.int64)  # alive through the call
-        rc = lib.reverie_scan_gf2(words.ctypes.data)
+        with torch.cuda.device(dev):  # the C side plans for the current device
+            rc = lib.reverie_scan_gf2(words.ctypes.data)
         _build.check(rc, "scan_gf2 kernel")
         LAUNCHES += 1
         return out
@@ -1463,7 +1464,8 @@ def wave_run(prog: WaveProgram, mode: int, tape: torch.Tensor, xin: Optional[tor
               _ptr(carry_corrz), _ptr(prog.carry["coutz"]), nc[1], out.carry_maskz.data_ptr(),
               out.carry_corrz.data_ptr()]
     words = np.asarray(words, dtype=np.int64)  # alive through the call
-    rc = lib.reverie_scan_z64(words.ctypes.data)
+    with torch.cuda.device(dev):
+        rc = lib.reverie_scan_z64(words.ctypes.data)
     _build.check(rc, "scan_z64 kernel")
     LAUNCHES_Z64 += 1
     return out

@@ -36,6 +36,11 @@ circuit, on the host).  So what the device holds is O(segment): one
 segment's tapes, executor and streams, the carries a later segment reads,
 and the four streams' hash states, which hold one segment's stream bytes
 of CVs at most.
+
+On a mesh (reverie_tpu_torch.parallel) each segment runs on every shard
+before the next, each shard over its slice of the lanes with its own
+carries and hash states; the hashes and each segment's opened records
+meet in host memory in lane order (host.Lanes), as in `TorchKKW`.
 """
 
 from __future__ import annotations
@@ -51,7 +56,6 @@ from ..circuit.compile import compile_segments
 from ..circuit.ir import CombineOp
 from ..crypto import blake3, expand_seeds
 from ..crypto.kernels import aes_tape, aes_tape_z64, blake3 as b3
-from ..device import default_device
 from ..params import DEFAULT_PARAMS, KEY_SIZE, ProtocolParams
 from ..proof.container import Proof
 from . import host, scan
@@ -93,23 +97,23 @@ class StreamingKKW:
     """Prove and verify one circuit segment by segment, in segments of at
     most `seg_ops` ops, on one device (the CUDA device unless the
     keyword-only `device` says otherwise; the CPU runs the kernels' plain
-    versions); the positional arguments are reverie_tpu's StreamingKKW's.
-    Proof bytes equal `TorchKKW.prove`'s with the same seeds, verdicts its
-    verify's.  After each call `last_timings` holds its PhaseTimer report:
-    pass1, hash_final, challenge, pass2, pack after `prove`; onl_inject,
-    onl_exec, onl_hash, pre_tape, pre_exec, pre_hash after `verify`."""
+    versions) or on the shards of a `mesh` (reverie_tpu_torch.parallel),
+    each running every segment on its slice of the lanes with its own
+    carries and hash states; the positional arguments are reverie_tpu's
+    StreamingKKW's.  Proof bytes equal `TorchKKW.prove`'s with the same
+    seeds, verdicts its verify's.  After each call `last_timings` holds its
+    PhaseTimer report: pass1, hash_final, challenge, pass2, pack after
+    `prove`; onl_inject, onl_exec, onl_hash, pre_tape, pre_exec, pre_hash
+    after `verify`."""
 
     def __init__(self, program: Sequence[CombineOp], seg_ops: int,
                  params: ProtocolParams = DEFAULT_PARAMS, mesh=None, *,
                  device: Optional[torch.device] = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "StreamingKKW runs on one device; sharding over several is "
-                "ROADMAP Queue 1 item 12")
         if seg_ops < 1:
             raise ValueError("StreamingKKW: seg_ops must be at least 1")
         host.check_program(program)
-        self.device = default_device() if device is None else torch.device(device)
+        self.lanes = host.Lanes(mesh, device)
+        self.mesh, self.device = self.lanes.mesh, self.lanes.device
         self.params = params
         self.segments = compile_segments(program, seg_ops)
         self.totals = {k: sum(getattr(s.cc, k) for s in self.segments) for k in _TOTALS}
@@ -131,21 +135,25 @@ class StreamingKKW:
         self._carry_index: Dict[tuple, tuple] = {}
         self.last_timings: Dict[str, dict] = {}
 
-    def _executor(self, s: int, mode: int, R: int):
-        """The executor of segment s in one role at R lanes, with its
-        carries: the wave executor where the segment is deeper than
-        host.SCAN_DEPTH_THRESHOLD levels, the levelized one otherwise."""
+    def _executor(self, s: int, mode: int, R: int, device: Optional[torch.device] = None):
+        """The executor of segment s in one role at R lanes on `device` (by
+        default the first), with its carries: the wave executor where the
+        segment is deeper than host.SCAN_DEPTH_THRESHOLD levels, the
+        levelized one otherwise."""
         seg = self.segments[s]
         make = scan.ScanExecutor if host.uses_waves(seg.cc) else Executor
-        return make(seg.cc, mode, R, self.device, carry_in=len(seg.carry_in),
-                    carry_out_vals=seg.carry_out_vals, carry_inz=len(seg.carry_inz),
-                    carry_outz_vals=seg.carry_outz_vals)
+        return make(seg.cc, mode, R, self.device if device is None else device,
+                    carry_in=len(seg.carry_in), carry_out_vals=seg.carry_out_vals,
+                    carry_inz=len(seg.carry_inz), carry_outz_vals=seg.carry_outz_vals)
 
-    def _hashers(self, R: int, names=STREAMS) -> Dict[str, b3.ColumnHasher]:
-        """The streams' incremental hashes at R lanes, each holding at most
-        a segment's rows of its stream (_seg_rows) in CVs, its tree two
-        segments' streams in compressions."""
-        return {k: b3.ColumnHasher(self.totals[k], R, self.device, self._seg_rows[k] * R,
+    def _hashers(self, R: int, names=STREAMS,
+                 device: Optional[torch.device] = None) -> Dict[str, b3.ColumnHasher]:
+        """The streams' incremental hashes at R lanes on `device` (by
+        default the first), each holding at most a segment's rows of its
+        stream (_seg_rows) in CVs, its tree two segments' streams in
+        compressions."""
+        device = self.device if device is None else device
+        return {k: b3.ColumnHasher(self.totals[k], R, device, self._seg_rows[k] * R,
                                    2 * self._stream_rows * R)
                 for k in names}
 
@@ -174,12 +182,13 @@ class StreamingKKW:
         return aes_tape_z64.aes_ctr_tape_z64(rk, off + seg.cc.mz, omit,
                                              b0 * Z64_REFILL_BLOCKS)[off:]
 
-    def _gather_carry(self, s: int, z: int, carries: Dict[int, dict], inp: dict) -> None:
+    def _gather_carry(self, s: int, z: int, carries: Dict[int, dict], inp: dict,
+                      device: torch.device) -> None:
         """Segment s's carried-in rows of domain z (0 GF(2), 1 z64), in
         carry_in order, from the carry outputs of the segments that last
         wrote them: one index_select per source segment and array, then
         one to restore the order."""
-        key = (s, z)
+        key = (s, z, device)
         if key not in self._carry_index:
             seg = self.segments[s]
             src = seg.carry_srcz if z else seg.carry_src
@@ -190,116 +199,138 @@ class StreamingKKW:
             inv = np.empty(len(order), dtype=np.int64)
             inv[order] = np.arange(len(order))
             self._carry_index[key] = (
-                [(sv, torch.as_tensor([r for r, _ in rows], device=self.device))
+                [(sv, torch.as_tensor([r for r, _ in rows], device=device))
                  for sv, rows in by_src.items()],
-                torch.as_tensor(inv, device=self.device))
+                torch.as_tensor(inv, device=device))
         parts, inv = self._carry_index[key]
         for name in _CARRIES[z]:
             rows = torch.cat([carries[sv][name].index_select(0, idx) for sv, idx in parts])
             inp[name] = rows.index_select(0, inv)
 
-    def _run_segments(self, mode: int, rk2: torch.Tensor, rkz: torch.Tensor,
-                      on_out: Callable[[int, dict], None], omit=None, omitz=None,
-                      wit=None, inject: Optional[Callable] = None) -> torch.Tensor:
-        """Run every segment in order in one role, calling on_out(s, out)
-        on each one's outputs; returns the fail flags (R,).  rk2 / rkz: the
-        round keys of the GF(2) and z64 tapes (the online verifier opens
-        the two domains with their own keys), omit / omitz (R,) numpy or
-        None; wit: the witness columns (PROVER); inject(seg): the
-        segment's VERIFY_ONL inputs."""
-        dev = self.device
-        R = rk2.shape[0] // 8
-        om2, omz = (None if o is None else torch.as_tensor(o.astype(np.uint8), device=dev)
-                    for o in (omit, omitz))
+    def _run_segments(self, mode: int, shards: List[dict],
+                      on_out: Callable[[int, int, dict], None]) -> List[torch.Tensor]:
+        """Run every segment in order in one role, each on every shard
+        before the next segment, calling on_out(i, s, out) on shard i's
+        outputs of segment s; returns each shard's fail flags (its lanes,).
+        A shard: its device 'dev'; 'rk2' / 'rkz', the round keys of its
+        GF(2) and z64 tapes (the online verifier opens the two domains with
+        their own keys); 'omit' / 'omitz' (its lanes,) numpy or None; 'wit'
+        the witness columns (PROVER); 'inject'(seg), the segment's
+        VERIFY_ONL inputs.  Each shard keeps its own carries."""
         debug = mode == VERIFY_ONL and os.environ.get("REVERIE_DEBUG")
-        carries: Dict[int, dict] = {}
-        fail = torch.zeros((R,), dtype=torch.bool, device=dev)
+        for sh in shards:
+            dev = sh["dev"]
+            sh["R"] = sh["rk2"].shape[0] // 8
+            sh["om2"], sh["omz"] = (
+                None if sh.get(o) is None
+                else torch.as_tensor(sh[o].astype(np.uint8), device=dev)
+                for o in ("omit", "omitz"))
+            sh["carries"] = {}
+            sh["fail"] = torch.zeros((sh["R"],), dtype=torch.bool, device=dev)
         for s, seg in enumerate(self.segments):
             cc = seg.cc
-            inp = {"tape": self._tape2(seg, rk2, om2), "tapez": self._tapez(seg, rkz, omz)}
-            if debug:
-                host._check_omitted_lanes(inp["tape"], inp["tapez"], omit, omitz)
-            if wit is not None:
-                inp["wit2"] = _column(wit[0][seg.wit0 : seg.wit0 + cc.n_wit2], R, dev)
-                inp["witz"] = _column(wit[1][seg.witz0 : seg.witz0 + cc.n_witz], R, dev)
-            if inject is not None:
-                inp.update(inject(seg))
-            for z, src in enumerate((seg.carry_src, seg.carry_srcz)):
-                if src:
-                    self._gather_carry(s, z, carries, inp)
-            out = self._executor(s, mode, R)(inp)
-            del inp  # and the executor, its tables with it
-            fail |= out["fail"]
-            if seg.carry_out or seg.carry_outz:
-                carries[s] = {k: out[k] for names in _CARRIES for k in names if k in out}
-            for src in self._done_after[s]:
-                carries.pop(src, None)
-            on_out(s, out)
-            del out
-        return fail
+            for i, sh in enumerate(shards):
+                dev, R, carries = sh["dev"], sh["R"], sh["carries"]
+                inp = {"tape": self._tape2(seg, sh["rk2"], sh["om2"]),
+                       "tapez": self._tapez(seg, sh["rkz"], sh["omz"])}
+                if debug:
+                    host._check_omitted_lanes(inp["tape"], inp["tapez"], sh["omit"],
+                                              sh["omitz"])
+                if sh.get("wit") is not None:
+                    wit = sh["wit"]
+                    inp["wit2"] = _column(wit[0][seg.wit0 : seg.wit0 + cc.n_wit2], R, dev)
+                    inp["witz"] = _column(wit[1][seg.witz0 : seg.witz0 + cc.n_witz], R, dev)
+                if sh.get("inject") is not None:
+                    inp.update(sh["inject"](seg))
+                for z, src in enumerate((seg.carry_src, seg.carry_srcz)):
+                    if src:
+                        self._gather_carry(s, z, carries, inp, dev)
+                out = self._executor(s, mode, R, dev)(inp)
+                del inp  # and the executor, its tables with it
+                sh["fail"] |= out["fail"]
+                if seg.carry_out or seg.carry_outz:
+                    carries[s] = {k: out[k] for names in _CARRIES for k in names if k in out}
+                for src in self._done_after[s]:
+                    carries.pop(src, None)
+                on_out(i, s, out)
+                del out
+        return [sh.pop("fail") for sh in shards]
 
     # -- proving ------------------------------------------------------------
     def prove(self, wit_gf2, wit_z64=(), seeds: Optional[np.ndarray] = None) -> Proof:
         """`seeds` (total_reps, 16) makes the proof deterministic."""
-        params, dev, T = self.params, self.device, self.totals
+        params, T = self.params, self.totals
         R = params.total_reps
-        timer = host.PhaseTimer(dev)
-        seeds = host._seeds(seeds, 1, R)[0]
+        timer = host.PhaseTimer(self.lanes.devices)
+        seeds = self.lanes.seeds(seeds, 1, R)[0]
         wit = host.witness_columns(wit_gf2, wit_z64, T["n_wit2"], T["n_witz"], 0)
         player_keys = expand_seeds(seeds).reshape(R, 8, KEY_SIZE)
-        rk = aes_tape.round_keys(player_keys, dev)
+        lanes = self.lanes.split(R)
+        rks = [aes_tape.round_keys(player_keys[sl], dev) for dev, sl in lanes]
 
-        hashers = self._hashers(R)
+        def shards(which):
+            return [dict(dev=lanes[i][0], rk2=rks[i], rkz=rks[i], wit=wit) for i in which]
+
+        hashers = [self._hashers(sl.stop - sl.start, device=dev) for dev, sl in lanes]
         with timer.phase("pass1"):
-            fail = self._run_segments(
-                PROVER, rk, rk, lambda s, out: _absorb(hashers, self.segments[s].cc, out),
-                wit=wit)
+            fails = self._run_segments(
+                PROVER, shards(range(len(lanes))),
+                lambda i, s, out: _absorb(hashers[i], self.segments[s].cc, out))
         with timer.phase("hash_final"):
-            rep_h, ho2, hoz = _rep_hashes(hashers)
+            pulls = [host._Pull(torch.cat([*_rep_hashes(h), fail.to(torch.uint8)[:, None]],
+                                          dim=1)) for h, fail in zip(hashers, fails)]
             hashers.clear()
-            buf = host._Pull(torch.cat([rep_h.reshape(-1), ho2.reshape(-1), hoz.reshape(-1),
-                                        fail.to(torch.uint8)])).numpy()
-            rep_h, ho2, hoz = (buf[i * R * 32 : (i + 1) * R * 32].reshape(R, 32)
-                               for i in range(3))
-            if buf[3 * R * 32 :].any():
+            rows = self.lanes.gather([p.numpy() for p in pulls], host.HASH_ROW)
+            rep_h, ho2, hoz = (rows[:, 32 * i : 32 * (i + 1)] for i in range(3))
+            if rows[:, 96].any():
                 raise AssertionError("witness 0 is invalid (AssertZero failed)")
         with timer.phase("challenge"):
-            comm = blake3(rep_h.tobytes())
+            comm = blake3(np.ascontiguousarray(rep_h).tobytes())
             omit = host.challenge_omits(comm, params)
-            cols = np.nonzero(omit < 8)[0]
-        K = len(cols)
+        K = int((omit < 8).sum())
+        # this process's opened rows (its shards' lanes are one run), and
+        # the shards that hold any: pass 2 runs on those only
+        mine = (host.opened_rows(omit, slice(lanes[0][1].start, lanes[-1][1].stop))
+                if lanes else slice(0, 0))
+        opened = [i for i, (_, sl) in enumerate(lanes) if (omit[sl] < 8).any()]
+        pulls = []
 
-        pulls: List[host._Pull] = []
-
-        def extract(s: int, out: dict) -> None:
-            cc = self.segments[s].cc
-            g2 = host.extract_gf2(cc, out["onl2"], out["pre2"], cols, omit[cols], packed=False)
-            gz = host.extract_z64(cc, out["onlz"], out["prez"], cols, omit[cols])
-            pulls.append(host._Pull(torch.cat([g2, gz])))
+        def extract(i: int, s: int, out: dict) -> None:
+            cc, sl = self.segments[s].cc, lanes[opened[i]][1]
+            cols = np.nonzero(omit[sl] < 8)[0]
+            g2 = host.extract_gf2(cc, out["onl2"], out["pre2"], cols, omit[sl][cols],
+                                  packed=False)
+            gz = host.extract_z64(cc, out["onlz"], out["prez"], cols, omit[sl][cols])
+            pulls.append((s, host.opened_rows(omit, sl), host._Pull(torch.cat([g2, gz]))))
 
         with timer.phase("pass2"):
-            self._run_segments(PROVER, rk, rk, extract, wit=wit)
+            self._run_segments(PROVER, shards(opened), extract)
             bits2 = [np.zeros((K, T[n]), dtype=np.uint8)
                      for n in ("n_recons2", "n_corrs2", "n_inputs2")]
             bytesz = [np.zeros((K, 8 * T[n]), dtype=np.uint8)
                       for n in ("n_reconsz", "n_corrsz", "n_inputsz")]
-            for seg, pull in zip(self.segments, pulls):
-                cc, buf, o = seg.cc, pull.numpy(), 0
+            for s, rows, pull in pulls:
+                seg = self.segments[s]
+                cc, buf, o, k = seg.cc, pull.numpy(), 0, rows.stop - rows.start
                 for dest, n, base in zip(bits2, (cc.n_recons2, cc.n_corrs2, cc.n_inputs2),
                                          (seg.rec0, seg.cor0, seg.inp0)):
-                    dest[:, base : base + n] = buf[o : o + K * n].reshape(K, n)
-                    o += K * n
+                    dest[rows, base : base + n] = buf[o : o + k * n].reshape(k, n)
+                    o += k * n
                 for dest, n, base in zip(bytesz, (cc.n_reconsz, cc.n_corrsz, cc.n_inputsz),
                                          (seg.recz0, seg.corz0, seg.inpz0)):
-                    dest[:, 8 * base : 8 * (base + n)] = buf[o : o + K * 8 * n].reshape(K, 8 * n)
-                    o += K * 8 * n
+                    dest[rows, 8 * base : 8 * (base + n)] = buf[o : o + k * 8 * n].reshape(
+                        k, 8 * n)
+                    o += k * 8 * n
             del pulls[:]
         with timer.phase("pack"):
             packed = []
             for b in bits2:
-                p = np.zeros((K, host.packed_len(b.shape[1])), dtype=np.uint8)
-                p[:, : -(-b.shape[1] // 8)] = np.packbits(b, axis=1)
+                p = np.zeros((len(b[mine]), host.packed_len(b.shape[1])), dtype=np.uint8)
+                p[:, : -(-b.shape[1] // 8)] = np.packbits(b[mine], axis=1)
                 packed.append(p)
+            # every process's opened rows, on every process
+            packed = [self.lanes.gather([p], p.shape[1]) for p in packed]
+            bytesz = [self.lanes.gather([b[mine]], b.shape[1]) for b in bytesz]
             open2 = [tuple(p[j].tobytes() for p in packed) for j in range(K)]
             openz = [tuple(b[j].tobytes() for b in bytesz) for j in range(K)]
             proof = host.assemble_proof(comm, seeds, player_keys, omit, ho2, hoz, open2, openz)
@@ -310,57 +341,64 @@ class StreamingKKW:
     def verify(self, proof: Proof, strict_zero_check: bool = True) -> bool:
         """The online and preprocessing re-executions segment by segment;
         False for a malformed proof."""
-        timer = host.PhaseTimer(self.device)
+        timer = host.PhaseTimer(self.lanes.devices)
         try:
             return self._verify(proof, strict_zero_check, timer)
         finally:
             self.last_timings = timer.report()
 
     def _verify(self, proof: Proof, strict_zero_check: bool, timer: host.PhaseTimer) -> bool:
-        params, dev, T = self.params, self.device, self.totals
+        params, T = self.params, self.totals
         if not host.check_formats(proof, params):
             return False
 
         # ---- online re-execution (the opened reps as one batch) -----------
         Ro = params.online_reps
+        lanes = self.lanes.split(Ro)
         with timer.phase("onl_inject"):
             on2, onz = proof.gf2.online, proof.z64.online
             streams = host.online_streams(on2, onz, SimpleNamespace(**T))
-            omit, omitz = streams["omit"], streams["omitz"]
-            rk2 = aes_tape.round_keys(host.opened_keys(on2), dev)
-            rkz = aes_tape.round_keys(host.opened_keys(onz), dev)
+            keys2, keysz = host.opened_keys(on2), host.opened_keys(onz)
+            shards = []
+            for dev, sl in lanes:
+                mine = host._lanes_of(streams, sl)
+                shards.append(dict(
+                    dev=dev, omit=mine["omit"], omitz=mine["omitz"],
+                    rk2=aes_tape.round_keys(keys2[sl], dev),
+                    rkz=aes_tape.round_keys(keysz[sl], dev),
+                    inject=lambda seg, mine=mine, dev=dev: host.online_inputs(
+                        mine, seg.cc, dev, seg)))
+            del streams
 
-        def inject(seg) -> dict:
-            return host.online_inputs(streams, seg.cc, dev, seg)
-
-        hashers = self._hashers(Ro)
+        hashers = [self._hashers(sl.stop - sl.start, device=dev) for dev, sl in lanes]
         with timer.phase("onl_exec"):
-            fail = self._run_segments(
-                VERIFY_ONL, rk2, rkz,
-                lambda s, out: _absorb(hashers, self.segments[s].cc, out),
-                omit=omit, omitz=omitz, inject=inject)
+            fails = self._run_segments(
+                VERIFY_ONL, shards,
+                lambda i, s, out: _absorb(hashers[i], self.segments[s].cc, out))
         with timer.phase("onl_hash"):
-            rep_h, _, _ = _rep_hashes(hashers)
-            buf = host._Pull(torch.cat([rep_h.reshape(-1), fail.to(torch.uint8)])).numpy()
-            hashes_online = buf[: Ro * 32].reshape(Ro, 32)
-            if strict_zero_check and buf[Ro * 32 :].any():
+            pulls = [host._Pull(torch.cat([_rep_hashes(h)[0], fail.to(torch.uint8)[:, None]],
+                                          dim=1)) for h, fail in zip(hashers, fails)]
+            onl = self.lanes.gather([p.numpy() for p in pulls], 33)
+            if strict_zero_check and onl[:, 32].any():
                 return False
 
         # ---- preprocessing re-execution -----------------------------------
         Rp = params.preprocessing_reps
+        lanes = self.lanes.split(Rp)
         with timer.phase("pre_tape"):
             pre2, prez = proof.gf2.preprocessing, proof.z64.preprocessing
-            rk2 = aes_tape.round_keys(
-                expand_seeds(host.preprocessing_seeds(pre2)).reshape(Rp, 8, KEY_SIZE), dev)
-            rkz = aes_tape.round_keys(
-                expand_seeds(host.preprocessing_seeds(prez)).reshape(Rp, 8, KEY_SIZE), dev)
-            comm2 = torch.from_numpy(host.committed_hashes(pre2)).to(dev)
-            commz = torch.from_numpy(host.committed_hashes(prez)).to(dev)
-        hashers = self._hashers(Rp, ("pre2", "prez"))
+            pk2 = expand_seeds(host.preprocessing_seeds(pre2)).reshape(Rp, 8, KEY_SIZE)
+            pkz = expand_seeds(host.preprocessing_seeds(prez)).reshape(Rp, 8, KEY_SIZE)
+            comm2, commz = host.committed_hashes(pre2), host.committed_hashes(prez)
+            shards = [dict(dev=dev, rk2=aes_tape.round_keys(pk2[sl], dev),
+                           rkz=aes_tape.round_keys(pkz[sl], dev)) for dev, sl in lanes]
+        hashers = [self._hashers(sl.stop - sl.start, ("pre2", "prez"), dev) for dev, sl in lanes]
         with timer.phase("pre_exec"):
-            self._run_segments(VERIFY_PRE, rk2, rkz,
-                               lambda s, out: _absorb(hashers, self.segments[s].cc, out))
+            self._run_segments(VERIFY_PRE, shards,
+                               lambda i, s, out: _absorb(hashers[i], self.segments[s].cc, out))
         with timer.phase("pre_hash"):
-            rep_h, _, _ = _rep_hashes(hashers, comm2, commz)
-            hashes_pre = host._Pull(rep_h).numpy()
-        return host.commitment_ok(proof.comm, hashes_online, hashes_pre, params)
+            pulls = [host._Pull(_rep_hashes(h, torch.from_numpy(comm2[sl]).to(dev),
+                                            torch.from_numpy(commz[sl]).to(dev))[0])
+                     for h, (dev, sl) in zip(hashers, lanes)]
+            hashes_pre = self.lanes.gather([p.numpy() for p in pulls], 32)
+        return host.commitment_ok(proof.comm, onl[:, :32], hashes_pre, params)

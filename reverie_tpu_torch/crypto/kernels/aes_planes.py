@@ -81,9 +81,10 @@ def aes_ctr_planes(round_keys: torch.Tensor, n_blocks: int) -> torch.Tensor:
     if n_blocks == 0 or Kw == 0:
         return out
     lib = _build.kernels()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.reverie_aes_ctr_planes(round_keys.data_ptr(), out.data_ptr(),
-                                    n_blocks, Kw, stream)
+    with torch.cuda.device(dev):  # the C side plans for the current device
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.reverie_aes_ctr_planes(round_keys.data_ptr(), out.data_ptr(),
+                                        n_blocks, Kw, stream)
     _build.check(rc, "aes_ctr_planes kernel")
     LAUNCHES += 1
     return out

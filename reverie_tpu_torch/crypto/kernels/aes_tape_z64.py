@@ -90,9 +90,10 @@ def aes_ctr_tape_z64(round_keys: torch.Tensor, mz: int,
     if mz == 0 or R == 0:
         return out
     lib = _build.kernels()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.reverie_aes_tape_z64(round_keys.data_ptr(), omit.data_ptr(),
-                                  out.data_ptr(), mz, R, start_block, stream)
+    with torch.cuda.device(dev):  # the C side plans for the current device
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.reverie_aes_tape_z64(round_keys.data_ptr(), omit.data_ptr(),
+                                      out.data_ptr(), mz, R, start_block, stream)
     _build.check(rc, "aes_tape_z64 kernel")
     LAUNCHES += 1
     return out

@@ -161,9 +161,10 @@ def chunk_cvs(buf: torch.Tensor, n_chunks: int, chunk_base: int = 0
     if R == 0:
         return out
     lib = _build.kernels()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.reverie_blake3_chunk_cvs(buf.data_ptr(), R, n_chunks, chunk_base,
-                                      out.data_ptr(), stream)
+    with torch.cuda.device(dev):  # launched on the buffer's device
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.reverie_blake3_chunk_cvs(buf.data_ptr(), R, n_chunks, chunk_base,
+                                          out.data_ptr(), stream)
     _build.check(rc, "blake3_chunk_cvs kernel")
     LAUNCHES += 1
     return out

@@ -181,8 +181,8 @@ def debug_case():
 def _unmasked(tape_fn):
     """A tape method that ignores the omit: the omitted player's lanes hold
     keystream."""
-    def method(self, player_keys, omit=None):
-        return tape_fn(self, player_keys)
+    def method(self, player_keys, omit=None, device=None):
+        return tape_fn(self, player_keys, device=device)
     return method
 
 

@@ -37,6 +37,7 @@ import reverie_tpu_torch.crypto.kernels.aes_tape_z64, reverie_tpu_torch.crypto.k
 import reverie_tpu_torch.tools.r2_measure, reverie_tpu_torch.tools.r4_bwroof
 import reverie_tpu_torch.tools.r5_u8emit, reverie_tpu_torch.tools.r4_extract_probe
 import reverie_tpu_torch.tools.wave_times, reverie_tpu_torch.tools.stream_peak
+import reverie_tpu_torch.parallel.mesh, reverie_tpu_torch.parallel.distributed
 import chip_smoke
 assert not any(m.split(".")[0] in ("jax", "reverie_tpu") for m in sys.modules if sys.modules[m] is not None)
 print("no-jax import ok")
@@ -1013,3 +1014,95 @@ def test_streaming_on_cuda_matches_cpu(cuda_device, name):
     raw = bytearray(proof.to_bytes())
     raw[len(raw) // 2] ^= 0x40
     assert sk.verify(Proof.from_bytes(bytes(raw))) is False
+
+
+# -- shards of a mesh on the card (reverie_tpu_torch.parallel) ----------------
+
+#: the lanes of a shard of a 12-shard mesh: 40 -> 4 / 3, 216 -> 18, 256 -> 22
+#: / 21
+SHARD_WIDTHS = (3, 4, 18, 21, 22)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", SHARD_WIDTHS)
+def test_tape_and_chunk_kernels_at_shard_widths(cuda_device, R):
+    """K1 and K4 (random omits) and K3 at a shard's lanes, each equal to its
+    plain version."""
+    rk, omit = _tape_inputs(R, R, "random", cuda_device)
+    for fn, ref, m in ((aes_tape.aes_ctr_tape_gf2, aes_tape.aes_ctr_tape_gf2_ref, 4097),
+                       (aes_tape_z64.aes_ctr_tape_z64, aes_tape_z64.aes_ctr_tape_z64_ref, 1001)):
+        got = fn(rk, m, omit, start_block=3)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref(rk, m, omit, start_block=3)), fn.__name__
+    buf = torch.from_numpy(np.random.RandomState(R).randint(
+        0, 256, (3 * 1024 + 5, R), dtype=np.uint8)).to(cuda_device)
+    assert torch.equal(b3.chunk_cvs(buf, 3, 1), b3.chunk_cvs_ref(buf, 3, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", SHARD_WIDTHS)
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("circuit", ["gf2", "deep_b2a"])
+def test_wave_kernels_at_shard_widths(cuda_device, circuit, mode, R):
+    """W1 (a GF(2) chain 200 deep) and W2 (deep B2A) at a shard's lanes in
+    each role: one launch, every output equal to the CPU executor's."""
+    cc = compile_program(deep_chain(200) if circuit == "gf2" else deep_b2a(150)[0])
+    inp = executor_inputs(cc, mode, R, seed=R + mode)
+    want = scan.ScanExecutor(cc, mode, R, torch.device("cpu"))(on(inp, torch.device("cpu")))
+    counter = "LAUNCHES" if circuit == "gf2" else "LAUNCHES_Z64"
+    n0 = getattr(scan, counter)
+    got = scan.ScanExecutor(cc, mode, R, cuda_device)(on(inp, cuda_device))
+    assert getattr(scan, counter) == n0 + 1
+    for key, t in want.items():
+        assert torch.equal(got[key].cpu(), t), key
+
+
+@pytest.mark.cuda
+def test_mesh_on_one_card_matches_unsharded(cuda_device):
+    """Four shards on one card: the unsharded proof's bytes, one GF(2)
+    tape launch a shard in each leg, and verify accepts."""
+    from reverie_tpu_torch import TorchKKW
+    from reverie_tpu_torch.circuit.builders import mul_bench_circuit
+    from reverie_tpu_torch.parallel import make_mesh
+
+    prog, wit2, witz = mul_bench_circuit(5000)
+    seeds = np.random.RandomState(4).randint(0, 256, (256, 16), dtype=np.uint8)
+    want = TorchKKW(prog, device=cuda_device).prove(wit2, witz, seeds=seeds).to_bytes()
+    kkw = TorchKKW(prog, mesh=make_mesh(devices=[torch.device("cuda", 0)] * 4))
+    proof = kkw.prove(wit2, witz, seeds=seeds)
+    assert proof.to_bytes() == want
+    assert kkw.last_timings["tape_gf2"]["launches"]["aes_tape_gf2"] == 4
+    assert kkw.verify(proof) is True
+    assert kkw.last_timings["onl_tape"]["launches"]["aes_tape_gf2"] == 4
+
+
+@pytest.mark.cuda
+def test_mesh_shards_stay_on_their_devices(cuda_device, monkeypatch):
+    """On two cards each shard's kernels launch with its own card current,
+    its executors live there, and the proof equals the unsharded one."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip(f"needs 2 CUDA cards, {torch.cuda.device_count()} visible")
+    from reverie_tpu_torch import TorchKKW
+    from reverie_tpu_torch.circuit.builders import mixed_b2a_circuit
+    from reverie_tpu_torch.parallel import make_mesh
+
+    lib = _build.kernels()
+    data, current = [], []
+    for mod, fn, entry in ((aes_tape, "aes_ctr_tape_gf2", "reverie_aes_tape_gf2"),
+                           (aes_tape_z64, "aes_ctr_tape_z64", "reverie_aes_tape_z64"),
+                           (b3, "chunk_cvs", "reverie_blake3_chunk_cvs")):
+        wrapped, c_entry = getattr(mod, fn), getattr(lib, entry)
+        monkeypatch.setattr(mod, fn, lambda t, *a, f=wrapped, **k: data.append(
+            t.device.index) or f(t, *a, **k))
+        monkeypatch.setattr(lib, entry, lambda *a, e=c_entry: current.append(
+            torch.cuda.current_device()) or e(*a))
+    prog, wit2, witz = mixed_b2a_circuit()
+    seeds = np.random.RandomState(6).randint(0, 256, (256, 16), dtype=np.uint8)
+    kkw = TorchKKW(prog, mesh=make_mesh(2))
+    proof = kkw.prove(wit2, witz, seeds=seeds)
+    assert kkw.verify(proof) is True
+    assert data == current and set(data) == {0, 1}
+    assert {ex.device.index for ex in kkw._executors.values()} == {0, 1}
+    monkeypatch.undo()
+    want = TorchKKW(prog, device=cuda_device).prove(wit2, witz, seeds=seeds)
+    assert proof.to_bytes() == want.to_bytes()

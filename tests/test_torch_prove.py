@@ -318,5 +318,10 @@ def test_z64_b2a_and_deep_circuits_prove(make):
 
 
 def test_mesh_raises():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        TorchKKW(carry(mul_bench_circuit(4)[0]), device=CPU, mesh=object())
+    """mesh= takes the port's own parallel.Mesh: any other object, a
+    reverie_tpu (jax) mesh among them, raises TypeError."""
+    from reverie_tpu.parallel import make_mesh as jax_make_mesh
+
+    for mesh in (object(), jax_make_mesh(2)):
+        with pytest.raises(TypeError, match="parallel Mesh"):
+            TorchKKW(carry(mul_bench_circuit(4)[0]), device=CPU, mesh=mesh)

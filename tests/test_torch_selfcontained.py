@@ -200,9 +200,10 @@ print(" ".join(names))
 print("poisoned import ok", len(names))
 """
 
-#: the CLI's modules, which the walk must reach
+#: the CLI's modules and the mesh's, which the walk must reach
 CLI_MODULES = ("cli", "circuit.bristol", "circuit.witness", "circuit.eval", "utils.buildinfo",
-               "tools.make_sha256_statement", "tools.inspect_proof")
+               "tools.make_sha256_statement", "tools.inspect_proof", "parallel",
+               "parallel.mesh", "parallel.distributed")
 
 
 def test_imports_with_jax_and_reverie_tpu_poisoned():

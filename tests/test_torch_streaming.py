@@ -249,11 +249,13 @@ def test_make_system_budget_from_the_environment(monkeypatch):
 
 
 def test_mesh_is_refused():
+    """make_system, StreamingKKW and TorchKKW take the port's own
+    parallel.Mesh; a mesh of any other type raises TypeError."""
     prog, _, _ = mul_bench_circuit(10)
     for make in (lambda: make_system(prog, device=CPU, mesh=object(), hbm_budget_bytes=1),
                  lambda: StreamingKKW(prog, 4, device=CPU, mesh=object()),
                  lambda: TorchKKW(prog, device=CPU, mesh=object())):
-        with pytest.raises(NotImplementedError, match="item 12"):
+        with pytest.raises(TypeError, match="parallel Mesh"):
             make()
 
 
