@@ -149,7 +149,23 @@ prints no result line:
      proof equal to TorchKKW.prove's with its seeds.  With two cards, 4
      shards' case again on make_mesh(2); else a line that it was skipped.
      K1, K3, K4, W1 and W2 must each launch;
- 15. one JSON line of kernels, the nvidia-smi line, and the last line
+ 15. the past-the-card phase (past_card_phase): make_system with no
+     budget on circuits larger than the card, each in a fresh process
+     (reverie_tpu_torch.tools.past_card, after torch.cuda.empty_cache()
+     here, so that its free memory and host peak RSS are its own):
+     mul_bench_circuit(48,000,000) (K1, K3, the levelized executor) and
+     z64_mul_bench_circuit(1,200,000) (K4, K3).  For each: the whole
+     circuit's device_footprint beside the device_budget (it must be
+     larger), the StreamingKKW make_system must return, its segments and
+     seg_ops, the setup split (build, make_system), cold and warm prove
+     walls with last_timings, verify (True), a flipped byte in an online
+     opening (False), the peak max_memory_allocated (at most the budget),
+     the host's peak RSS, and the launches of K1, K3 and K4 counted from 0;
+     the case's tape kernel at the last segment's window (the largest
+     start_block) and K3 at its chunk base against their plain versions;
+     a cut (4,000,000 ANDs, 100,000 MULs) under the budget scaled by the
+     cut, streamed, its proof byte-equal to TorchKKW's;
+ 16. one JSON line of kernels, the nvidia-smi line, and the last line
      {"ok": true, "device": {...}}.
 
 Imports nothing of JAX or reverie_tpu.  Needs the CUDA toolkit (nvcc), gcc
@@ -2169,6 +2185,61 @@ def mesh_phase(dev, rng, checks: dict, main: dict) -> dict:
 
 
 
+# -- phase 15: past the card ---------------------------------------------------
+
+#: phase 15's cases: (tools.past_card case, the kernels its streamed run must launch)
+PAST_CARD_CASES = (("gf2", ("aes_tape_gf2", "blake3_chunk_cvs")),
+                   ("z64", ("aes_tape_z64", "blake3_chunk_cvs")))
+PAST_CARD_TIMEOUT_S = 600
+
+
+def past_card_phase() -> dict:
+    """Phase 15: each case of tools/past_card.py in a fresh process on the
+    card (the module's docstring), its JSON line logged and checked here.
+    Returns the launches of the cases' streamed runs."""
+    started, acc = time.perf_counter(), {}
+    for case, kernels in PAST_CARD_CASES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "reverie_tpu_torch.tools.past_card", case],
+                             cwd=ROOT, env=cli_env(), capture_output=True, text=True,
+                             timeout=PAST_CARD_TIMEOUT_S)
+        lines = [ln for ln in run.stdout.splitlines() if ln.startswith("{")]
+        if run.returncode != 0 or not lines:
+            raise AssertionError(f"past_card {case}: rc {run.returncode}\n"
+                                 f"{run.stdout[-4000:]}\n{run.stderr[-4000:]}")
+        res = json.loads(lines[-1])
+        tag = f"past_{case}"
+        log(tag, f"ops={res['ops']} process_wall_s={time.perf_counter() - t:.1f} "
+            f"device_footprint={res['device_footprint']} device_budget={res['device_budget']} "
+            f"footprint/budget={res['footprint_over_budget']:.4f} "
+            f"(whole compile {res['whole_compile_s']:.2f} s) free_bytes={res['free_bytes']}")
+        log(tag, f"make_system gave {res['system']} segments={res['segments']} "
+            f"seg_ops={res['seg_ops']} segment_footprint_max={res['segment_footprint_max']} "
+            f"({res['segment_footprint_over_budget']:.4f} of the budget) "
+            f"setup: build_s={res['build_s']:.3f} make_system_s={res['make_system_s']:.3f}")
+        for run_name in ("cold_prove", "warm_prove"):
+            log(tag, f"{run_name} wall_s={res[run_name + '_s']:.4f} phases [host_ms, device_ms] "
+                + json.dumps(res[run_name + "_phases"]))
+        log(tag, f"verify={res['verify']} wall_s={res['verify_s']:.4f} phases "
+            + json.dumps(res["verify_phases"]))
+        log(tag, f"flipped online byte verify={res['flipped_verify']} "
+            f"cold/warm proofs equal={res['proofs_equal']} proof_bytes={res['proof_bytes']} "
+            f"peak_bytes={res['peak_bytes']} peak/budget={res['peak_over_budget']:.4f} "
+            f"host_peak_rss_bytes={res['host_peak_rss_bytes']} "
+            f"launches={json.dumps(res['launches'])}")
+        for c in res["kernel_checks"]:
+            log(tag, "last segment " + json.dumps(c))
+        log(tag, f"cut {json.dumps(res['cut'])}")
+        if res["failures"] or any(res["launches"][k] < 1 for k in kernels):
+            raise AssertionError(f"past_card {case}: {res['failures']}")
+        for k, v in res["launches"].items():
+            acc[k] = acc.get(k, 0) + v
+    log("past", f"phase_s={time.perf_counter() - started:.1f} launches={json.dumps(acc)}")
+    return acc
+
+
 KERNELS = (  # name, source, replaces (file:line of every TPU function)
     ("aes_tape_gf2", "reverie_tpu_torch/csrc/aes_tape.cu",
      "reverie_tpu/crypto/kernels/aes_pallas.py:128, reverie_tpu/crypto/kernels/aes_pallas.py:425"),
@@ -2250,6 +2321,7 @@ def main() -> int:
     tools = probes(dev)
     cli = cli_phase(rng)
     mesh = mesh_phase(dev, rng, checks, main)
+    past = past_card_phase()
 
     kernels = []
     for kname, source, replaces in KERNELS:
@@ -2257,7 +2329,7 @@ def main() -> int:
         kernels.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(run.get(kname, 0) for run in (gf2, z64, sha, zw, stream, batch,
-                                                          tools, cli, mesh)),
+                                                          tools, cli, mesh, past)),
             "max_abs_err": c["max_abs_err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
             "library_ms": c["library_ms"]})

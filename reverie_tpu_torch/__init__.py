@@ -47,6 +47,8 @@ __all__ = ["StreamingKKW", "TorchKKW", "default_device", "device_footprint", "la
 #: device_footprint inside the free bytes (measured peaks reached 1.0543x
 #: the model, PERF.md section 5)
 FREE_MARGIN = 1.06
+#: the share of the budget a streamed segment's device_footprint takes
+SEGMENT_SHARE = 1 / 8
 
 
 def device_budget(device, hbm_budget_bytes=None) -> int:
@@ -72,33 +74,37 @@ def make_system(program, params=DEFAULT_PARAMS, mesh=None, hbm_budget_bytes=None
     make_system, its positional arguments in its order less `cache_key`):
     a `TorchKKW` when its device_footprint at the full R fits the budget of
     one device (device_budget), else a `StreamingKKW` whose segments take
-    about an eighth of the budget each.  Both give the same proof bytes.
-    `device`, keyword-only, defaults to the CUDA device; with a `mesh`
-    (reverie_tpu_torch.parallel) the system shards over it, and the budget
-    is read on its first device of this process."""
-    from .backend.host import Lanes, check_program
-    from .circuit.compile import compile_program
-    from .circuit.ir import Kind
+    about SEGMENT_SHARE of the budget each by their device_footprint.  Both
+    give the same proof bytes.  `device`, keyword-only, defaults to the
+    CUDA device; with a `mesh` (reverie_tpu_torch.parallel) the system
+    shards over it, and the budget is read on its first device of this
+    process.
 
-    check_program(program)
+    The program is lowered to arrays once (compile_native.OpArrays) and its
+    counters and depth read without tables (analyze): a circuit whose lower
+    bound of the footprint (host.lower_footprint) passes the budget goes
+    to streaming with no whole compile, each op compiled once, in
+    segments sized by the one before (sized_segments).  Otherwise it is
+    compiled whole, and streamed only if its footprint passes the budget
+    after all (the one case that compiles its ops twice)."""
+    from .backend.host import Lanes, check_program, lower_footprint
+    from .backend.streaming import sized_segments
+    from .circuit.compile_native import OpArrays, analyze, compile_program
+
+    ops = OpArrays(program)
+    check_program(ops.objects)
     lanes = Lanes(mesh, device)
     budget = device_budget(lanes.device, hbm_budget_bytes)
     # the system is made on the mesh, or else on the one device
     where = dict(mesh=mesh) if mesh is not None else dict(device=lanes.device)
     R = params.total_reps
-    # a lower bound of the footprint, bytes a rep per op, that skips the
-    # compile of circuits far past the budget: a GF(2) op makes at least one
-    # value (mask and correction bytes); a Z64 op one value (8 players' and
-    # the correction's words, 72 B); a B2A its 64 GF(2) randoms, 63 MULs and
-    # adds (reverie_tpu's accounting: ~1,400 B, 1,200 kept as the bound)
-    per_op = {Kind.GF2: 2, Kind.Z64: 72, Kind.B2A: 1200}
-    lower = R * sum(per_op.get(op.kind, 0) for op in program)
-    if lower > 4 * budget:
-        seg_ops = max(1, int(len(program) * (budget / 8) / lower))
-        return StreamingKKW(program, seg_ops, params=params, **where)
-    cc = compile_program(program)
-    total = device_footprint(cc, R)
-    if total <= budget:
-        return TorchKKW(program, params=params, cc=cc, **where)
-    seg_ops = max(1, int(len(program) * (budget / 8) / max(total, 1)))
-    return StreamingKKW(program, seg_ops, params=params, **where)
+    footprint = lower_footprint(analyze(ops), R)
+    if footprint <= budget:
+        cc = compile_program(ops)
+        footprint = device_footprint(cc, R)
+        if footprint <= budget:
+            return TorchKKW(program, params=params, cc=cc, **where)
+        del cc
+    segments, seg_ops = sized_segments(ops, budget * SEGMENT_SHARE,
+                                       footprint / max(len(ops), 1), R)
+    return StreamingKKW(program, seg_ops, params=params, segments=segments, **where)

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from ..circuit.compile import CompiledCircuit, compile_program
+from ..circuit.compile_native import distinct_ops
 from ..circuit.ir import CombineOp, Gate, Kind, Op
 from ..crypto import blake3, expand_seeds
 from ..crypto.kernels import aes_tape, aes_tape_z64, blake3 as b3
@@ -156,23 +157,35 @@ def packed_len(n: int) -> int:
     return n // 8 + 1
 
 
-def _pack_rows_device(bits: torch.Tensor) -> torch.Tensor:
-    """(N, K) 0/1 uint8 -> (packed_len(N), K) packed bytes, MSB first."""
+def window_bytes(lead: int, n: int) -> int:
+    """Bytes that hold n GF(2) records after `lead` (< 8) bits: a segment's
+    window of a packed stream whose first record is bit `lead` of its first
+    byte (none for no records)."""
+    return (lead + n + 7) // 8 if n else 0
+
+
+def _pack_rows_device(bits: torch.Tensor, lead: Optional[int] = None) -> torch.Tensor:
+    """(N, K) 0/1 uint8 -> (packed_len(N), K) packed bytes, MSB first; with
+    `lead`, the N bits after `lead` zero bits, in window_bytes(lead, N)
+    bytes (the inverse of unpack_window's offset)."""
     N, K = bits.shape
-    n_chunks = packed_len(N)
+    n_chunks = packed_len(N) if lead is None else window_bytes(lead, N)
+    lead = lead or 0
     padded = torch.zeros((n_chunks * 8, K), dtype=torch.uint8, device=bits.device)
-    padded[:N] = bits
+    padded[lead : lead + N] = bits
     w = torch.tensor([128 >> j for j in range(8)], dtype=torch.uint8,
                      device=bits.device)
     return (padded.view(n_chunks, 8, K) * w[None, :, None]).sum(dim=1).to(torch.uint8)
 
 
 def extract_gf2(cc: CompiledCircuit, onl2: torch.Tensor, pre2: torch.Tensor,
-                cols: np.ndarray, omit_sel: np.ndarray, packed: bool = True) -> torch.Tensor:
+                cols: np.ndarray, omit_sel: np.ndarray,
+                leads: Optional[Sequence[int]] = None) -> torch.Tensor:
     """Opened columns -> one flat uint8 buffer [recons | corrs | inputs],
     each (K, packed_len(n)) row-major (make_gf2_extractor, gather form);
-    packed=False: each (K, n) 0/1 bits, for a caller that places them at a
-    bit offset (the streaming prover's segments)."""
+    with leads = (recons, corrs, inputs) bit offsets, each packed after its
+    lead zero bits into (K, window_bytes(lead, n)), for a caller that ORs it
+    into whole rows at a byte offset (the streaming prover's segments)."""
     dev = onl2.device
     cols_t = torch.as_tensor(np.asarray(cols, np.int64), device=dev)
     shifts = torch.as_tensor((7 - np.asarray(omit_sel)).astype(np.uint8), device=dev)
@@ -181,8 +194,9 @@ def extract_gf2(cc: CompiledCircuit, onl2: torch.Tensor, pre2: torch.Tensor,
     rec = (_take_rows(onl_sel, cc.recon_slots2) >> shifts[None, :]) & 1
     cor = _take_rows(pre_sel, cc.corr_slots2) & 1
     inp = _take_rows(onl_sel, cc.input_slots2) & 1
-    pack = _pack_rows_device if packed else (lambda b: b)
-    return torch.cat([pack(b).t().reshape(-1) for b in (rec, cor, inp)])
+    leads = (None, None, None) if leads is None else leads
+    return torch.cat([_pack_rows_device(b, lead).t().reshape(-1)
+                      for b, lead in zip((rec, cor, inp), leads)])
 
 
 def extract_z64(cc: CompiledCircuit, onlz: torch.Tensor, prez: torch.Tensor,
@@ -351,6 +365,16 @@ def device_footprint(cc: CompiledCircuit, R: int) -> int:
     return max(prover_bytes(cc, R), hashing) + table_bytes(cc)
 
 
+def lower_footprint(counts, R: int) -> int:
+    """A lower bound of device_footprint(cc, R) from the circuit's counters
+    and depth alone (compile_native.analyze, no tables): the tapes and
+    witness columns, and the four streams, which the levelized executor
+    holds three times over (executor.prover_bytes) and the wave executor
+    once (scan.prover_bytes)."""
+    inputs = (counts.m2 + counts.n_wit2) * R + 8 * R * (8 * counts.mz + counts.n_witz)
+    return inputs + (1 if counts.depth > SCAN_DEPTH_THRESHOLD else 3) * stream_bytes(counts, R)
+
+
 def pipeline_footprint(cc: CompiledCircuit, R: int) -> int:
     """Peak device bytes of prove_batch_chunked at chunk R / 256 (R = 256:
     prove_many): one chunk's device_footprint while the chunk before keeps
@@ -476,8 +500,9 @@ def check_program(program: Sequence[CombineOp]) -> None:
     """Raise TypeError unless every op is one of the port's own circuit
     objects.  reverie_tpu's classes are distinct (IntEnum comparison would
     make them appear to work): a program built there crosses over as
-    bincode, `circuit.load_program(reverie_tpu.circuit.dumps_program(p))`."""
-    for op in program:
+    bincode, `circuit.load_program(reverie_tpu.circuit.dumps_program(p))`.
+    Each distinct op object is checked once (compile_native.distinct_ops)."""
+    for op in distinct_ops(program)[0]:
         gate = getattr(op, "gate", None)
         if not (isinstance(op, CombineOp) and type(op.kind) is Kind
                 and (gate is None or (isinstance(gate, Gate) and type(gate.op) is Op))):

@@ -16,8 +16,10 @@ tapes of a circuit on the device; here the program is cut into segments
   pass 2: the segments run again, each extracting the opened reps'
     recon, correction and input records (host.extract_gf2 /
     host.extract_z64 on its own compiled circuit), pulled asynchronously
-    and placed at the segment's record bases on the host; the proof is
-    assembled once all are in.
+    and placed at the segment's record bases on the host as they arrive:
+    the GF(2) records packed on the device at the segment's bit offset
+    and ORed into the packed host rows, the z64 bytes copied into theirs,
+    each pull freed once placed; the proof is assembled from those rows.
 
 Verification runs its online leg (the opened reps) and its preprocessing
 leg (the others) segment by segment in the same way; the proof's online
@@ -45,14 +47,16 @@ meet in host memory in lane order (host.Lanes), as in `TorchKKW`.
 
 from __future__ import annotations
 
+import collections
 import os
 from types import SimpleNamespace
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..circuit.compile import compile_segments
+from ..circuit.compile import Segment, compile_segments
+from ..circuit.compile_native import SegmentCompiler
 from ..circuit.ir import CombineOp
 from ..crypto import blake3, expand_seeds
 from ..crypto.kernels import aes_tape, aes_tape_z64, blake3 as b3
@@ -93,6 +97,25 @@ def _column(w: np.ndarray, R: int, device) -> torch.Tensor:
     return t[:, None].expand(t.shape[0], R).contiguous()
 
 
+def sized_segments(program, target: float, per_op: float, R: int
+                   ) -> Tuple[List[Segment], int]:
+    """(compile_segments with each segment sized by the one before it, the
+    most ops a segment took): the first takes half of target / per_op ops
+    (per_op: an estimate of the circuit's device bytes an op at R lanes;
+    half, as a bound from below may be under a segment's rate), each next
+    one the ops that fill `target` bytes at the rate of the last one's
+    device_footprint at R.  Each op is compiled once
+    (compile_native.SegmentCompiler)."""
+    sc = SegmentCompiler(program)
+    n, k, most = sc.ops.n, max(1, int(target / max(per_op, 1e-9) / 2)), 1
+    while sc.lo < n:
+        lo = sc.lo
+        seg = sc.add(min(n, lo + k))
+        most = max(most, sc.lo - lo)
+        k = max(1, int((sc.lo - lo) * target / max(host.device_footprint(seg.cc, R), 1)))
+    return sc.finish(), most
+
+
 class StreamingKKW:
     """Prove and verify one circuit segment by segment, in segments of at
     most `seg_ops` ops, on one device (the CUDA device unless the
@@ -100,7 +123,8 @@ class StreamingKKW:
     versions) or on the shards of a `mesh` (reverie_tpu_torch.parallel),
     each running every segment on its slice of the lanes with its own
     carries and hash states; the positional arguments are reverie_tpu's
-    StreamingKKW's.  Proof bytes equal `TorchKKW.prove`'s with the same
+    StreamingKKW's.  `segments`, keyword-only, are the program's compiled
+    segments where the caller has them (make_system), used as they are.  Proof bytes equal `TorchKKW.prove`'s with the same
     seeds, verdicts its verify's.  After each call `last_timings` holds its
     PhaseTimer report: pass1, hash_final, challenge, pass2, pack after
     `prove`; onl_inject, onl_exec, onl_hash, pre_tape, pre_exec, pre_hash
@@ -108,14 +132,21 @@ class StreamingKKW:
 
     def __init__(self, program: Sequence[CombineOp], seg_ops: int,
                  params: ProtocolParams = DEFAULT_PARAMS, mesh=None, *,
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None,
+                 segments: Optional[List[Segment]] = None):
         if seg_ops < 1:
             raise ValueError("StreamingKKW: seg_ops must be at least 1")
-        host.check_program(program)
         self.lanes = host.Lanes(mesh, device)
         self.mesh, self.device = self.lanes.mesh, self.lanes.device
         self.params = params
-        self.segments = compile_segments(program, seg_ops)
+        #: the most ops a segment holds
+        self.seg_ops = seg_ops
+        if segments is None:
+            host.check_program(program)
+            segments = compile_segments(program, seg_ops)
+        #: the compiled segments (`segments`, where the caller compiled and
+        #: checked them: make_system's sized_segments)
+        self.segments = segments
         self.totals = {k: sum(getattr(s.cc, k) for s in self.segments) for k in _TOTALS}
         #: a segment's rows of each stream at most: a stream's hash holds
         #: that many bytes a lane of CVs at most (ColumnHasher's
@@ -293,43 +324,45 @@ class StreamingKKW:
         mine = (host.opened_rows(omit, slice(lanes[0][1].start, lanes[-1][1].stop))
                 if lanes else slice(0, 0))
         opened = [i for i, (_, sl) in enumerate(lanes) if (omit[sl] < 8).any()]
-        pulls = []
+        # the opened records, K rows each: GF(2) packed, z64 as bytes
+        bits2 = [np.zeros((K, host.packed_len(T[n])), dtype=np.uint8)
+                 for n in ("n_recons2", "n_corrs2", "n_inputs2")]
+        bytesz = [np.zeros((K, 8 * T[n]), dtype=np.uint8)
+                  for n in ("n_reconsz", "n_corrsz", "n_inputsz")]
+        pending = collections.deque()
+
+        def place(s: int, rows: slice, pull) -> None:
+            seg = self.segments[s]
+            cc, buf, o, k = seg.cc, pull.numpy(), 0, rows.stop - rows.start
+            for dest, n, base in zip(bits2, (cc.n_recons2, cc.n_corrs2, cc.n_inputs2),
+                                     (seg.rec0, seg.cor0, seg.inp0)):
+                nb = host.window_bytes(base % 8, n)
+                dest[rows, base // 8 : base // 8 + nb] |= buf[o : o + k * nb].reshape(k, nb)
+                o += k * nb
+            for dest, n, base in zip(bytesz, (cc.n_reconsz, cc.n_corrsz, cc.n_inputsz),
+                                     (seg.recz0, seg.corz0, seg.inpz0)):
+                dest[rows, 8 * base : 8 * (base + n)] = buf[o : o + k * 8 * n].reshape(k, 8 * n)
+                o += k * 8 * n
 
         def extract(i: int, s: int, out: dict) -> None:
-            cc, sl = self.segments[s].cc, lanes[opened[i]][1]
+            seg, sl = self.segments[s], lanes[opened[i]][1]
             cols = np.nonzero(omit[sl] < 8)[0]
-            g2 = host.extract_gf2(cc, out["onl2"], out["pre2"], cols, omit[sl][cols],
-                                  packed=False)
-            gz = host.extract_z64(cc, out["onlz"], out["prez"], cols, omit[sl][cols])
-            pulls.append((s, host.opened_rows(omit, sl), host._Pull(torch.cat([g2, gz]))))
+            g2 = host.extract_gf2(seg.cc, out["onl2"], out["pre2"], cols, omit[sl][cols],
+                                  leads=(seg.rec0 % 8, seg.cor0 % 8, seg.inp0 % 8))
+            gz = host.extract_z64(seg.cc, out["onlz"], out["prez"], cols, omit[sl][cols])
+            pending.append((s, host.opened_rows(omit, sl), host._Pull(torch.cat([g2, gz]))))
+            # the pulls of earlier segments were queued ahead of this one's
+            # work: place them while the card runs it
+            while len(pending) > 1:
+                place(*pending.popleft())
 
         with timer.phase("pass2"):
             self._run_segments(PROVER, shards(opened), extract)
-            bits2 = [np.zeros((K, T[n]), dtype=np.uint8)
-                     for n in ("n_recons2", "n_corrs2", "n_inputs2")]
-            bytesz = [np.zeros((K, 8 * T[n]), dtype=np.uint8)
-                      for n in ("n_reconsz", "n_corrsz", "n_inputsz")]
-            for s, rows, pull in pulls:
-                seg = self.segments[s]
-                cc, buf, o, k = seg.cc, pull.numpy(), 0, rows.stop - rows.start
-                for dest, n, base in zip(bits2, (cc.n_recons2, cc.n_corrs2, cc.n_inputs2),
-                                         (seg.rec0, seg.cor0, seg.inp0)):
-                    dest[rows, base : base + n] = buf[o : o + k * n].reshape(k, n)
-                    o += k * n
-                for dest, n, base in zip(bytesz, (cc.n_reconsz, cc.n_corrsz, cc.n_inputsz),
-                                         (seg.recz0, seg.corz0, seg.inpz0)):
-                    dest[rows, 8 * base : 8 * (base + n)] = buf[o : o + k * 8 * n].reshape(
-                        k, 8 * n)
-                    o += k * 8 * n
-            del pulls[:]
+            while pending:
+                place(*pending.popleft())
         with timer.phase("pack"):
-            packed = []
-            for b in bits2:
-                p = np.zeros((len(b[mine]), host.packed_len(b.shape[1])), dtype=np.uint8)
-                p[:, : -(-b.shape[1] // 8)] = np.packbits(b[mine], axis=1)
-                packed.append(p)
             # every process's opened rows, on every process
-            packed = [self.lanes.gather([p], p.shape[1]) for p in packed]
+            packed = [self.lanes.gather([b[mine]], b.shape[1]) for b in bits2]
             bytesz = [self.lanes.gather([b[mine]], b.shape[1]) for b in bytesz]
             open2 = [tuple(p[j].tobytes() for p in packed) for j in range(K)]
             openz = [tuple(b[j].tobytes() for b in bytesz) for j in range(K)]

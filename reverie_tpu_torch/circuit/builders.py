@@ -1,6 +1,12 @@
 """Synthetic circuit builders for tests and benchmarks (the port's copy of
 reverie_tpu/circuit/builders.py, and the deep z64 and B2A statements of
-reverie_tpu's scan-executor tests, tests/test_tpu_backend.py)."""
+reverie_tpu's scan-executor tests, tests/test_tpu_backend.py).
+
+Where a program repeats an op, every position holds the one op object:
+ops are frozen dataclasses, so the program equals one of fresh objects
+(and so do its bincode bytes), while it costs a pointer an op to build
+and hold, and the compile meets one object per run of it
+(compile_native.distinct_ops)."""
 
 from __future__ import annotations
 
@@ -17,7 +23,7 @@ def mul_bench_circuit(n_mul: int = 100_000) -> Tuple[List[CombineOp], List[bool]
         CombineOp.gf2(Gate(Op.INPUT, dst=0)),
         CombineOp.gf2(Gate(Op.INPUT, dst=1)),
     ]
-    prog.extend(CombineOp.gf2(Gate(Op.MUL, dst=2, src1=0, src2=1)) for _ in range(n_mul))
+    prog.extend([CombineOp.gf2(Gate(Op.MUL, dst=2, src1=0, src2=1))] * n_mul)
     return prog, [True, True], [0]
 
 
@@ -48,7 +54,7 @@ def z64_mul_bench_circuit(n_mul: int = 10_000) -> Tuple[List[CombineOp], List[bo
         CombineOp.z64(Gate(Op.INPUT, dst=0)),
         CombineOp.z64(Gate(Op.INPUT, dst=1)),
     ]
-    prog.extend(CombineOp.z64(Gate(Op.MUL, dst=2, src1=0, src2=1)) for _ in range(n_mul))
+    prog.extend([CombineOp.z64(Gate(Op.MUL, dst=2, src1=0, src2=1))] * n_mul)
     return prog, [], [3, 5]
 
 
@@ -77,7 +83,7 @@ def z64_chain_circuit(n_mul: int = 150) -> Tuple[List[CombineOp], List[bool], Li
     from itself and its ASSERT_ZERO."""
     z = CombineOp.z64
     prog = [z(Gate(Op.INPUT, dst=0)), z(Gate(Op.INPUT, dst=1))]
-    prog += [z(Gate(Op.MUL, dst=1, src1=0, src2=1)) for _ in range(n_mul)]
+    prog += [z(Gate(Op.MUL, dst=1, src1=0, src2=1))] * n_mul
     prog += [z(Gate(Op.ADDC, dst=2, src1=1, const=5)), z(Gate(Op.SUB, dst=3, src1=2, src2=2)),
              z(Gate(Op.ASSERT_ZERO, src1=3))]
     return prog, [], [3, 5]
@@ -89,7 +95,7 @@ def deep_b2a_circuit(chain: int = 200) -> Tuple[List[CombineOp], List[bool], Lis
     _deep_b2a_mixed_circuit): z64, B2A and GF(2) gates in one deep
     circuit."""
     prog, wit2, witz = mixed_b2a_circuit()
-    prog = prog[:-1] + [CombineOp.gf2(Gate(Op.MUL, dst=2, src1=2, src2=3)) for _ in range(chain)]
+    prog = prog[:-1] + [CombineOp.gf2(Gate(Op.MUL, dst=2, src1=2, src2=3))] * chain
     return prog, wit2, witz
 
 
@@ -130,9 +136,8 @@ def z64_chains_circuit(chains: int = 64, n_mul: int = 150
     MULs a wave (at 64, its widest z64 waves, Wz = 64)."""
     z = CombineOp.z64
     prog = [z(Gate(Op.INPUT, dst=w)) for w in range(2 * chains)]
-    for _ in range(n_mul):
-        prog += [z(Gate(Op.MUL, dst=2 * c + 1, src1=2 * c, src2=2 * c + 1))
-                 for c in range(chains)]
+    prog += [z(Gate(Op.MUL, dst=2 * c + 1, src1=2 * c, src2=2 * c + 1))
+             for c in range(chains)] * n_mul
     prog += [z(Gate(Op.SUB, dst=2 * chains + c, src1=2 * c + 1, src2=2 * c + 1))
              for c in range(chains)]
     prog += [z(Gate(Op.ASSERT_ZERO, src1=2 * chains + c)) for c in range(chains)]

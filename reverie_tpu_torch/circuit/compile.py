@@ -7,7 +7,10 @@ the segment plumbing of streaming (`compile_program`'s `carry_in`,
 `compile_segments`) and the wave packing of the scan executor
 (`WaveTable`, `_NOP`, `_circuit_has_z64`, `build_waves`, z64 columns
 included).  Left out: the pickle disk cache (`cache_key`), whose salt goes
-stale when a module it does not hash changes.
+stale when a module it does not hash changes.  `compile_program` and
+`compile_segments` run on the host C passes of compile_native.py; the
+Python versions here (`compile_program_plain`, `compile_segments_plain`)
+are their plain twins.
 
   * SSA conversion: the mutable wire arena becomes an immutable value arena
     (each gate output is a fresh value id), so gates within a level are
@@ -155,7 +158,19 @@ def compile_program(program: Sequence[CombineOp],
     key).  carry_in / carry_inz: GF(2) / Z64 wire ids whose values enter
     this (sub)program from a segment before it; they take value slots
     1..len(carry) in order, per domain.  out_val_map / out_val_mapz, where
-    given, receive the final wire -> value maps (compile_segments)."""
+    given, receive the final wire -> value maps.  Runs on the host C pass
+    (compile_native); compile_program_plain is its plain twin."""
+    from .compile_native import compile_program as native
+
+    return native(program, carry_in, out_val_map, carry_inz, out_val_mapz)
+
+
+def compile_program_plain(program: Sequence[CombineOp],
+                          carry_in: Optional[Sequence[int]] = None,
+                          out_val_map: Optional[Dict[int, int]] = None,
+                          carry_inz: Optional[Sequence[int]] = None,
+                          out_val_mapz: Optional[Dict[int, int]] = None) -> CompiledCircuit:
+    """compile_program in Python, op by op: the plain twin of the C pass."""
     d2 = _DomState()
     dz = _DomState()
     for w in carry_in or ():
@@ -430,7 +445,16 @@ def compile_segments(program: Sequence[CombineOp], seg_ops: int) -> List[Segment
     """Split a composite program into segments of at most seg_ops ops and
     compile each with its per-domain carry-in and carry-out wires (the
     wires live across segments).  A B2A reads the GF(2) wires
-    [src, src + 64) and writes one Z64 wire."""
+    [src, src + 64) and writes one Z64 wire.  Runs on the host C passes
+    (compile_native.SegmentCompiler); compile_segments_plain is its plain
+    twin."""
+    from .compile_native import compile_segments as native
+
+    return native(program, seg_ops)
+
+
+def compile_segments_plain(program: Sequence[CombineOp], seg_ops: int) -> List[Segment]:
+    """compile_segments in Python, op by op: the plain twin of the C passes."""
     ops = list(program)
     n = len(ops)
     bounds = [(i, min(i + seg_ops, n)) for i in range(0, n, seg_ops)]
@@ -458,8 +482,8 @@ def compile_segments(program: Sequence[CombineOp], seg_ops: int) -> List[Segment
     for s, (lo, hi) in enumerate(bounds):
         carry_in, carry_inz = sorted(x2.in_sets[s]), sorted(xz.in_sets[s])
         final, finalz = {}, {}
-        cc = compile_program(ops[lo:hi], carry_in=carry_in, out_val_map=final,
-                             carry_inz=carry_inz, out_val_mapz=finalz)
+        cc = compile_program_plain(ops[lo:hi], carry_in=carry_in, out_val_map=final,
+                                   carry_inz=carry_inz, out_val_mapz=finalz)
         segments.append(Segment(
             cc=cc, carry_in=carry_in, carry_out=carry_outs[s],
             carry_out_vals=np.asarray([final[w] for w in carry_outs[s]], dtype=np.int32),

@@ -4,9 +4,11 @@ several sizes through make_system.
 
     python -m reverie_tpu_torch.tools.stream_peak [budget MiB] [ANDs ...]
 
-Defaults: 128 MiB and 2, 4 and 8 million ANDs, each past four times the
-budget by make_system's lower bound, so that all take segments of the same
-size.  For each size: the segments, the bound of each hash's held CVs
+Defaults: 128 MiB and 2, 4 and 8 million ANDs, each past the budget by
+make_system's lower bound (host.lower_footprint), so that all take
+segments of about an eighth of the budget by their device_footprint.
+`tools/past_card.py` runs the circuits past the card itself, under the
+card's own budget.  For each size: the segments, the bound of each hash's held CVs
 (nodes a lane), the CVs the whole stream would hold without the CV stack,
 a prove's and a verify's wall, and the peak `max_memory_allocated` over
 the prove, the verify and a verify of the proof with a flipped byte,
