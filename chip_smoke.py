@@ -125,7 +125,9 @@ prints no result line:
      process on the SHA-256 and 1M-AND files, split into load_program,
      make_system, prove and the rest; the first with os.urandom giving the
      sha256_1block seeds, its launches counted from 0 (K1, K3 and W1 must
-     launch) and its proof equal to the golden's digest; the
+     launch) and its proof equal to the golden's digest; the 1M-AND one
+     with the compile cache off (a compile) and on (a pickle load of the
+     entry the prove subprocess wrote); the
      subprocesses' proof files (SHA-256, streamed too, and 1M-AND) read
      with Proof.from_bytes and verified here by the TorchKKW make_system
      gave;
@@ -165,8 +167,23 @@ prints no result line:
      start_block) and K3 at its chunk base against their plain versions;
      a cut (4,000,000 ANDs, 100,000 MULs) under the budget scaled by the
      cut, streamed, its proof byte-equal to TorchKKW's;
- 16. one JSON line of kernels, the nvidia-smi line, and the last line
+ 16. the CLI past the card (past_cli_phase): tools/past_card.py's cli case
+     as a fresh process: mul_bench_circuit(48,000,000) written as a
+     bincode file by the C writer (its 1M-AND cut's SHA-256 equal to
+     dumps_program's), then `python -m reverie_tpu_torch.cli` on it in
+     fresh processes with no budget, each split into import torch,
+     load_program (the file read into arrays in C), make_system, prove or
+     verify and the write or read: prove, verify (Ok(()), rc 0) and
+     verify of a copy with a flipped byte in a preprocessing opening's
+     comm_online (rc 1), each with its host peak RSS (at most 16 GB), its
+     peak against the budget and K1's and K3's launches (both must
+     launch); on a 4M-AND cut under the budget scaled by the cut, the
+     CLI's proof file equal to StreamingKKW's from mul_bench_circuit's list;
+ 17. one JSON line of kernels, the nvidia-smi line, and the last line
      {"ok": true, "device": {...}}.
+
+Every CLI process of the run keeps its compile cache (REVERIE_COMPILE_CACHE)
+in a temporary directory of the run, removed at its end.
 
 Imports nothing of JAX or reverie_tpu.  Needs the CUDA toolkit (nvcc), gcc
 and one card.  `python3 chip_smoke.py --mesh-child RANK N PORT DIR` is one
@@ -183,6 +200,7 @@ import io
 import itertools
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1798,9 +1816,16 @@ def cli_phase(rng) -> dict:
                                    "--witness-path", wit, "--proof-path", proof], "ok"))
         cli_runs(("1M-AND verify", ["--operation", "verify", "--program-path", big,
                                     "--proof-path", proof], "ok"))
-        kkw = cli_inprocess("1M-AND prove", ["--operation", "prove", "--program-path", big,
-                                                "--witness-path", wit, "--proof-path",
-                                                d / "mul1m_inproc.bin"])
+        argv = ["--operation", "prove", "--program-path", big, "--witness-path", wit,
+                "--proof-path", d / "mul1m_inproc.bin"]
+        cache = os.environ["REVERIE_COMPILE_CACHE"]
+        os.environ["REVERIE_COMPILE_CACHE"] = "0"
+        try:
+            cli_inprocess("1M-AND prove, compile cache off", argv)
+        finally:
+            os.environ["REVERIE_COMPILE_CACHE"] = cache
+        kkw = cli_inprocess("1M-AND prove, compile cache on (the prove subprocess's entry)",
+                            argv)
         cli_verify_file("1M-AND", kkw, proof)
         del kkw
 
@@ -2240,6 +2265,51 @@ def past_card_phase() -> dict:
     return acc
 
 
+# -- phase 16: the CLI past the card -------------------------------------------
+
+PAST_CLI_TIMEOUT_S = 900
+
+
+def past_cli_phase() -> dict:
+    """Phase 16: tools/past_card.py's cli case in a fresh process (the
+    module's docstring), its JSON line logged and checked here.  Returns the
+    launches of its three CLI processes."""
+    started, acc = time.perf_counter(), {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    run = subprocess.run([sys.executable, "-m", "reverie_tpu_torch.tools.past_card", "cli"],
+                         cwd=ROOT, env=cli_env(), capture_output=True, text=True,
+                         timeout=PAST_CLI_TIMEOUT_S)
+    lines = [ln for ln in run.stdout.splitlines() if ln.startswith("{")]
+    if not lines:
+        raise AssertionError(f"past_card cli: rc {run.returncode}\n{run.stdout[-4000:]}\n"
+                             f"{run.stderr[-4000:]}")
+    res = json.loads(lines[-1])
+    log("past_cli", f"mul_bench_circuit({res['ops']}) file_bytes={res.get('file_bytes')} "
+        f"build_s={res.get('build_s')} write_file_s={res.get('write_file_s')} (the C writer) "
+        f"writer_cut={json.dumps(res.get('writer_cut'))}")
+    for leg in ("prove", "verify", "tampered"):
+        r = res.get(leg)
+        if r is None:
+            continue
+        log("past_cli", f"{leg} rc={r['rc']} process_wall_s={r['process_wall_s']:.3f} "
+            f"split_s={json.dumps({k: round(v, 4) for k, v in r['split_s'].items()})} "
+            f"system={r['system']} segments={r['segments']}")
+        log("past_cli", f"{leg} device_budget={r['device_budget']} peak_bytes={r['peak_bytes']} "
+            f"peak/budget={r['peak_bytes'] / max(r['device_budget'] or 1, 1):.4f} "
+            f"host_peak_rss_bytes={r['host_peak_rss_bytes']} launches={json.dumps(r['launches'])}"
+            f" | {' | '.join(r['out'][-2:])} | stderr: {r['stderr_last']}")
+        for k, v in r["launches"].items():
+            acc[k] = acc.get(k, 0) + v
+    log("past_cli", f"proof_bytes={res.get('proof_bytes')} tampered_at={res.get('tampered_at')} "
+        f"cut {json.dumps(res.get('cut'))}")
+    log("past_cli", f"phase_s={time.perf_counter() - started:.1f} rc={run.returncode} "
+        f"failures={res['failures']} launches={json.dumps(acc)}")
+    if run.returncode != 0 or res["failures"]:
+        raise AssertionError(f"past_card cli: {res['failures']}\n{run.stderr[-4000:]}")
+    return acc
+
+
 KERNELS = (  # name, source, replaces (file:line of every TPU function)
     ("aes_tape_gf2", "reverie_tpu_torch/csrc/aes_tape.cu",
      "reverie_tpu/crypto/kernels/aes_pallas.py:128, reverie_tpu/crypto/kernels/aes_pallas.py:425"),
@@ -2322,6 +2392,7 @@ def main() -> int:
     cli = cli_phase(rng)
     mesh = mesh_phase(dev, rng, checks, main)
     past = past_card_phase()
+    past_cli = past_cli_phase()
 
     kernels = []
     for kname, source, replaces in KERNELS:
@@ -2329,7 +2400,7 @@ def main() -> int:
         kernels.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(run.get(kname, 0) for run in (gf2, z64, sha, zw, stream, batch,
-                                                          tools, cli, mesh, past)),
+                                                          tools, cli, mesh, past, past_cli)),
             "max_abs_err": c["max_abs_err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
             "library_ms": c["library_ms"]})
@@ -2343,5 +2414,18 @@ def main() -> int:
     return 0
 
 
+def run() -> int:
+    """main() with the run's compile cache in a temporary directory (every
+    CLI process inherits it), removed at the end."""
+    if sys.argv[1:2] == [MESH_CHILD] or not torch.cuda.is_available():
+        return main()
+    cache = tempfile.mkdtemp(prefix="reverie_compile_cache_")
+    os.environ["REVERIE_COMPILE_CACHE"] = cache
+    try:
+        return main()
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(run())

@@ -22,10 +22,12 @@ protocol parameters (`params.py`) and the host C crypto (`crypto/`,
 
 `python -m reverie_tpu_torch.cli` is the command line (reverie_tpu's
 `cli.py`: prove, verify, oneshot, oneshot-zk, version_info) on
-`make_system`.  `tools/` holds the measurement probes (the ports of
-reverie_tpu's `tools/r2_measure.py`, `r4_bwroof.py`, `r5_u8emit.py` and
-`r4_extract_probe.py`) with their CUDA kernels, and the CLI's helpers
-`make_sha256_statement` and `inspect_proof`.
+`make_system`, reading a bincode program file into arrays in C
+(`circuit.bincode.load_program_arrays`) and caching its whole compile
+on disk (REVERIE_COMPILE_CACHE).  `tools/` holds the measurement probes
+(the ports of reverie_tpu's `tools/r2_measure.py`, `r4_bwroof.py`,
+`r5_u8emit.py` and `r4_extract_probe.py`) with their CUDA kernels, and
+the CLI's helpers `make_sha256_statement` and `inspect_proof`.
 """
 
 import os
@@ -68,17 +70,22 @@ def device_budget(device, hbm_budget_bytes=None) -> int:
     return int(free / FREE_MARGIN)
 
 
-def make_system(program, params=DEFAULT_PARAMS, mesh=None, hbm_budget_bytes=None, *,
-                device=None):
+def make_system(program, params=DEFAULT_PARAMS, mesh=None, hbm_budget_bytes=None,
+                cache_key=None, *, device=None):
     """The prover and verifier for a circuit's size (reverie_tpu's
-    make_system, its positional arguments in its order less `cache_key`):
-    a `TorchKKW` when its device_footprint at the full R fits the budget of
-    one device (device_budget), else a `StreamingKKW` whose segments take
-    about SEGMENT_SHARE of the budget each by their device_footprint.  Both
-    give the same proof bytes.  `device`, keyword-only, defaults to the
-    CUDA device; with a `mesh` (reverie_tpu_torch.parallel) the system
-    shards over it, and the budget is read on its first device of this
-    process.
+    make_system, its positional arguments in its order): a `TorchKKW` when
+    its device_footprint at the full R fits the budget of one device
+    (device_budget), else a `StreamingKKW` whose segments take about
+    SEGMENT_SHARE of the budget each by their device_footprint.  Both give
+    the same proof bytes.  `program` is a list of the port's op objects or
+    a program's OpArrays (circuit.bincode.load_program_arrays: a program
+    file read with no op objects).  `cache_key` names the program for the
+    disk cache of its whole compile (compile.compile_program; the CLI's is
+    a hash of the program file); the streaming route compiles segments
+    and ignores it, as reverie_tpu's does.  `device`, keyword-only,
+    defaults to the CUDA device; with a `mesh` (reverie_tpu_torch.parallel)
+    the system shards over it, and the budget is read on its first device
+    of this process.
 
     The program is lowered to arrays once (compile_native.OpArrays) and its
     counters and depth read without tables (analyze): a circuit whose lower
@@ -89,10 +96,10 @@ def make_system(program, params=DEFAULT_PARAMS, mesh=None, hbm_budget_bytes=None
     after all (the one case that compiles its ops twice)."""
     from .backend.host import Lanes, check_program, lower_footprint
     from .backend.streaming import sized_segments
-    from .circuit.compile_native import OpArrays, analyze, compile_program
+    from .circuit.compile_native import analyze, compile_program, encode_program
 
-    ops = OpArrays(program)
-    check_program(ops.objects)
+    ops = encode_program(program)
+    check_program(ops)
     lanes = Lanes(mesh, device)
     budget = device_budget(lanes.device, hbm_budget_bytes)
     # the system is made on the mesh, or else on the one device
@@ -100,11 +107,11 @@ def make_system(program, params=DEFAULT_PARAMS, mesh=None, hbm_budget_bytes=None
     R = params.total_reps
     footprint = lower_footprint(analyze(ops), R)
     if footprint <= budget:
-        cc = compile_program(ops)
+        cc = compile_program(ops, cache_key=cache_key)
         footprint = device_footprint(cc, R)
         if footprint <= budget:
-            return TorchKKW(program, params=params, cc=cc, **where)
+            return TorchKKW(ops, params=params, cc=cc, **where)
         del cc
     segments, seg_ops = sized_segments(ops, budget * SEGMENT_SHARE,
                                        footprint / max(len(ops), 1), R)
-    return StreamingKKW(program, seg_ops, params=params, segments=segments, **where)
+    return StreamingKKW(ops, seg_ops, params=params, segments=segments, **where)

@@ -45,7 +45,7 @@ import numpy as np
 import torch
 
 from ..circuit.compile import CompiledCircuit, compile_program
-from ..circuit.compile_native import distinct_ops
+from ..circuit.compile_native import OpArrays, distinct_ops
 from ..circuit.ir import CombineOp, Gate, Kind, Op
 from ..crypto import blake3, expand_seeds
 from ..crypto.kernels import aes_tape, aes_tape_z64, blake3 as b3
@@ -496,13 +496,21 @@ def witness_columns(wit_gf2, wit_z64, n_wit2: int, n_witz: int, which) -> tuple:
 # ---------------------------------------------------------------------------
 
 
-def check_program(program: Sequence[CombineOp]) -> None:
+def check_program(program) -> None:
     """Raise TypeError unless every op is one of the port's own circuit
     objects.  reverie_tpu's classes are distinct (IntEnum comparison would
     make them appear to work): a program built there crosses over as
     bincode, `circuit.load_program(reverie_tpu.circuit.dumps_program(p))`.
-    Each distinct op object is checked once (compile_native.distinct_ops)."""
-    for op in distinct_ops(program)[0]:
+    Each distinct op object is checked once (compile_native.distinct_ops).
+    An OpArrays is checked by its op objects where it was made from some
+    (OpArrays.from_program); one read from a file
+    (bincode.load_program_arrays) has none, and the reader has refused
+    every unknown tag."""
+    if isinstance(program, OpArrays):
+        objects = program.objects or []
+    else:
+        objects = distinct_ops(program)[0]
+    for op in objects:
         gate = getattr(op, "gate", None)
         if not (isinstance(op, CombineOp) and type(op.kind) is Kind
                 and (gate is None or (isinstance(gate, Gate) and type(gate.op) is Op))):
@@ -589,8 +597,10 @@ HASH_ROW = 97
 class TorchKKW:
     """Compile a circuit once; prove and verify on one device or a mesh.
 
-    The positional arguments are TpuKKW's, in its order, less its
-    `cache_key` (the port keeps no compile cache); `device` is keyword-only.
+    `program` is a list of the port's op objects or a program's OpArrays
+    (circuit.bincode.load_program_arrays: a program file with no op
+    objects).  The positional arguments are TpuKKW's, in its order;
+    `device` is keyword-only.
     `device` defaults to the CUDA device (raising without one); the CPU
     device runs the kernels' plain PyTorch versions.  `mesh`
     (reverie_tpu_torch.parallel: make_mesh, global_mesh, local_mesh) shards
@@ -599,7 +609,8 @@ class TorchKKW:
     records meet in host memory (Lanes); the proofs are the same bytes.
     `params` sets the repetitions (a proof's lanes are params.total_reps);
     `cc`, the program's compiled circuit where the caller has it already
-    (make_system), is used as is.
+    (make_system), is used as is; else the program is compiled, through the
+    disk cache where `cache_key` names it (compile.compile_program).
 
     Entry points: `prove` and `verify` (one proof); `prove_batch` (N proofs
     as one device batch of N * 256 lanes); `prove_batch_chunked` (that
@@ -614,15 +625,14 @@ class TorchKKW:
     `prove_batch_chunked`, `prove_many` and `verify_many` of more than one
     chunk or proof."""
 
-    def __init__(self, program: Sequence[CombineOp],
-                 params: ProtocolParams = DEFAULT_PARAMS, mesh=None,
-                 cc: Optional[CompiledCircuit] = None, *,
+    def __init__(self, program, params: ProtocolParams = DEFAULT_PARAMS, mesh=None,
+                 cc: Optional[CompiledCircuit] = None, cache_key: Optional[bytes] = None, *,
                  device: Optional[torch.device] = None):
         check_program(program)
         self.lanes = Lanes(mesh, device)
         self.mesh, self.device = self.lanes.mesh, self.lanes.device
         self.params = params
-        self.cc = compile_program(program) if cc is None else cc
+        self.cc = compile_program(program, cache_key=cache_key) if cc is None else cc
         self._executors: Dict[tuple, object] = {}
         self.last_timings: Dict[str, dict] = {}
 

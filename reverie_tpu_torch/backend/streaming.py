@@ -50,14 +50,13 @@ from __future__ import annotations
 import collections
 import os
 from types import SimpleNamespace
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..circuit.compile import Segment, compile_segments
 from ..circuit.compile_native import SegmentCompiler
-from ..circuit.ir import CombineOp
 from ..crypto import blake3, expand_seeds
 from ..crypto.kernels import aes_tape, aes_tape_z64, blake3 as b3
 from ..params import DEFAULT_PARAMS, KEY_SIZE, ProtocolParams
@@ -123,14 +122,16 @@ class StreamingKKW:
     versions) or on the shards of a `mesh` (reverie_tpu_torch.parallel),
     each running every segment on its slice of the lanes with its own
     carries and hash states; the positional arguments are reverie_tpu's
-    StreamingKKW's.  `segments`, keyword-only, are the program's compiled
+    StreamingKKW's (no `cache_key`: it compiles segments, never the whole
+    program).  `program` is a list of the port's op objects or a program's
+    OpArrays (circuit.bincode.load_program_arrays).  `segments`, keyword-only, are the program's compiled
     segments where the caller has them (make_system), used as they are.  Proof bytes equal `TorchKKW.prove`'s with the same
     seeds, verdicts its verify's.  After each call `last_timings` holds its
     PhaseTimer report: pass1, hash_final, challenge, pass2, pack after
     `prove`; onl_inject, onl_exec, onl_hash, pre_tape, pre_exec, pre_hash
     after `verify`."""
 
-    def __init__(self, program: Sequence[CombineOp], seg_ops: int,
+    def __init__(self, program, seg_ops: int,
                  params: ProtocolParams = DEFAULT_PARAMS, mesh=None, *,
                  device: Optional[torch.device] = None,
                  segments: Optional[List[Segment]] = None):

@@ -6,11 +6,12 @@ the segment plumbing of streaming (`compile_program`'s `carry_in`,
 `out_val_map` and their z64 twins, `Segment`, `_gate_reads`,
 `compile_segments`) and the wave packing of the scan executor
 (`WaveTable`, `_NOP`, `_circuit_has_z64`, `build_waves`, z64 columns
-included).  Left out: the pickle disk cache (`cache_key`), whose salt goes
-stale when a module it does not hash changes.  `compile_program` and
-`compile_segments` run on the host C passes of compile_native.py; the
-Python versions here (`compile_program_plain`, `compile_segments_plain`)
-are their plain twins.
+included), and its pickle disk cache of whole compiles (`cache_key`, under
+REVERIE_COMPILE_CACHE), salted with every source a cached circuit depends
+on (CACHE_SOURCES: the compile, its C pass, the IR and the program
+readers), not two of them.  `compile_program` and `compile_segments` run
+on the host C passes of compile_native.py; the Python versions here
+(`compile_program_plain`, `compile_segments_plain`) are their plain twins.
 
   * SSA conversion: the mutable wire arena becomes an immutable value arena
     (each gate output is a fresh value id), so gates within a level are
@@ -33,7 +34,12 @@ land in their program-order positions.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import hashlib
+import os
+import pickle
+from pathlib import Path
 from typing import TYPE_CHECKING, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -149,20 +155,86 @@ class _Builder:
         self.max_level = max(self.max_level, level)
 
 
+_HERE = Path(__file__).resolve().parent
+#: the sources a cached CompiledCircuit depends on: the compile and its C
+#: pass, the IR, and the readers a program file goes through
+CACHE_SOURCES = (*(_HERE / n for n in ("compile.py", "compile_native.py", "ir.py", "bincode.py",
+                                       "bristol.py")),
+                 *(_HERE.parent / "native" / n for n in ("compile.c", "bincode.c")))
+
+
+def compile_cache_salt() -> bytes:
+    """A hash of CACHE_SOURCES' bytes: a cached circuit is found again only
+    while none of them changes."""
+    h = hashlib.sha256()
+    for path in CACHE_SOURCES:
+        h.update(path.name.encode())
+        try:
+            h.update(path.read_bytes())
+        except OSError:
+            h.update(b"missing")
+    return h.digest()[:8]
+
+
+def compile_cache_path(cache_key: bytes) -> Optional[str]:
+    """The cache file of a program's whole compile: under
+    REVERIE_COMPILE_CACHE (default ~/.cache/reverie_tpu_torch/circuits),
+    named by the salt and `cache_key`; None where the variable is "" or "0"
+    (no cache)."""
+    cdir = os.environ.get("REVERIE_COMPILE_CACHE",
+                          os.path.join(os.path.expanduser("~"), ".cache", "reverie_tpu_torch",
+                                       "circuits"))
+    if cdir in ("", "0"):
+        return None
+    return os.path.join(cdir, hashlib.sha256(compile_cache_salt() + cache_key).hexdigest()
+                        + ".pkl")
+
+
+def load_cached(path: str) -> Optional["CompiledCircuit"]:
+    """The CompiledCircuit cached at path; None where there is none or it
+    cannot be read (a missing, truncated or foreign file is recompiled)."""
+    try:
+        with open(path, "rb") as f:
+            cc = pickle.load(f)
+    except Exception:  # any unreadable entry is a miss
+        return None
+    return cc if isinstance(cc, CompiledCircuit) else None
+
+
+def store_cached(path: str, cc: "CompiledCircuit") -> None:
+    """Write cc to path through a file of its own, renamed into place (so
+    that processes compiling the same program at once never read a
+    half-written entry); a cache that cannot be written is left out."""
+    tmp = f"{path}.{os.getpid()}.tmp"
+    try:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(tmp, "wb") as f:
+            pickle.dump(cc, f, protocol=pickle.HIGHEST_PROTOCOL)
+        os.replace(tmp, path)
+    except OSError:
+        with contextlib.suppress(OSError):
+            os.remove(tmp)
+
+
 def compile_program(program: Sequence[CombineOp],
                     carry_in: Optional[Sequence[int]] = None,
                     out_val_map: Optional[Dict[int, int]] = None,
                     carry_inz: Optional[Sequence[int]] = None,
-                    out_val_mapz: Optional[Dict[int, int]] = None) -> CompiledCircuit:
-    """Levelize a program (reverie_tpu's compile_program without a cache
-    key).  carry_in / carry_inz: GF(2) / Z64 wire ids whose values enter
-    this (sub)program from a segment before it; they take value slots
-    1..len(carry) in order, per domain.  out_val_map / out_val_mapz, where
-    given, receive the final wire -> value maps.  Runs on the host C pass
-    (compile_native); compile_program_plain is its plain twin."""
+                    out_val_mapz: Optional[Dict[int, int]] = None,
+                    cache_key: Optional[bytes] = None) -> CompiledCircuit:
+    """Levelize a program (reverie_tpu's compile_program).  carry_in /
+    carry_inz: GF(2) / Z64 wire ids whose values enter this (sub)program
+    from a segment before it; they take value slots 1..len(carry) in
+    order, per domain.  out_val_map / out_val_mapz, where given, receive
+    the final wire -> value maps.  cache_key: bytes that name the program
+    (the CLI's: a hash of the program file), for a whole compile only (no
+    carries, no maps): the compiled circuit is read from the disk cache
+    where it is there (compile_cache_path), else compiled and written
+    there.  Runs on the host C pass (compile_native); compile_program_plain
+    is its plain twin."""
     from .compile_native import compile_program as native
 
-    return native(program, carry_in, out_val_map, carry_inz, out_val_mapz)
+    return native(program, carry_in, out_val_map, carry_inz, out_val_mapz, cache_key)
 
 
 def compile_program_plain(program: Sequence[CombineOp],

@@ -17,8 +17,13 @@ counter and the depth of the whole circuit, which `make_system` reads to
 bound a circuit's device footprint before it compiles anything.
 `SegmentCompiler` compiles segments one at a time, each as long as its
 caller asks, and fills in the carries once the last one is in: so a caller
-can size each segment by the one before (make_system).  No result is
-cached on disk.
+can size each segment by the one before (make_system).  A whole compile
+with a `cache_key` is cached on disk (compile.compile_cache_path).
+
+A program file becomes OpArrays with no op objects in C
+(bincode.load_program_arrays); a list of op objects through
+`OpArrays.from_program`.  Both share the one constructor from the raw
+table, which renumbers the wires and sets the counting classes.
 """
 
 from __future__ import annotations
@@ -46,6 +51,9 @@ from .compile import (
     Z_SUB,
     CompiledCircuit,
     Segment,
+    compile_cache_path,
+    load_cached,
+    store_cached,
 )
 from .ir import Kind, Op
 
@@ -154,30 +162,31 @@ class OpArrays:
     """A program as arrays: `code` (n,) int32, per op its row of the table
     of distinct ops: kind and opcode int8 (opcode -1 without a gate), dst,
     src1, src2, a, b int64 (renumbered wires; a B2A's b is its row of
-    `bsrc`, the (B2A ops, 64) GF(2) wires it reads), the constant uint64;
-    `wires2` / `wiresz` the wire ids of each domain, sorted (a renumbered
-    wire is its index there)."""
+    `bsrc`, the (B2A ops, 64) GF(2) wires it reads; a SIZE_HINT's a and b
+    its two counts), the constant uint64; `wires2` / `wiresz` the wire ids
+    of each domain, sorted (a renumbered wire is its index there).
 
-    def __init__(self, program: Sequence, extra2: Sequence[int] = (),
-                 extraz: Sequence[int] = ()):
-        objects, self.code = distinct_ops(program)
+    Made from the raw table (the wire ids as the program has them; a
+    B2A's b its first GF(2) wire), with `extra2` / `extraz` more wire ids
+    of each domain to number (a compile's carries): by the file reader
+    (bincode.load_program_arrays) or from op objects (`from_program`),
+    which alone sets `objects`, the table's op objects."""
+
+    def __init__(self, code: np.ndarray, kind: np.ndarray, op: np.ndarray, dst: np.ndarray,
+                 src1: np.ndarray, src2: np.ndarray, a: np.ndarray, b: np.ndarray,
+                 cst: np.ndarray, extra2: Sequence[int] = (), extraz: Sequence[int] = (),
+                 objects: Optional[list] = None):
+        self.code = np.ascontiguousarray(code, np.int32)
         self.n = len(self.code)
         self.objects = objects
-        U = len(objects)
-        self.kind = np.fromiter((int(o.kind) for o in objects), np.int8, U)
-        gates = [_NoGate if o.gate is None else o.gate for o in objects]
-        op = np.fromiter((-1 if o.gate is None else int(o.gate.op) for o in objects), np.int64, U)
-        gate_kinds = (self.kind == Kind.GF2) | (self.kind == Kind.Z64)
-        bad = gate_kinds & ((op < 0) | (op > Op.CONST))
-        if bad.any():
-            raise ValueError(f"bad opcode {objects[int(np.argmax(bad))].gate.op}")
-        self.op = op.astype(np.int8)
-        fields = {f: np.fromiter((int(getattr(g, f)) for g in gates), np.int64, U)
-                  for f in ("dst", "src1", "src2")}
-        self.cst = np.array([int(g.const) for g in gates], dtype=np.uint64)
-        a = np.fromiter((int(o.a) for o in objects), np.int64, U)
-        b = np.fromiter((int(o.b) for o in objects), np.int64, U)
+        self.kind = np.ascontiguousarray(kind, np.int8)
+        self.op = np.ascontiguousarray(op, np.int8)
+        self.cst = np.ascontiguousarray(cst, np.uint64)
+        fields = {"dst": np.array(dst, np.int64), "src1": np.array(src1, np.int64),
+                  "src2": np.array(src2, np.int64)}
+        a, b = np.asarray(a, np.int64), np.asarray(b, np.int64)
         gf2, z64, b2a = self.kind == Kind.GF2, self.kind == Kind.Z64, self.kind == Kind.B2A
+        hint = self.kind == Kind.SIZE_HINT
         bsrc = b[b2a][:, None] + np.arange(64)
 
         def wires(sel, *more):
@@ -188,16 +197,54 @@ class OpArrays:
         for f, arr in fields.items():
             arr[gf2] = np.searchsorted(self.wires2, arr[gf2])
             arr[z64] = np.searchsorted(self.wiresz, arr[z64])
-            arr[~gate_kinds] = 0
+            arr[~(gf2 | z64)] = 0
             setattr(self, f, arr)
-        self.a = np.where(b2a, np.searchsorted(self.wiresz, a), 0).astype(np.int64)
-        self.b = np.where(b2a, np.cumsum(b2a) - 1, 0).astype(np.int64)
+        self.a = np.where(b2a, np.searchsorted(self.wiresz, a), np.where(hint, a, 0))
+        self.b = np.where(b2a, np.cumsum(b2a) - 1, np.where(hint, b, 0))
         self.bsrc = np.ascontiguousarray(np.searchsorted(self.wires2, bsrc), np.int64)
         #: the counting class of each distinct op: kind * 16 + opcode
-        self.cls = self.kind.astype(np.int64) * 16 + np.where(op >= 0, op, _NOOP)
+        self.cls = self.kind.astype(np.int64) * 16 + np.where(self.op >= 0, self.op, _NOOP)
         self._struct = _Ops(*(_ptr(x) for x in (self.code, self.kind, self.op, self.dst,
                                                 self.src1, self.src2, self.a, self.b, self.cst,
                                                 self.bsrc)))
+
+    @classmethod
+    def from_program(cls, program: Sequence, extra2: Sequence[int] = (),
+                     extraz: Sequence[int] = ()) -> "OpArrays":
+        """A list of op objects as OpArrays, its table the distinct objects
+        (distinct_ops; `objects`).  ValueError on an opcode past CONST."""
+        objects, code = distinct_ops(program)
+        U = len(objects)
+        kind = np.fromiter((int(o.kind) for o in objects), np.int8, U)
+        gates = [_NoGate if o.gate is None else o.gate for o in objects]
+        op = np.fromiter((-1 if o.gate is None else int(o.gate.op) for o in objects), np.int64, U)
+        bad = ((kind == Kind.GF2) | (kind == Kind.Z64)) & ((op < 0) | (op > Op.CONST))
+        if bad.any():
+            raise ValueError(f"bad opcode {objects[int(np.argmax(bad))].gate.op}")
+        def u64s(values):  # as int64, as the file reader stores them
+            return np.fromiter(values, np.uint64, U).view(np.int64)
+
+        fields = {f: u64s(int(getattr(g, f)) for g in gates) for f in ("dst", "src1", "src2")}
+        return cls(code, kind, op, **fields, a=u64s(int(o.a) for o in objects),
+                   b=u64s(int(o.b) for o in objects),
+                   cst=np.array([int(g.const) for g in gates], dtype=np.uint64),
+                   extra2=extra2, extraz=extraz, objects=objects)
+
+    def raw_table(self) -> Dict[str, np.ndarray]:
+        """The table with the wire ids as the program has them (the
+        constructor's arguments): kind, op, dst, src1, src2, a, b, cst."""
+        gf2, z64, b2a = self.kind == Kind.GF2, self.kind == Kind.Z64, self.kind == Kind.B2A
+        cols = {"kind": self.kind, "op": self.op}
+        for f in ("dst", "src1", "src2"):
+            arr = np.zeros(len(self.kind), np.int64)
+            arr[gf2] = self.wires2[getattr(self, f)[gf2]]
+            arr[z64] = self.wiresz[getattr(self, f)[z64]]
+            cols[f] = arr
+        cols["a"], cols["b"] = self.a.copy(), self.b.copy()
+        cols["a"][b2a] = self.wiresz[self.a[b2a]]
+        cols["b"][b2a] = self.wires2[self.bsrc[self.b[b2a], 0]]
+        cols["cst"] = self.cst
+        return cols
 
     def __len__(self) -> int:
         return self.n
@@ -210,7 +257,7 @@ class OpArrays:
 
 def encode_program(program) -> OpArrays:
     """`program` as OpArrays (an OpArrays is returned as it is)."""
-    return program if isinstance(program, OpArrays) else OpArrays(program)
+    return program if isinstance(program, OpArrays) else OpArrays.from_program(program)
 
 
 class _State:
@@ -337,20 +384,31 @@ def _circuit(d2: _Dom, dz: _Dom, out: _Out, arrs: dict) -> CompiledCircuit:
 def compile_program(program, carry_in: Optional[Sequence[int]] = None,
                     out_val_map: Optional[Dict[int, int]] = None,
                     carry_inz: Optional[Sequence[int]] = None,
-                    out_val_mapz: Optional[Dict[int, int]] = None) -> CompiledCircuit:
-    """compile.compile_program on the C pass (its arguments; `program` may
-    be an OpArrays without carries)."""
+                    out_val_mapz: Optional[Dict[int, int]] = None,
+                    cache_key: Optional[bytes] = None) -> CompiledCircuit:
+    """compile.compile_program on the C pass (its arguments, the disk cache
+    of `cache_key` included; `program` may be an OpArrays without
+    carries)."""
+    path = None
+    if (cache_key is not None and carry_in is None and out_val_map is None
+            and carry_inz is None and out_val_mapz is None):
+        path = compile_cache_path(cache_key)
+        cc = None if path is None else load_cached(path)
+        if cc is not None:
+            return cc
     carry_in, carry_inz = list(carry_in or ()), list(carry_inz or ())
-    if isinstance(program, OpArrays) and not carry_in and not carry_inz:
-        ops = program
+    if not carry_in and not carry_inz:
+        ops = encode_program(program)
     else:
-        ops = OpArrays(program, carry_in, carry_inz)
+        ops = OpArrays.from_program(program, carry_in, carry_inz)
     st = _State(ops)
     cc = _circuit(*st.run(0, ops.n, np.searchsorted(ops.wires2, carry_in),
                           np.searchsorted(ops.wiresz, carry_inz)))
     for domain, dest in enumerate((out_val_map, out_val_mapz)):
         if dest is not None:
             dest.update(st.final_map(domain))
+    if path is not None:
+        store_cached(path, cc)
     return cc
 
 

@@ -20,21 +20,52 @@ reverie_tpu's CLI: either CLI verifies the other's proofs.
 `--backend cuda` (the default) proves and verifies on the CUDA card through
 `make_system`, and never falls back to the CPU; `--backend cpu` runs
 `TorchKKW` on the CPU device (see `app`).
+
+A bincode program is mapped and read into arrays in C, with no op object
+per op (`circuit.bincode.load_program_arrays`), so a file of tens of
+millions of ops reaches `make_system` in seconds (oneshot's cleartext
+evaluator reads op objects).  The whole compile is cached on disk, as
+reverie_tpu's CLI caches it: keyed by a hash of the file's bytes, the
+format and `--bristol-output`, under REVERIE_COMPILE_CACHE (default
+~/.cache/reverie_tpu_torch/circuits; "" or "0" turns it off).  A streamed
+proof compiles segments and caches nothing.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import hashlib
+import mmap
+import os
 import sys
 import time
 
 
-def _load_program(path: str, fmt: str, bristol_output: str = ""):
-    from .circuit import bristol_to_program, load_program, parse_bristol
+def _program_cache_key(data, fmt: str, bristol_output: str) -> bytes:
+    """The compile cache's key of a program file (reverie_tpu/cli.py's):
+    the file's bytes, with the format and the asserted Bristol output,
+    name the compiled circuit."""
+    h = hashlib.sha256()
+    h.update(fmt.encode())
+    h.update(bristol_output.encode())
+    h.update(data)
+    return h.digest()
 
-    with open(path, "rb") as f:
-        data = f.read()
+
+def _load_program(path: str, fmt: str, bristol_output: str = "", objects: bool = False):
+    """(the program of a file, its _program_cache_key).  A bincode file is
+    mapped and read in C into OpArrays, with no op object per op
+    (bincode.load_program_arrays), or with `objects` into a list of op
+    objects (load_program: oneshot's cleartext evaluator); a Bristol file
+    (`--format bristol`) into a list."""
+    from .circuit import bristol_to_program, load_program, parse_bristol
+    from .circuit.bincode import load_program_arrays
+
     if fmt == "bristol":
+        with open(path, "rb") as f:
+            data = f.read()
+        key = _program_cache_key(data, fmt, bristol_output)
         circ = parse_bristol(data.decode())
         if bristol_output:
             from .circuit.bristol import bristol_with_output_assertion
@@ -50,9 +81,20 @@ def _load_program(path: str, fmt: str, bristol_output: str = ""):
                     f"--bristol-output has {len(bits)} bits, circuit outputs "
                     f"{circ.n_output_bits}"
                 )
-            return bristol_with_output_assertion(circ, bits)
-        return bristol_to_program(circ)
-    return load_program(data)
+            return bristol_with_output_assertion(circ, bits), key
+        return bristol_to_program(circ), key
+    with open(path, "rb") as f:
+        data = (mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+                if os.fstat(f.fileno()).st_size else b"")
+    try:
+        key = _program_cache_key(data, fmt, bristol_output)
+        return (load_program(data) if objects else load_program_arrays(data)), key
+    finally:
+        if isinstance(data, mmap.mmap):
+            # a reader's error may still hold a view of it: then it is
+            # unmapped when that is dropped
+            with contextlib.suppress(BufferError):
+                data.close()
 
 
 def _load_witness(path: str):
@@ -61,11 +103,12 @@ def _load_witness(path: str):
     return parse_witness_file(path)
 
 
-def _backend_system(program, backend: str, segment_ops: int = 0):
+def _backend_system(program, backend: str, segment_ops: int = 0, cache_key=None):
     """The prover and verifier of `program`: StreamingKKW in segments of
     `segment_ops` ops where that is set; else make_system on the card
     (its budget REVERIE_HBM_BUDGET or the card's free bytes), or TorchKKW
-    on the CPU device.  On `cuda` without a card default_device raises."""
+    on the CPU device, each compiling through the disk cache of
+    `cache_key`.  On `cuda` without a card default_device raises."""
     import torch
 
     from . import StreamingKKW, TorchKKW, make_system
@@ -75,16 +118,16 @@ def _backend_system(program, backend: str, segment_ops: int = 0):
     if segment_ops:
         return StreamingKKW(program, segment_ops, device=device)
     if backend == "cuda":
-        return make_system(program, device=device)
-    return TorchKKW(program, device=device)
+        return make_system(program, cache_key=cache_key, device=device)
+    return TorchKKW(program, cache_key=cache_key, device=device)
 
 
 def cmd_prove(args) -> int:
-    program = _load_program(args.program_path, args.format, args.bristol_output)
+    program, key = _load_program(args.program_path, args.format, args.bristol_output)
     witness = _load_witness(args.witness_path)
     print("Evaluating program in ~zero knowledge~")
     t0 = time.time()
-    proof = _backend_system(program, args.backend, args.segment_ops).prove(witness, [])
+    proof = _backend_system(program, args.backend, args.segment_ops, key).prove(witness, [])
     blob = proof.to_bytes()
     with open(args.proof_path, "wb") as f:
         f.write(blob)
@@ -95,12 +138,12 @@ def cmd_prove(args) -> int:
 def cmd_verify(args) -> int:
     from .proof import Proof
 
-    program = _load_program(args.program_path, args.format, args.bristol_output)
+    program, key = _load_program(args.program_path, args.format, args.bristol_output)
     with open(args.proof_path, "rb") as f:
         proof = Proof.from_bytes(f.read())
     print("Verifying Proof")
     t0 = time.time()
-    ok = _backend_system(program, args.backend, args.segment_ops).verify(proof)
+    ok = _backend_system(program, args.backend, args.segment_ops, key).verify(proof)
     print(f"verified in {time.time() - t0:.2f}s")
     if not ok:
         print("Unverifiable Proof", file=sys.stderr)
@@ -112,7 +155,8 @@ def cmd_verify(args) -> int:
 def cmd_oneshot(args) -> int:
     from .circuit import evaluate_composite_program
 
-    program = _load_program(args.program_path, args.format, args.bristol_output)
+    program, _ = _load_program(args.program_path, args.format, args.bristol_output,
+                               objects=True)
     witness = _load_witness(args.witness_path)
     print("Evaluating program in cleartext")
     evaluate_composite_program(program, witness, [])
@@ -121,10 +165,10 @@ def cmd_oneshot(args) -> int:
 
 
 def cmd_oneshot_zk(args) -> int:
-    program = _load_program(args.program_path, args.format, args.bristol_output)
+    program, key = _load_program(args.program_path, args.format, args.bristol_output)
     witness = _load_witness(args.witness_path)
     print("Evaluating program in ~zero knowledge~")
-    sys_ = _backend_system(program, args.backend, args.segment_ops)
+    sys_ = _backend_system(program, args.backend, args.segment_ops, key)
     proof = sys_.prove(witness, [])
     ok = sys_.verify(proof)
     if not ok:

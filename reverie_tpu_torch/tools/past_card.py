@@ -5,6 +5,8 @@ free memory.
     python -m reverie_tpu_torch.tools.past_card gf2 [ANDs] [cut ANDs]
     python -m reverie_tpu_torch.tools.past_card z64 [MULs] [cut MULs]
 
+    python -m reverie_tpu_torch.tools.past_card cli [ANDs] [cut ANDs]
+
 Defaults: mul_bench_circuit(48,000,000) with a cut of 4,000,000 ANDs, and
 z64_mul_bench_circuit(1,200,000) with a cut of 100,000 MULs.  Run it in a
 fresh process, so that the free device memory and the host's peak RSS are
@@ -22,16 +24,44 @@ about as many segments), its proof equal to TorchKKW's with the same seeds;
 and last, the whole circuit compiled once to read its device_footprint,
 which must pass the budget.  Prints one JSON line, then the card's name
 and power limit; exits 1 if any check fails.
+
+The `cli` case proves the GF(2) circuit from files through the command
+line (`python -m reverie_tpu_torch.cli`, make_system with no budget):
+mul_bench_circuit(48,000,000) written as a bincode file by the C writer
+(bincode.dump_program_arrays; on a 1,000,000-AND cut its SHA-256 held to
+dumps_program of mul_bench_circuit's list), then in fresh processes,
+each the CLI's main with its stages timed (cli_split: import torch,
+load_program with the witness, make_system, prove or verify, and the
+rest, the proof's write or read): prove; verify (Ok(()), rc 0); and
+verify of a copy with
+one flipped byte in the first preprocessing opening's comm_online (rc 1).
+For each process its system and segments, the budget make_system took,
+the peak max_memory_allocated, the host's peak RSS (at most 16 GB) and
+the launches of K1, K3 and K4; K1 and K3 must launch.  Last, on a
+4,000,000-AND cut under the budget scaled by the cut, the CLI's proof
+file equal to make_system's StreamingKKW's from mul_bench_circuit's list in
+this process, with the same os.urandom.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import gc
+import hashlib
+import io
 import json
+import mmap
+import os
 import resource
+import shutil
+import struct
+import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -39,8 +69,12 @@ import torch
 from reverie_tpu_torch import StreamingKKW, TorchKKW, device_budget, make_system
 from reverie_tpu_torch.backend import host
 from reverie_tpu_torch.backend.streaming import Z64_REFILL_BLOCKS, Z64_REFILL_WORDS
+from reverie_tpu_torch.circuit import dumps_program, format_witness_bits
+from reverie_tpu_torch.circuit.bincode import dump_program_arrays
 from reverie_tpu_torch.circuit.builders import mul_bench_circuit, z64_mul_bench_circuit
 from reverie_tpu_torch.circuit.compile import compile_program
+from reverie_tpu_torch.circuit.compile_native import OpArrays
+from reverie_tpu_torch.params import KEY_SIZE, PLAYERS
 from reverie_tpu_torch.crypto.kernels import aes_tape, aes_tape_z64, blake3 as b3
 from reverie_tpu_torch.proof import Proof
 from reverie_tpu_torch.tools._timing import card
@@ -49,6 +83,28 @@ CASES = {"gf2": (mul_bench_circuit, 48_000_000, 4_000_000),
          "z64": (z64_mul_bench_circuit, 1_200_000, 100_000)}
 #: the kernels of the streamed paths, by their launch counters
 KERNELS = {"aes_tape_gf2": aes_tape, "aes_tape_z64": aes_tape_z64, "blake3_chunk_cvs": b3}
+#: the cli case: its ANDs, the cut held to StreamingKKW, the cut whose file
+#: is held to dumps_program's, the seed of os.urandom in the cut's proofs
+CLI_CASE = (48_000_000, 4_000_000)
+WRITER_CUT = 1_000_000
+CLI_SEED = 15
+#: the longest a CLI process of the cli case may take
+CLI_TIMEOUT_S = 900
+#: the host memory a CLI process may peak at (PERF.md section 2)
+HOST_RSS_LIMIT = 16 * 10**9
+ROOT = Path(__file__).resolve().parents[2]
+#: a fresh CLI process of the cli case: import torch timed, then the CLI's
+#: main through cli_split; exits with the CLI's code
+CLI_CHILD = """
+import json, sys, time
+t = time.perf_counter()
+import torch
+t = time.perf_counter() - t
+from reverie_tpu_torch.tools.past_card import cli_split
+res = cli_split(sys.argv[1:], t)
+print(json.dumps(res), flush=True)
+sys.exit(res["rc"])
+"""
 
 
 def wall(fn, dev):
@@ -182,6 +238,218 @@ def run_case(domain: str, n: int, cut: int, seed: int = 14) -> dict:
     return res
 
 
+@contextlib.contextmanager
+def fixed_urandom(seed: Optional[int], n: int = 256 * KEY_SIZE):
+    """os.urandom of n bytes (one proof's rep seeds) gives the first n bytes
+    of RandomState(seed) while it is open; None leaves it as it is."""
+    real = os.urandom
+    if seed is not None:
+        os.urandom = lambda k: np.random.RandomState(seed).bytes(k) if k == n else real(k)
+    try:
+        yield
+    finally:
+        os.urandom = real
+
+
+def cli_split(argv, import_torch_s: Optional[float] = None,
+              urandom_seed: Optional[int] = None) -> dict:
+    """reverie_tpu_torch.cli's main(argv) in this process on the CUDA card,
+    its stages timed (s): load_program (with the witness), make_system (the
+    system the CLI builds), prove or verify, and the rest (prove: the
+    proof's bytes and their write; verify: the proof's read), with
+    import_torch_s where the caller timed it; the CLI's code and output,
+    the system, its segments, the budget make_system took, the peak
+    max_memory_allocated, the host's peak RSS and the kernels' launches."""
+    import reverie_tpu_torch as pkg
+    from reverie_tpu_torch import cli
+
+    dev = torch.device("cuda")
+    split, seen = {}, {}
+
+    def stage(name, fn):
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                if torch.cuda.is_initialized():
+                    torch.cuda.synchronize(dev)
+                split[name] = split.get(name, 0.0) + time.perf_counter() - t
+        return run
+
+    def system(*args, **kwargs):
+        s = saved["_backend_system"](*args, **kwargs)
+        seen["system"] = s
+        s.prove, s.verify = stage("prove", s.prove), stage("verify", s.verify)
+        return s
+
+    def budget(*args, **kwargs):
+        seen["budget"] = saved_budget(*args, **kwargs)
+        return seen["budget"]
+
+    saved = {n: getattr(cli, n) for n in ("_load_program", "_load_witness", "_backend_system")}
+    saved_budget = pkg.device_budget
+    cli._load_program = stage("load_program", saved["_load_program"])
+    cli._load_witness = stage("load_program", saved["_load_witness"])
+    cli._backend_system = stage("make_system", system)
+    pkg.device_budget = budget
+    if torch.cuda.is_initialized():
+        torch.cuda.reset_peak_memory_stats(dev)
+    before = {name: mod.LAUNCHES for name, mod in KERNELS.items()}
+    out = io.StringIO()
+    try:
+        with fixed_urandom(urandom_seed), contextlib.redirect_stdout(out):
+            t = time.perf_counter()
+            rc = cli.main([str(a) for a in argv])
+            total = time.perf_counter() - t
+    finally:
+        for name, fn in saved.items():
+            setattr(cli, name, fn)
+        pkg.device_budget = saved_budget
+    rest = "write" if "prove" in split else "read"
+    split[rest] = total - sum(split.values())
+    if import_torch_s is not None:
+        split = {"import_torch": import_torch_s, **split}
+    sk = seen.get("system")
+    return {"argv": [str(a) for a in argv], "rc": rc, "out": out.getvalue().splitlines(),
+            "split_s": {**split, "total": total + (import_torch_s or 0.0)},
+            "system": type(sk).__name__, "segments": len(getattr(sk, "segments", ())),
+            "device_budget": seen.get("budget"),
+            "peak_bytes": torch.cuda.max_memory_allocated(dev),
+            "host_peak_rss_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
+            "launches": {name: mod.LAUNCHES - before[name] for name, mod in KERNELS.items()}}
+
+
+def cli_process(argv) -> dict:
+    """cli_split(argv) in a fresh process (CLI_CHILD), with its wall and the
+    last line of its errors."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT), *filter(None, [os.environ.get("PYTHONPATH")])]))
+    t = time.perf_counter()
+    run = subprocess.run([sys.executable, "-c", CLI_CHILD, *map(str, argv)], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
+    lines = [ln for ln in run.stdout.splitlines() if ln.startswith("{")]
+    if not lines:
+        raise AssertionError(f"cli {argv[1]}: rc {run.returncode}, no result\n"
+                             f"{run.stdout[-4000:]}\n{run.stderr[-4000:]}")
+    res = json.loads(lines[-1])
+    res.update(process_rc=run.returncode, process_wall_s=time.perf_counter() - t,
+               stderr_last=(run.stderr.strip().splitlines() or [""])[-1])
+    return res
+
+
+def comm_online_offset(blob) -> int:
+    """The offset of the first byte of the first GF(2) preprocessing
+    opening's comm_online in a proof's bytes (proof.container's layout)."""
+    pos = 32
+    (n,) = struct.unpack_from("<Q", blob, pos)
+    pos += 8
+    for _ in range(n):
+        pos += 1 + KEY_SIZE * PLAYERS
+        for _ in range(3):
+            (k,) = struct.unpack_from("<Q", blob, pos)
+            pos += 8 + k
+    return pos + 8 + KEY_SIZE
+
+
+def sha256_of(path: Path) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 24), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+def write_program(path: Path, n: int) -> tuple:
+    """mul_bench_circuit(n) written to path by the C writer: (its witness
+    bits, mul_bench_circuit's s, the writer's s)."""
+    t = time.perf_counter()
+    prog, w2, _ = mul_bench_circuit(n)
+    built = time.perf_counter() - t
+    ops = OpArrays.from_program(prog)
+    del prog
+    t = time.perf_counter()
+    with open(path, "wb") as f:
+        dump_program_arrays(ops, f)
+    return w2, built, time.perf_counter() - t
+
+
+def run_cli_case(n: int, cut: int) -> dict:
+    """The cli case of the module's docstring, on the CUDA card."""
+    from reverie_tpu_torch import _build
+
+    _build.kernels()  # built here, so that no CLI process's split holds the nvcc build
+    res = {"case": "cli", "ops": n}
+    with tempfile.TemporaryDirectory(prefix="reverie_past_cli_") as tmp:
+        d = Path(tmp)
+        write_program(d / "cut.bin", WRITER_CUT)
+        want = hashlib.sha256(dumps_program(mul_bench_circuit(WRITER_CUT)[0])).hexdigest()
+        res["writer_cut"] = {"ops": WRITER_CUT, "sha256": sha256_of(d / "cut.bin"),
+                             "equal_to_dumps_program": sha256_of(d / "cut.bin") == want}
+        prog, wit, proof, bad = d / "prog.bin", d / "wit.txt", d / "proof.bin", d / "bad.bin"
+        w2, res["build_s"], res["write_file_s"] = write_program(prog, n)
+        wit.write_bytes(format_witness_bits(w2))
+        res["file_bytes"] = prog.stat().st_size
+        gc.collect()
+        res["prove"] = cli_process(["--operation", "prove", "--program-path", prog,
+                                    "--witness-path", wit, "--proof-path", proof])
+        verify = ["--operation", "verify", "--program-path", prog, "--proof-path"]
+        res["verify"] = cli_process([*verify, proof])
+        res["proof_bytes"] = proof.stat().st_size
+        shutil.copyfile(proof, bad)
+        with open(bad, "r+b") as f, mmap.mmap(f.fileno(), 0) as mm:
+            at = comm_online_offset(mm)
+            mm[at] ^= 1
+        res["tampered_at"] = at
+        res["tampered"] = cli_process([*verify, bad])
+        for f in (bad, prog):
+            f.unlink()
+
+        dev = torch.device("cuda")
+        budget = int(res["prove"]["device_budget"] * cut / n)
+        cw2 = write_program(prog, cut)[0]
+        os.environ["REVERIE_HBM_BUDGET"] = str(budget)
+        try:
+            got = cli_split(["--operation", "prove", "--program-path", prog, "--witness-path",
+                             wit, "--proof-path", proof], urandom_seed=CLI_SEED)
+        finally:
+            del os.environ["REVERIE_HBM_BUDGET"]
+        free_cache()
+        cprog = mul_bench_circuit(cut)[0]
+        sk = make_system(cprog, device=dev, hbm_budget_bytes=budget)
+        with fixed_urandom(CLI_SEED):
+            want = sk.prove(cw2, [0]).to_bytes()
+        res["cut"] = {"ops": cut, "budget": budget, "cli_system": got["system"],
+                      "cli_segments": got["segments"], "system": type(sk).__name__,
+                      "segments": len(getattr(sk, "segments", ())),
+                      "equal_to_streamingkkw": proof.read_bytes() == want}
+    return res
+
+
+def cli_failures(res: dict) -> list:
+    """What the cli case got wrong."""
+    checks = {"the C writer's 1M-AND file equals dumps_program's":
+              res["writer_cut"]["equal_to_dumps_program"],
+              "prove wrote the proof": res["prove"]["rc"] == 0 and any(
+                  ln.startswith("proof written") for ln in res["prove"]["out"]),
+              "verify printed Ok(())": res["verify"]["rc"] == 0 and res["verify"]["out"][-1:]
+              == ["Ok(())"],
+              "the tampered proof was refused": res["tampered"]["rc"] == 1
+              and res["tampered"]["process_rc"] == 1
+              and res["tampered"]["stderr_last"] == "Unverifiable Proof",
+              "the cut equals StreamingKKW's proof": res["cut"]["equal_to_streamingkkw"],
+              "the cut streams": res["cut"]["system"] == res["cut"]["cli_system"]
+              == "StreamingKKW" and res["cut"]["segments"] > 1}
+    for leg in ("prove", "verify", "tampered"):
+        r = res[leg]
+        checks[f"{leg}: make_system gave StreamingKKW"] = r["system"] == "StreamingKKW"
+        checks[f"{leg}: peak within the budget"] = r["peak_bytes"] <= r["device_budget"]
+        checks[f"{leg}: host peak RSS within 16 GB"] = r["host_peak_rss_bytes"] <= HOST_RSS_LIMIT
+        checks[f"{leg}: K1 and K3 launched"] = (r["launches"]["aes_tape_gf2"] > 0
+                                                and r["launches"]["blake3_chunk_cvs"] > 0)
+    return [name for name, ok in checks.items() if not ok]
+
+
 def failures(res: dict) -> list:
     """What the case got wrong."""
     bad = []
@@ -208,10 +476,15 @@ def main(argv) -> int:
         print("past_card: needs a CUDA card", file=sys.stderr)
         return 2
     domain = argv[1] if len(argv) > 1 else "gf2"
-    n = int(argv[2]) if len(argv) > 2 else CASES[domain][1]
-    cut = int(argv[3]) if len(argv) > 3 else CASES[domain][2]
-    res = run_case(domain, n, cut)
-    res["failures"] = failures(res)
+    n, cut = CLI_CASE if domain == "cli" else CASES[domain][1:]
+    n = int(argv[2]) if len(argv) > 2 else n
+    cut = int(argv[3]) if len(argv) > 3 else cut
+    if domain == "cli":
+        res = run_cli_case(n, cut)
+        res["failures"] = cli_failures(res)
+    else:
+        res = run_case(domain, n, cut)
+        res["failures"] = failures(res)
     print(json.dumps(res), flush=True)
     print(card(), flush=True)
     return 1 if res["failures"] else 0

@@ -76,9 +76,11 @@ def one_thread():
 
 
 @pytest.fixture(autouse=True)
-def no_jit_cache(monkeypatch):
-    """reverie_tpu's CLI keeps no persistent compile cache in these tests."""
+def no_jit_cache(monkeypatch, tmp_path):
+    """reverie_tpu's CLI keeps no persistent compile cache in these tests,
+    and the port's CLI its compile cache in the test's directory."""
     monkeypatch.setenv("REVERIE_JIT_CACHE", "0")
+    monkeypatch.setenv("REVERIE_COMPILE_CACHE", str(tmp_path / "compile_cache"))
 
 
 def five_gate():
@@ -143,7 +145,23 @@ def test_cli_oneshot(workdir, capsys):
              "--witness-path", workdir / "bad.txt")
 
 
-def test_cli_prove_verify_roundtrip(workdir, capsys):
+def first_comm_online_byte(blob: bytes) -> int:
+    """The offset of the first byte of the first GF(2) preprocessing
+    opening's comm_online in a proof file."""
+    proof = Proof.from_bytes(blob)
+    opening = proof.gf2.preprocessing[0]
+    opening.comm_online = bytes([opening.comm_online[0] ^ 1]) + opening.comm_online[1:]
+    diff = [i for i, (a, b) in enumerate(zip(proof.to_bytes(), blob)) if a != b]
+    assert len(diff) == 1
+    return diff[0]
+
+
+def test_cli_prove_verify_roundtrip(workdir, capsys, monkeypatch):
+    """Prove, verify, and two flipped bytes rejected: the commitment, and
+    the first preprocessing opening's comm_online (its rep hash, which the
+    commitment binds on every seed).  os.urandom is fixed: the omit flip of
+    byte 40 depends on the seeds (test_cli_omit_flip_verdict_matches_reverie_tpu)."""
+    fix_urandom(monkeypatch, 7)
     proof = workdir / "proof.bin"
     rc, out, _ = port(capsys, "--operation", "prove", "--program-path", workdir / "prog.bin",
                       "--witness-path", workdir / "wit.txt", "--proof-path", proof)
@@ -155,7 +173,7 @@ def test_cli_prove_verify_roundtrip(workdir, capsys):
     assert rc == 0 and out.startswith("Verifying Proof\nverified in ")
     assert out.endswith("Ok(())\n")
     good = proof.read_bytes()
-    for at in (0, 40):  # the commitment; the first online opening's omit
+    for at in (0, first_comm_online_byte(good)):
         blob = bytearray(good)
         blob[at] ^= 1
         proof.write_bytes(bytes(blob))
@@ -164,6 +182,38 @@ def test_cli_prove_verify_roundtrip(workdir, capsys):
     proof.write_bytes(good[:-1])
     with pytest.raises(ValueError, match="truncated"):
         port(capsys, *verify)
+
+
+#: the seeds of os.urandom whose proof of the five-gate program verifies
+#: with byte 40 (the first GF(2) online opening's omit) flipped, in both
+#: CLIs: the verifier reads each opened rep's omit from the proof and ties
+#: it to the challenge only through the online hash it recomputes, which
+#: for this one-AND circuit sometimes does not depend on which player is
+#: left out (ROADMAP Queue 3)
+OMIT_FLIP_ACCEPTED = (24, 28)
+
+
+@pytest.mark.parametrize("seed", range(40))
+def test_cli_omit_flip_verdict_matches_reverie_tpu(workdir, capsys, monkeypatch, seed):
+    """Byte 40 flipped in the port's proof (os.urandom fixed to the seed):
+    the port's CLI and reverie_tpu's CLI give the same verdict on the same
+    bytes, accepting at the seeds of OMIT_FLIP_ACCEPTED and rejecting at
+    every other seed of 0-39."""
+    fix_urandom(monkeypatch, seed)
+    proof = workdir / "proof.bin"
+    assert port(capsys, "--operation", "prove", "--program-path", workdir / "prog.bin",
+                "--witness-path", workdir / "wit.txt", "--proof-path", proof)[0] == 0
+    good = proof.read_bytes()
+    blob = bytearray(good)
+    blob[40] ^= 1
+    assert Proof.from_bytes(bytes(blob)).gf2.online[0].omit == \
+        Proof.from_bytes(good).gf2.online[0].omit ^ 1
+    proof.write_bytes(bytes(blob))
+    verify = ("--operation", "verify", "--program-path", workdir / "prog.bin",
+              "--proof-path", proof)
+    got, want = port(capsys, *verify), reference(capsys, *verify)
+    assert got[0] == want[0] == (0 if seed in OMIT_FLIP_ACCEPTED else 1)
+    assert got[2] == want[2] == ("" if seed in OMIT_FLIP_ACCEPTED else "Unverifiable Proof\n")
 
 
 def test_cli_streamed_prove_verify(workdir, capsys):

@@ -86,6 +86,10 @@ assert dist.allgather_blobs(blobs, 2) == [[b"", b"ab"], [b"xyz", b""]]
 assert dist.allgather_blobs([], 1) == [[b""], [b""]]
 open(f"{d}/ok_{pid}", "w").write("OK")
 print(f"proc {pid}: all distributed checks OK", flush=True)
+# leave the gloo group together: a group torn down at exit while its peer
+# is gone can abort the process after every check passed
+torch.distributed.barrier()
+torch.distributed.destroy_process_group()
 """
 
 

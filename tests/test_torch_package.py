@@ -1106,3 +1106,30 @@ def test_mesh_shards_stay_on_their_devices(cuda_device, monkeypatch):
     monkeypatch.undo()
     want = TorchKKW(prog, device=cuda_device).prove(wit2, witz, seeds=seeds)
     assert proof.to_bytes() == want.to_bytes()
+
+
+@pytest.mark.cuda
+def test_program_file_read_in_c_proves_on_cuda(cuda_device, tmp_path):
+    """A 1M-AND program file, mapped and read by the C reader
+    (load_program_arrays: 3 table rows, no op objects), proves on the card
+    through make_system with no budget to mul_bench_circuit's list's bytes,
+    and the proof verifies."""
+    import mmap
+
+    from reverie_tpu_torch import make_system
+    from reverie_tpu_torch.circuit import dumps_program
+    from reverie_tpu_torch.circuit.bincode import load_program_arrays
+    from reverie_tpu_torch.circuit.builders import mul_bench_circuit
+
+    prog, wit2, witz = mul_bench_circuit(1_000_000)
+    path = tmp_path / "prog.bin"
+    path.write_bytes(dumps_program(prog))
+    with open(path, "rb") as f, mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ) as mm:
+        ops = load_program_arrays(mm)
+    assert ops.n == len(prog) and len(ops.kind) == 3 and ops.objects is None
+    seeds = np.random.RandomState(15).randint(0, 256, (256, 16), dtype=np.uint8)
+    kkw = make_system(ops, device=cuda_device)
+    proof = kkw.prove(wit2, witz, seeds=seeds)
+    want = make_system(prog, device=cuda_device).prove(wit2, witz, seeds=seeds)
+    assert proof.to_bytes() == want.to_bytes()
+    assert kkw.verify(proof) is True

@@ -193,6 +193,10 @@ names = [m.name for m in pkgutil.walk_packages(reverie_tpu_torch.__path__, "reve
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+from reverie_tpu_torch.circuit import dumps_program
+from reverie_tpu_torch.circuit.bincode import load_program_arrays
+from reverie_tpu_torch.circuit.builders import mul_bench_circuit
+assert len(load_program_arrays(dumps_program(mul_bench_circuit(9)[0])).kind) == 3
 bad = [m for m in sys.modules if sys.modules[m] is not None
        and (m.split(".")[0] in ("jax", "reverie_tpu"))]
 assert not bad, bad
@@ -202,14 +206,16 @@ print("poisoned import ok", len(names))
 
 #: the CLI's modules and the mesh's, which the walk must reach
 CLI_MODULES = ("cli", "circuit.bristol", "circuit.witness", "circuit.eval", "utils.buildinfo",
-               "tools.make_sha256_statement", "tools.inspect_proof", "parallel",
-               "parallel.mesh", "parallel.distributed")
+               "circuit.bincode", "circuit.compile_native", "tools.make_sha256_statement",
+               "tools.inspect_proof", "tools.past_card", "parallel", "parallel.mesh",
+               "parallel.distributed")
 
 
 def test_imports_with_jax_and_reverie_tpu_poisoned():
     """Every module of the port (the CLI's among them) and chip_smoke
     import with `jax` and `reverie_tpu` made unimportable (in a subprocess,
-    so the poison stays out of this worker)."""
+    so the poison stays out of this worker), and the C program reader
+    (bincode.load_program_arrays) runs there."""
     res = subprocess.run([sys.executable, "-c", _POISONED], cwd=REPO,
                          env=dict(os.environ, PYTHONPATH=str(REPO)),
                          capture_output=True, text=True, timeout=300)

@@ -307,18 +307,28 @@ POSITIONAL = {  # the reference's positional call, and the same by keyword
     "make_system": (lambda p: make_system(p, ORDER_PARAMS, None, 5_000, device=CPU),
                     lambda p: make_system(p, device=CPU, hbm_budget_bytes=5_000,
                                           params=ORDER_PARAMS)),
+    "TorchKKW_cache_key": (
+        lambda p: TorchKKW(p, ORDER_PARAMS, None, None, b"mul20", device=CPU),
+        lambda p: TorchKKW(p, device=CPU, cache_key=b"mul20", params=ORDER_PARAMS)),
+    "make_system_cache_key": (
+        lambda p: make_system(p, ORDER_PARAMS, None, 1 << 40, b"mul20", device=CPU),
+        lambda p: make_system(p, device=CPU, cache_key=b"mul20", hbm_budget_bytes=1 << 40,
+                              params=ORDER_PARAMS)),
 }
 
 
 @pytest.mark.parametrize("name", list(POSITIONAL))
-def test_reference_positional_order(name):
-    """TorchKKW(program, params, mesh, cc), StreamingKKW(program, seg_ops,
-    params, mesh) and make_system(program, params, mesh, hbm_budget_bytes)
-    take reverie_tpu's positional order (device keyword-only) and give the
-    keyword form's proof."""
+def test_reference_positional_order(name, monkeypatch, tmp_path):
+    """TorchKKW(program, params, mesh, cc, cache_key), StreamingKKW(program,
+    seg_ops, params, mesh) and make_system(program, params, mesh,
+    hbm_budget_bytes, cache_key) take reverie_tpu's positional order
+    (device keyword-only) and give the keyword form's proof; with a
+    cache_key the first writes the compile cache and the second reads it."""
+    monkeypatch.setenv("REVERIE_COMPILE_CACHE", str(tmp_path))
     prog, wit2, witz = mul_bench_circuit(20)
     positional, keyword = (make(prog) for make in POSITIONAL[name])
     assert type(positional) is type(keyword) and positional.params is ORDER_PARAMS
+    assert len(list(tmp_path.iterdir())) == int(name.endswith("cache_key"))
     s = seeds(5, 64)
     proof = positional.prove(wit2, witz, seeds=s)
     assert proof.to_bytes() == keyword.prove(wit2, witz, seeds=s).to_bytes()
@@ -326,12 +336,14 @@ def test_reference_positional_order(name):
 
 
 @pytest.mark.parametrize("make", [
-    lambda p: TorchKKW(p, ProtocolParams(), None, None, CPU),
+    lambda p: TorchKKW(p, ProtocolParams(), None, None, None, CPU),
     lambda p: StreamingKKW(p, 4, ProtocolParams(), None, CPU),
-    lambda p: make_system(p, ProtocolParams(), None, 1 << 40, CPU),
-], ids=list(POSITIONAL))
+    lambda p: make_system(p, ProtocolParams(), None, 1 << 40, None, CPU),
+], ids=["TorchKKW", "StreamingKKW", "make_system"])
 def test_fifth_positional_argument_is_refused(make):
-    """The reference's fifth positional argument (cache_key; the port keeps
-    no compile cache) and a positional device raise TypeError."""
+    """A positional argument past the reference's last one raises
+    TypeError: `device` given in TorchKKW's and make_system's sixth place
+    (after cache_key) or in StreamingKKW's fifth (the reference's
+    StreamingKKW takes no cache_key)."""
     with pytest.raises(TypeError, match="positional argument"):
         make(mul_bench_circuit(20)[0])
