@@ -23,13 +23,25 @@ prints no result line:
      and the pack-shift (1,000,002 x 256, random shifts);
   4. the GF(2) main path: TorchKKW(mul_bench_circuit(1_000_000)).prove,
      then .verify (True), and a proof with one flipped byte in a GF(2)
-     online opening (False), with the kernels' launch counts of that run;
+     online opening (False), with the kernels' launch counts of that run
+     (K1, K3 and the BLAKE3 tail in every leg); then a warm prove and
+     verify with the tail kernel and with the torch tail (torch_tail: the
+     plain versions routed in, as the port ran them before the tail
+     kernel) in turns, kernel, torch, torch, kernel, their hash, onl_hash
+     and pre_hash ms (the same in phases 6, 8 and 9);
   5. byte parity at 50,000 AND gates with reverie_tpu's NumPy golden
      prover, through the digest committed in reverie_tpu_torch/parity.py;
   6. the Z64 main path: TorchKKW(z64_mul_bench_circuit(50_000)), the same
      legs, a flipped byte in a z64 online opening (False), and the z64 tape
      kernel launched in the prove, the online and the preprocessing verify;
-  7. Z64 parity: 2,000 Z64 MULs equal to the golden's digest;
+  7. Z64 parity: 2,000 Z64 MULs equal to the golden's digest; then the
+     BLAKE3 tail kernels (csrc/blake3_tail.cu) against the torch tail,
+     byte for byte, on K3's chunk CVs of random streams: the four stream
+     lengths of phases 4, 6 and 8's circuits at R = 256, 40 and 216, an
+     empty stream, a partial and a whole chunk, R = 2,048 and 16,384, the
+     mesh's shard widths, a streamed hasher's CV stack and the tree on it,
+     the pair hashes at each R; timed with its bound on the 1M-AND onl2
+     stream at R = 256;
   8. the SHA-256 phase, on reverie_tpu's SHA-256 preimage statement
      (parity.sha256_bench; 5,198 levels, pure GF(2), so TorchKKW runs it on
      the wave executor): the wave kernel (csrc/scan_gf2.cu) through the
@@ -88,7 +100,10 @@ prints no result line:
      at most the budget where make_system had one.  Before them K1 and K4
      at a middle segment's tape window (start_block > 0, R = 256 and 40
      with random omits) and K3 at its onl2 chunk base, each against its
-     plain version; K1, K3, K4, W1 and W2 must each launch in the phase;
+     plain version; then the 1M-AND and 50k-MUL systems' warm proves with
+     the tail kernel and the torch tail in turns (kernel, torch, torch,
+     kernel), pass1 and hash_final by route; K1, K3, K4, the tail, W1 and
+     W2 must each launch in the phase;
  11. the batch phase, on each main-path circuit: N from largest_batch
      (pipeline_footprint and the free memory; 8 proofs of 1M ANDs and 4 of
      50k Z64 MULs where a chunk of that many fits); prove() N times, prove_batch
@@ -124,8 +139,8 @@ prints no result line:
      torch, the CLI, the kernels' library, CUDA), and cli.main in this
      process on the SHA-256 and 1M-AND files, split into load_program,
      make_system, prove and the rest; the first with os.urandom giving the
-     sha256_1block seeds, its launches counted from 0 (K1, K3 and W1 must
-     launch) and its proof equal to the golden's digest; the 1M-AND one
+     sha256_1block seeds, its launches counted from 0 (K1, K3, the tail
+     and W1 must launch) and its proof equal to the golden's digest; the 1M-AND one
      with the compile cache off (a compile) and on (a pickle load of the
      entry the prove subprocess wrote); the
      subprocesses' proof files (SHA-256, streamed too, and 1M-AND) read
@@ -150,7 +165,7 @@ prints no result line:
      both, and prove_batch_distributed of 8 and 7 SHA-256 statements, each
      proof equal to TorchKKW.prove's with its seeds.  With two cards, 4
      shards' case again on make_mesh(2); else a line that it was skipped.
-     K1, K3, K4, W1 and W2 must each launch;
+     K1, K3, K4, the tail, W1 and W2 must each launch;
  15. the past-the-card phase (past_card_phase): make_system with no
      budget on circuits larger than the card, each in a fresh process
      (reverie_tpu_torch.tools.past_card, after torch.cuda.empty_cache()
@@ -162,7 +177,8 @@ prints no result line:
      seg_ops, the setup split (build, make_system), cold and warm prove
      walls with last_timings, verify (True), a flipped byte in an online
      opening (False), the peak max_memory_allocated (at most the budget),
-     the host's peak RSS, and the launches of K1, K3 and K4 counted from 0;
+     the host's peak RSS, and the launches of K1, K3, K4 and the tail
+     counted from 0 (the tail must launch in each case);
      the case's tape kernel at the last segment's window (the largest
      start_block) and K3 at its chunk base against their plain versions;
      a cut (4,000,000 ANDs, 100,000 MULs) under the budget scaled by the
@@ -176,8 +192,8 @@ prints no result line:
      verify and the write or read: prove, verify (Ok(()), rc 0) and
      verify of a copy with a flipped byte in a preprocessing opening's
      comm_online (rc 1), each with its host peak RSS (at most 16 GB), its
-     peak against the budget and K1's and K3's launches (both must
-     launch); on a 4M-AND cut under the budget scaled by the cut, the
+     peak against the budget and K1's, K3's and the tail's launches (each
+     must launch); on a 4M-AND cut under the budget scaled by the cut, the
      CLI's proof file equal to StreamingKKW's from mul_bench_circuit's list;
  17. one JSON line of kernels, the nvidia-smi line, and the last line
      {"ok": true, "device": {...}}.
@@ -346,6 +362,96 @@ def check_blake3(dev, rng, T: int, clock: float) -> dict:
     return res
 
 
+#: the shard widths of the mesh phase's 12 shards (of 256, 40 and 216 lanes)
+TAIL_SHARD_WIDTHS = (3, 4, 18, 21, 22)
+
+
+def check_blake3_tail(dev, rng, clock: float, ccs: dict) -> dict:
+    """The tail kernels (csrc/blake3_tail.cu) against the torch tail on the
+    card, byte for byte, on the chunk CVs K3 makes of random streams: each
+    cell's four stream lengths (ccs: cell -> compiled circuit) at the
+    prover's R = 256, the online verifier's 40 (all four) and the
+    preprocessing verifier's 216 (pre2, prez); an empty stream, a partial
+    and a whole chunk at each; a batch of 8 1M-AND proofs (R = 2,048) and
+    a chunk of 64 SHA-256 proofs (R = 16,384) at their longest stream; the
+    mesh's shard widths; the CV stack of a streamed hasher (pair_levels)
+    against _tree_reduce(root=False) and the tree on it; the pair hashes at
+    each R.  The kernels line takes finalize_columns on the GF(2) 1M-AND
+    onl2 stream at R = 256: its ms, the torch tail's and its bound
+    (roofline.blake3_tail_work); the pair kernel's are logged."""
+    from reverie_tpu_torch.crypto.kernels import blake3 as b3
+    from reverie_tpu_torch.roofline import blake3_pairs_work, blake3_tail_work
+
+    gen = torch.Generator(device=dev).manual_seed(int(rng.randint(2**31)))
+    res = {}
+
+    def stream(T: int, R: int):
+        buf = torch.randint(0, 256, (max(T, 1), R), dtype=torch.uint8, device=dev, generator=gen)
+        n = max(1, -(-T // b3.CHUNK_LEN))
+        levels = [b3.chunk_cvs(buf, n - 1)] if n > 1 and R else []
+        return levels, buf[(n - 1) * b3.CHUNK_LEN : T], n
+
+    def case(T: int, R: int, what: str) -> None:
+        levels, rem, n = stream(T, R)
+        check("blake3_tail", res, b3.finalize_columns(levels, rem, T),
+              b3.finalize_columns_ref(levels, rem, T), f"finalize {what} T={T} R={R} n={n}")
+
+    lengths = {}
+    for cell, cc in ccs.items():
+        for name in ("onl2", "pre2", "onlz", "prez"):
+            T = getattr(cc, name)
+            lengths[T] = lengths.get(T, []) + [f"{cell}.{name}"]
+            for R in (256, 40) + ((216,) if name.startswith("pre") else ()):
+                case(T, R, f"{cell}.{name}")
+    for T in (0, 700, 1024):
+        for R in (256, 40, 216):
+            case(T, R, "short")
+    gf2, sha = ccs["gf2_1M"], ccs["sha256"]
+    case(gf2.onl2, 2048, "batch of 8")
+    case(max(sha.onl2, sha.pre2), 16_384, "chunk of 64 SHA-256")
+    for R in TAIL_SHARD_WIDTHS:
+        case(gf2.onl2, R, "shard")
+        case(0, R, "shard")
+
+    # a streamed hasher's CV stack: the first k chunk CVs paired
+    T, R = gf2.onl2, 256
+    levels, rem, n = stream(T, R)
+    k = (n - 1) // 2 + 3
+    plain, stack = [levels[0][:, :k]], [levels[0][:, :k].clone()]
+    b3._tree_reduce(plain, root=False)
+    b3.pair_levels(stack)
+    heights = {j for j, x in enumerate(plain) if x.shape[1]}
+    if heights != {j for j, x in enumerate(stack) if x.shape[1]}:
+        raise AssertionError("blake3_tail: the CV stack's heights differ from _tree_reduce's")
+    check("blake3_tail", res, torch.cat([stack[j] for j in sorted(heights)], dim=1),
+          torch.cat([plain[j] for j in sorted(heights)], dim=1), f"CV stack of k={k} chunks R={R}")
+    stack[0] = torch.cat([stack[0], levels[0][:, k:]], dim=1)
+    check("blake3_tail", res, b3.finalize_columns(stack, rem, T),
+          b3.finalize_columns_ref(levels, rem, T), f"finalize on the CV stack k={k} T={T} R={R}")
+
+    for R in (256, 40, 216, 2048, 16_384) + TAIL_SHARD_WIDTHS:
+        ins = [torch.randint(0, 256, (R, 32), dtype=torch.uint8, device=dev, generator=gen)
+               for _ in range(4)]
+        check("blake3_tail", res, b3.hash_rep_columns(*ins), b3.hash_rep_columns_ref(*ins),
+              f"pairs H(H(a||b)||H(c||d)) R={R}")
+        check("blake3_tail", res, b3.hash_pair_columns(ins[0], ins[1]),
+              b3.hash_pair_columns_ref(ins[0], ins[1]), f"pair H(a||b) R={R}")
+        if R == 256:
+            pairs = {}
+            set_bound(pairs, *blake3_pairs_work(R), clock)
+            log("kernel", f"blake3_tail pairs R={R} " + timed(
+                pairs, lambda: b3.hash_rep_columns(*ins), lambda: b3.hash_rep_columns_ref(*ins)))
+
+    T, R = gf2.onl2, 256
+    levels, rem, n = stream(T, R)
+    set_bound(res, *blake3_tail_work(n, T - (n - 1) * b3.CHUNK_LEN, R), clock)
+    log("kernel", f"blake3_tail finalize T={T} R={R} n={n} " + timed(
+        res, lambda: b3.finalize_columns(levels, rem, T),
+        lambda: b3.finalize_columns_ref(levels, rem, T)))
+    log("kernel", f"blake3_tail stream lengths {json.dumps(lengths)}")
+    return res
+
+
 def check_planes(dev, clock: float) -> dict:
     from reverie_tpu_torch.crypto.kernels import aes_planes
     from reverie_tpu_torch.roofline import AES_BLOCK_INT_OPS
@@ -426,10 +532,12 @@ def counters() -> dict:
     """The module and attribute that count each kernel's launches."""
     from reverie_tpu_torch.backend import scan
     from reverie_tpu_torch.crypto.kernels import aes_planes, aes_tape, aes_tape_z64, blake3 as b3
+    from reverie_tpu_torch.crypto.kernels import blake3_tail
     from reverie_tpu_torch.tools import r4_bwroof, r4_extract_probe, r5_u8emit
 
     mods = {"aes_tape_gf2": aes_tape, "aes_tape_z64": aes_tape_z64,
-            "blake3_chunk_cvs": b3, "aes_ctr_planes": aes_planes, "copy": r4_bwroof,
+            "blake3_chunk_cvs": b3, "blake3_tail": blake3_tail,
+            "aes_ctr_planes": aes_planes, "copy": r4_bwroof,
             "u32_to_u8_rows": r5_u8emit, "pack_shift": r4_extract_probe, "scan_gf2": scan}
     return {**{name: (mod, "LAUNCHES") for name, mod in mods.items()},
             "scan_z64": (scan, "LAUNCHES_Z64")}
@@ -496,17 +604,68 @@ def main_path(dev, tag: str, make, domain: str, rng, executor_kernel: str = "") 
     }
     for leg, (tp, ex, hsh) in per_leg.items():
         a, b = tp["launches"][tape], hsh["launches"]["blake3_chunk_cvs"]
+        d = hsh["launches"]["blake3_tail"]
         c = ex["launches"][executor_kernel] if executor_kernel else 1
-        log(tag, f"{leg} {tape}_launches={a} blake3_chunk_cvs_launches={b}"
+        log(tag, f"{leg} {tape}_launches={a} blake3_chunk_cvs_launches={b} "
+            f"blake3_tail_launches={d}"
             + (f" {executor_kernel}_launches={c}" if executor_kernel else ""))
-        if a < 1 or b < 1 or c < 1:
+        if a < 1 or b < 1 or c < 1 or d < 1:
             raise AssertionError(f"{tag} {leg} did not launch every kernel of its path")
+    tail_routes(tag, kkw, w2, wz, seeds, proof)
 
     tampered = kkw.verify(flipped(proof, domain))
     log(tag, f"tampered {domain} online opening verify={tampered}")
     if tampered is not False:
         raise AssertionError(f"{tag}: a tampered proof verified")
     return dict(launches=launches, prog=prog, w2=w2, wz=wz, cc=cc, seeds=seeds, proof=proof)
+
+
+@contextlib.contextmanager
+def torch_tail():
+    """The torch tail on the card, as the port ran it before the tail
+    kernel, for its time beside the kernel's: while the block runs,
+    blake3's entry points on CUDA tensors take their plain versions
+    (finalize_columns_ref, _tree_reduce, hash_pair_columns_ref) instead of
+    csrc/blake3_tail.cu.
+    Only for that measurement: the port itself never routes a CUDA tensor
+    to a plain version."""
+    from reverie_tpu_torch.crypto.kernels import blake3 as b3
+
+    names = ("finalize_columns", "pair_levels", "hash_pair_columns", "hash_rep_columns")
+    saved = {k: getattr(b3, k) for k in names}
+    b3.finalize_columns = b3.finalize_columns_ref
+    b3.pair_levels = functools.partial(b3._tree_reduce, root=False)
+    b3.hash_pair_columns = b3.hash_pair_columns_ref
+    b3.hash_rep_columns = b3.hash_rep_columns_ref
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(b3, k, v)
+
+
+def tail_routes(tag: str, kkw, w2, wz, seeds, proof) -> None:
+    """The hash phases of a warm prove and verify with the tail kernel and
+    with the torch tail (torch_tail), in turns (kernel, torch, torch,
+    kernel), each proof equal to `proof` and verified: host and device ms
+    of hash, onl_hash and pre_hash, the walls and the tail's launches."""
+    from reverie_tpu_torch.crypto.kernels import blake3_tail
+
+    for route in ("kernel", "torch", "torch", "kernel"):
+        n0 = blake3_tail.LAUNCHES
+        with torch_tail() if route == "torch" else contextlib.nullcontext():
+            got, prove_s = wall(lambda: kkw.prove(w2, wz, seeds=seeds))
+            pt = kkw.last_timings
+            ok, verify_s = wall(lambda: kkw.verify(got))
+            vt = kkw.last_timings
+        phases = {"hash": pt["hash"], "onl_hash": vt["onl_hash"], "pre_hash": vt["pre_hash"]}
+        log(tag, f"tail_route={route} prove_wall_ms={prove_s * 1e3:.3f} "
+            f"verify_wall_ms={verify_s * 1e3:.3f} " + " ".join(
+                f"{k}_ms(host/device)={v['host_ms']:.3f}/{v['device_ms']:.3f}"
+                for k, v in phases.items())
+            + f" blake3_tail_launches={blake3_tail.LAUNCHES - n0}")
+        if got.to_bytes() != proof.to_bytes() or ok is not True:
+            raise AssertionError(f"{tag}: the {route} tail's proof differs or does not verify")
 
 
 def flipped(proof, domain: str):
@@ -1129,7 +1288,8 @@ STREAM_BUDGETS = {"gf2": 512 << 20, "z64": 1 << 30}
 #: ops a segment of the 5,000-MUL z64 chain when streamed
 STREAM_CHAIN_OPS = 1_000
 #: the kernels a streamed proof must launch in the phase
-STREAM_KERNELS = ("aes_tape_gf2", "aes_tape_z64", "blake3_chunk_cvs", "scan_gf2", "scan_z64")
+STREAM_KERNELS = ("aes_tape_gf2", "aes_tape_z64", "blake3_chunk_cvs", "blake3_tail", "scan_gf2",
+                  "scan_z64")
 
 
 def stream_kernels(dev, rng, sk2, skz, checks: dict) -> None:
@@ -1248,6 +1408,13 @@ def streaming_phase(dev, rng, checks: dict) -> dict:
     for domain, (sk, w2, wz, seeds, want) in systems.items():
         stream_case(dev, f"stream_{domain}", sk, w2, wz, seeds, lambda b, w=want: b == w,
                     domain, acc, STREAM_BUDGETS[domain])
+        for route in ("kernel", "torch", "torch", "kernel"):
+            with torch_tail() if route == "torch" else contextlib.nullcontext():
+                proof, t = wall(lambda: sk.prove(w2, wz, seeds=seeds))
+            log(f"stream_{domain}", f"tail_route={route} warm prove wall_s={t:.4f} phases "
+                + json.dumps(phase_summary(sk.last_timings)))
+            if proof.to_bytes() != want:
+                raise AssertionError(f"stream_{domain}: the {route} tail's proof differs")
     del systems
 
     case = golden.CASES["sha256_1block"]
@@ -1799,7 +1966,8 @@ def cli_phase(rng) -> dict:
             f"equal_to_numpy_golden_digest={equal} launches={json.dumps(launches)}")
         if not equal:
             raise AssertionError("the CLI's SHA-256 proof differs from the golden's digest")
-        missing = [k for k in ("aes_tape_gf2", "blake3_chunk_cvs", "scan_gf2") if not launches[k]]
+        missing = [k for k in ("aes_tape_gf2", "blake3_chunk_cvs", "blake3_tail", "scan_gf2")
+                   if not launches[k]]
         if missing:
             raise AssertionError(f"the CLI's prove did not launch {missing}")
         cli_verify_file("sha256", kkw, proof)
@@ -2096,8 +2264,8 @@ def mesh_phase(dev, rng, checks: dict, main: dict) -> dict:
     make_system's streaming on 4 shards (1M ANDs under 512 MiB, the z64
     chain in 1,000-op segments); two processes on cuda:0; 4 shards on two
     cards where there are two.  Each path's launches are counted from 0
-    just before it and read just after; K1, K3, K4, W1 and W2 must each
-    launch.  Returns those launches."""
+    just before it and read just after; K1, K3, K4, the tail, W1 and W2
+    must each launch.  Returns those launches."""
     from reverie_tpu_torch import StreamingKKW, TorchKKW, make_system
     from reverie_tpu_torch import parity as golden
     from reverie_tpu_torch.circuit import load_program
@@ -2213,8 +2381,8 @@ def mesh_phase(dev, rng, checks: dict, main: dict) -> dict:
 # -- phase 15: past the card ---------------------------------------------------
 
 #: phase 15's cases: (tools.past_card case, the kernels its streamed run must launch)
-PAST_CARD_CASES = (("gf2", ("aes_tape_gf2", "blake3_chunk_cvs")),
-                   ("z64", ("aes_tape_z64", "blake3_chunk_cvs")))
+PAST_CARD_CASES = (("gf2", ("aes_tape_gf2", "blake3_chunk_cvs", "blake3_tail")),
+                   ("z64", ("aes_tape_z64", "blake3_chunk_cvs", "blake3_tail")))
 PAST_CARD_TIMEOUT_S = 600
 
 
@@ -2317,6 +2485,10 @@ KERNELS = (  # name, source, replaces (file:line of every TPU function)
      "reverie_tpu/crypto/kernels/aes_pallas.py:458"),
     ("blake3_chunk_cvs", "reverie_tpu_torch/csrc/blake3_chunks.cu",
      "reverie_tpu/crypto/kernels/blake3_pallas.py:74"),
+    ("blake3_tail", "reverie_tpu_torch/csrc/blake3_tail.cu",
+     "reverie_tpu/crypto/kernels/blake3_jax.py:293 _tree_reduce, :320 hash_columns (its tail, "
+     ":333-363), :409 finalize_columns, :492 hash_pair_columns (XLA in TpuKKW._hash_fn, "
+     "reverie_tpu/backend/tpu_host.py:920; no Pallas)"),
     ("aes_ctr_planes", "reverie_tpu_torch/csrc/aes_planes.cu",
      "reverie_tpu/crypto/kernels/aes_pallas.py:34"),
     ("copy", "reverie_tpu_torch/csrc/copy.cu", "tools/r4_bwroof.py:52"),
@@ -2370,6 +2542,8 @@ def main() -> int:
         f"seconds={time.perf_counter() - t:.3f}")
 
     from reverie_tpu_torch.circuit.builders import mul_bench_circuit, z64_mul_bench_circuit
+    from reverie_tpu_torch.circuit.compile import compile_program
+    from reverie_tpu_torch.parity import sha256_bench
 
     rng = np.random.RandomState(2026)
     checks = {"aes_tape_gf2": check_tape(dev, rng, "aes_tape_gf2", M2, clock),
@@ -2382,8 +2556,13 @@ def main() -> int:
     main = main_path(dev, "main", lambda: mul_bench_circuit(N_MUL), "gf2", rng)
     gf2 = main.pop("launches")
     parity(dev, "gf2_50k")
-    z64 = main_path(dev, "z64", lambda: z64_mul_bench_circuit(N_MUL_Z64), "z64", rng)["launches"]
+    z64_main = main_path(dev, "z64", lambda: z64_mul_bench_circuit(N_MUL_Z64), "z64", rng)
+    z64 = z64_main["launches"]
     parity(dev, "z64_2k")
+    checks["blake3_tail"] = check_blake3_tail(dev, rng, clock, {
+        "gf2_1M": main["cc"], "z64_50k": z64_main["cc"],
+        "sha256": compile_program(sha256_bench()[0])})
+    del z64_main
     checks["scan_gf2"], sha = sha256_phase(dev, rng, clock, ptxas)
     checks["scan_z64"], zw = z64_wave_phase(dev, rng, clock, ptxas)
     stream = streaming_phase(dev, rng, checks)

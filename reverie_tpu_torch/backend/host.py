@@ -18,7 +18,7 @@ one set of stages here, over N * 256 proof-major lanes.
 The device runs the mask tapes (CUDA kernels), the executor (the levelized
 torch one, or for circuits deeper than SCAN_DEPTH_THRESHOLD levels the wave
 executor of scan.py, one CUDA kernel launch per call), the
-transcript hashes (CUDA chunk kernel + torch tail), and the extraction of
+transcript hashes (the CUDA chunk and tail kernels), and the extraction of
 the opened repetitions.  The host runs seed expansion, the Fiat-Shamir
 challenge, the blake3 of the rep hashes and proof assembly, as in the
 reference.  Each stage ends in an asynchronous device -> host pull that the
@@ -48,7 +48,7 @@ from ..circuit.compile import CompiledCircuit, compile_program
 from ..circuit.compile_native import OpArrays, distinct_ops
 from ..circuit.ir import CombineOp, Gate, Kind, Op
 from ..crypto import blake3, expand_seeds
-from ..crypto.kernels import aes_tape, aes_tape_z64, blake3 as b3
+from ..crypto.kernels import aes_tape, aes_tape_z64, blake3 as b3, blake3_tail
 from ..params import DEFAULT_PARAMS, KEY_SIZE, ProtocolParams
 from ..proof.challenge import challenge_to_opening
 from ..proof.container import (
@@ -90,8 +90,8 @@ def uses_waves(cc: CompiledCircuit) -> bool:
 def launch_counts() -> Dict[str, int]:
     """The kernels' launch counters, by kernel."""
     return {"aes_tape_gf2": aes_tape.LAUNCHES, "aes_tape_z64": aes_tape_z64.LAUNCHES,
-            "blake3_chunk_cvs": b3.LAUNCHES, "scan_gf2": scan.LAUNCHES,
-            "scan_z64": scan.LAUNCHES_Z64}
+            "blake3_chunk_cvs": b3.LAUNCHES, "blake3_tail": blake3_tail.LAUNCHES,
+            "scan_gf2": scan.LAUNCHES, "scan_z64": scan.LAUNCHES_Z64}
 
 
 class PhaseTimer:
@@ -689,9 +689,7 @@ class TorchKKW:
             hoz = b3.hash_columns(out["onlz"], cc.onlz)
         else:
             ho2, hoz = comm2, commz
-        h2 = b3.hash_pair_columns(hp2, ho2)
-        hz = b3.hash_pair_columns(hpz, hoz)
-        return b3.hash_pair_columns(h2, hz), ho2, hoz
+        return b3.hash_rep_columns(hp2, ho2, hpz, hoz), ho2, hoz
 
     # -- proving ------------------------------------------------------------
     def prove(self, wit_gf2, wit_z64, seeds: Optional[np.ndarray] = None) -> Proof:

@@ -85,9 +85,8 @@ def _rep_hashes(hashers: Dict[str, b3.ColumnHasher], comm2=None, commz=None):
     comm2 / commz the online hashes are the committed values."""
     ho2 = hashers["onl2"].finalize() if comm2 is None else comm2
     hoz = hashers["onlz"].finalize() if commz is None else commz
-    h2 = b3.hash_pair_columns(hashers["pre2"].finalize(), ho2)
-    hz = b3.hash_pair_columns(hashers["prez"].finalize(), hoz)
-    return b3.hash_pair_columns(h2, hz), ho2, hoz
+    rep_h = b3.hash_rep_columns(hashers["pre2"].finalize(), ho2, hashers["prez"].finalize(), hoz)
+    return rep_h, ho2, hoz
 
 
 def _column(w: np.ndarray, R: int, device) -> torch.Tensor:

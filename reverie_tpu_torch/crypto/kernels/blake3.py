@@ -9,9 +9,13 @@ the CUDA kernel csrc/blake3_chunks.cu.
 
 A transcript buffer is a (T, R) uint8 tensor whose columns are the
 per-repetition streams.  The whole chunks go through `chunk_cvs` (CPU
-tensors: the plain version `chunk_cvs_ref`; CUDA tensors: the kernel); the
-final partial chunk, the tree reduction and the pair hashes stay plain torch,
-as they were XLA in the reference.
+tensors: the plain version `chunk_cvs_ref`; CUDA tensors: the kernel).  The
+rest of a stream's hash, its tail (the final partial chunk, the tree
+reduction and the pair hashes; XLA in the reference), is plain torch on CPU
+tensors (`finalize_columns_ref`, `_tree_reduce`, `hash_pair_columns_ref`)
+and on CUDA tensors the kernels of csrc/blake3_tail.cu
+(crypto/kernels/blake3_tail.py): one launch a stream, one for a stream's CV
+stack, one for the pair hashes.
 
 Words are carried as int64 holding values in [0, 2^32) and masked after
 every add and shift; the chunk CVs leave `chunk_cvs` as int32 (the kernel's
@@ -26,8 +30,10 @@ from typing import List, Optional
 import torch
 
 from ... import _build
+from . import blake3_tail
 
-#: kernel launches made by `chunk_cvs` (CUDA tensors only)
+#: kernel launches made by `chunk_cvs` (CUDA tensors only; the tail's are
+#: blake3_tail.LAUNCHES)
 LAUNCHES = 0
 
 IV = (0x6A09E667, 0xBB67AE85, 0x3C6EF372, 0xA54FF53A,
@@ -256,8 +262,8 @@ def hash_columns(buf: torch.Tensor, T: int) -> torch.Tensor:
 # chunk into node CVs and a (1024, R) remainder; the final chunk always
 # stays in the remainder, so that CHUNK_END | ROOT land on it.  Unlike the
 # reference's hasher, which keeps every chunk CV to the end, the CVs are
-# paired into the CV stack (_tree_reduce with root=False) whenever they
-# pass the hasher's bound: the state stays O(bound + log n), not O(n).
+# paired into the CV stack (pair_levels) whenever they pass the hasher's
+# bound: the state stays O(bound + log n), not O(n).
 # ---------------------------------------------------------------------------
 
 #: device bytes of one compression a column (hash_columns_transient_bytes)
@@ -283,25 +289,67 @@ def absorb_columns(rem: torch.Tensor, rem_len: int, new: torch.Tensor, n_absorb:
     return cvs
 
 
-def finalize_columns(levels: List[torch.Tensor], rem: torch.Tensor, total_len: int,
-                     max_pairs: Optional[int] = None) -> torch.Tensor:
-    """The node CVs (_tree_reduce's levels) of every chunk of a stream of
-    total_len bytes but its last, and rem, its last chunk -> (R, 32) uint8
-    per-column hashes; at most max_pairs parent compressions run at once."""
+def _last_chunk(total_len: int):
+    """(chunks, the last one's bytes) of a stream of total_len bytes (one
+    chunk of 0 bytes for the empty stream)."""
+    n_chunks = max(1, (total_len + CHUNK_LEN - 1) // CHUNK_LEN)
+    return n_chunks, total_len - (n_chunks - 1) * CHUNK_LEN
+
+
+def _check_held(levels: List[torch.Tensor], n_chunks: int) -> None:
+    """Raise unless levels hold the nodes of a stream's chunks but its last."""
+    held = sum(x.shape[1] << j for j, x in enumerate(levels))
+    if held != n_chunks - 1:
+        raise ValueError(f"finalize_columns: the levels hold {held} chunks, "
+                         f"not the {n_chunks - 1} before the last")
+
+
+def finalize_columns_ref(levels: List[torch.Tensor], rem: torch.Tensor, total_len: int,
+                         max_pairs: Optional[int] = None) -> torch.Tensor:
+    """Plain PyTorch version of `finalize_columns` (the torch tail, on any
+    device)."""
     R = rem.shape[1]
     if total_len == 0:
         # the empty input: one zero-length root chunk (blake3(b""))
         zero = torch.zeros((16, R), dtype=torch.int64, device=rem.device)
         cv = compress(_iv(rem.device)[:, None], zero, 0, 0, CHUNK_START | CHUNK_END | ROOT)
         return _rows_to_bytes(cv)
-    n_chunks = (total_len + CHUNK_LEN - 1) // CHUNK_LEN
-    rem_len = total_len - (n_chunks - 1) * CHUNK_LEN
+    n_chunks, rem_len = _last_chunk(total_len)
     if n_chunks == 1:
         return _rows_to_bytes(_tail_cv(rem, rem_len, 0, True))
     last = _to_i32(_tail_cv(rem, rem_len, n_chunks - 1, False))[:, None]
     levels = list(levels)
     levels[0] = torch.cat([levels[0], last], dim=1)
     return _rows_to_bytes(_tree_reduce(levels, max_pairs))
+
+
+def finalize_columns(levels: List[torch.Tensor], rem: torch.Tensor, total_len: int,
+                     max_pairs: Optional[int] = None) -> torch.Tensor:
+    """The node CVs (_tree_reduce's levels) of every chunk of a stream of
+    total_len bytes but its last, and rem, its last chunk -> (R, 32) uint8
+    per-column hashes.  CPU tensors take the plain version
+    (`finalize_columns_ref`, at most max_pairs parent compressions at
+    once); CUDA tensors one launch of csrc/blake3_tail.cu (max_pairs does
+    not apply: the kernel holds its compressions in registers), with at
+    most one node a height above level 0 (the CV stack)."""
+    n_chunks, rem_len = _last_chunk(total_len)
+    _check_held(levels, n_chunks)
+    if rem.device.type == "cpu":
+        return finalize_columns_ref(levels, rem, total_len, max_pairs)
+    if rem.device.type != "cuda":
+        raise ValueError(f"finalize_columns: unsupported device {rem.device}")
+    return blake3_tail.finalize(levels, rem, rem_len)
+
+
+def pair_levels(levels: List[torch.Tensor], max_pairs: Optional[int] = None) -> None:
+    """Pair levels' node CVs into the CV stack of their chunks, in place:
+    at most one node a height is left.  CPU tensors take the plain version
+    (`_tree_reduce(root=False)`, at most max_pairs compressions at once);
+    CUDA tensors one launch of csrc/blake3_tail.cu."""
+    if levels[0].device.type == "cpu":
+        _tree_reduce(levels, max_pairs, root=False)
+    else:
+        levels[:] = blake3_tail.stack(levels)
 
 
 class ColumnHasher:
@@ -317,7 +365,8 @@ class ColumnHasher:
     between absorbs stay within held_bytes (at least two nodes): past it
     they are paired into the CV stack.  That pairing and the tree of
     finalize hold at most transient_bytes of parent compressions at once
-    (at least one).  The torch tail runs in finalize, once a stream."""
+    (at least one; on CUDA the tail kernel holds them in registers, and a
+    pairing is one launch).  finalize runs the tail once a stream."""
 
     def __init__(self, total_len: int, R: int, device, held_bytes: int, transient_bytes: int):
         self.total_len, self.R = total_len, R
@@ -343,7 +392,7 @@ class ColumnHasher:
         if n_absorb:
             self.levels[0] = torch.cat([self.levels[0], cvs], dim=1)
             if sum(x.shape[1] for x in self.levels) > self.max_nodes:
-                _tree_reduce(self.levels, self.max_pairs, root=False)
+                pair_levels(self.levels, self.max_pairs)
 
     def finalize(self) -> torch.Tensor:
         if self.chunk_base * CHUNK_LEN + self.rem_len != self.total_len:
@@ -353,8 +402,10 @@ class ColumnHasher:
 
 def hash_columns_transient_bytes(T: int, R: int) -> int:
     """Device bytes of hash_columns' largest transient on a (T, R) stream
-    (on CUDA the chunk kernel allocates only its CVs), as the CPU allocation
-    trace measures its tensors (tests/test_torch_footprint.py).  Per column:
+    (on CUDA the chunk kernel allocates only its CVs, 32 bytes a chunk, and
+    the tail kernel its (R, 32) output: the bound holds on both devices), as
+    the CPU allocation trace measures its tensors
+    (tests/test_torch_footprint.py).  Per column:
     one compression holds ~184 int64 words (the 112-word message stack, 16
     message words, the chaining value and the G mixes' rows), 1,472 bytes;
     the tail chunk's padded bytes become int64 words, ~15 bytes per byte; the
@@ -365,9 +416,35 @@ def hash_columns_transient_bytes(T: int, R: int) -> int:
     return R * max(COMPRESS_BYTES, 15 * tail, 832 * n)
 
 
-def hash_pair_columns(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a, b: (R, 32) uint8 -> (R, 32) uint8, blake3(a_r || b_r) per row (one
-    64-byte root block)."""
+def hash_pair_columns_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of `hash_pair_columns` (on any device)."""
     m = _bytes_to_words(torch.cat([a, b], dim=1).t().contiguous())  # (16, R)
     cv = compress(_iv(m.device)[:, None], m, 0, 64, CHUNK_START | CHUNK_END | ROOT)
     return _rows_to_bytes(cv)
+
+
+def hash_pair_columns(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a, b: (R, 32) uint8 -> (R, 32) uint8, blake3(a_r || b_r) per row (one
+    64-byte root block).  CPU tensors take the plain version; CUDA tensors
+    one launch of csrc/blake3_tail.cu."""
+    if a.device.type == "cpu":
+        return hash_pair_columns_ref(a, b)
+    return blake3_tail.pairs(a, b)
+
+
+def hash_rep_columns_ref(hp2: torch.Tensor, ho2: torch.Tensor, hpz: torch.Tensor,
+                         hoz: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of `hash_rep_columns` (on any device)."""
+    return hash_pair_columns_ref(hash_pair_columns_ref(hp2, ho2),
+                                 hash_pair_columns_ref(hpz, hoz))
+
+
+def hash_rep_columns(hp2: torch.Tensor, ho2: torch.Tensor, hpz: torch.Tensor,
+                     hoz: torch.Tensor) -> torch.Tensor:
+    """The per-rep combined hashes H(H(pre2 || onl2) || H(prez || onlz))
+    from the four streams' (R, 32) uint8 hashes (transcript/mod.rs:77-96 +
+    combine.rs:104-118).  CPU tensors take the plain version; CUDA tensors
+    one launch of csrc/blake3_tail.cu."""
+    if hp2.device.type == "cpu":
+        return hash_rep_columns_ref(hp2, ho2, hpz, hoz)
+    return blake3_tail.pairs(hp2, ho2, hpz, hoz)

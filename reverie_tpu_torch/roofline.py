@@ -42,6 +42,26 @@ AES_BLOCK_INT_OPS = 2 + 9 * 4 * (4 + 2) + 4 * (4 + 2)
 BLAKE3_COMPRESSION_INT_OPS = 7 * 8 * 12 + 8 + 16 * 2
 
 
+def blake3_tail_work(n_chunks: int, tail_len: int, R: int) -> Tuple[int, int]:
+    """(bytes, integer instructions) of the tail of R columns' BLAKE3
+    (csrc/blake3_tail.cu) on a stream of n_chunks chunks whose last holds
+    tail_len bytes: the n_chunks - 1 chunk CVs read once (32 bytes each),
+    the last chunk's bytes read once and the 32-byte hash written, a
+    column; its compressions are the tree's n_chunks - 1 parents and the
+    last chunk's blocks (one for an empty chunk)."""
+    blocks = max(1, -(-tail_len // 64))
+    n_bytes = ((n_chunks - 1) * 32 + tail_len + 32) * R
+    return n_bytes, (n_chunks - 1 + blocks) * R * BLAKE3_COMPRESSION_INT_OPS
+
+
+def blake3_pairs_work(R: int, pairs: int = 3) -> Tuple[int, int]:
+    """(bytes, integer instructions) of `pairs` pair hashes a column
+    (csrc/blake3_tail.cu's pairs kernel; 3: H(H(a || b) || H(c || d))): the
+    pairs + 1 inputs of 32 bytes read once and the 32-byte output written,
+    one compression a pair."""
+    return (pairs + 2) * 32 * R, pairs * R * BLAKE3_COMPRESSION_INT_OPS
+
+
 #: integer instructions per rep of one slot of the wave kernel
 #: (csrc/scan_gf2.cu), by compiled gate kind (circuit/compile.py G_*), on
 #: the arena word mask | corr << 8: ADD, ADDC, SUBC and MULC one LOP3 or

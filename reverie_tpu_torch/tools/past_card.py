@@ -16,12 +16,12 @@ and the most ops a segment took, the budget it planned for; a cold and a
 warm prove (walls, last_timings; the two proofs equal), verify (True), a
 flipped byte in an online opening (False), the peak max_memory_allocated
 over all of it (at most the budget), the host's peak RSS, and the launches
-of K1, K3 and K4 in those runs, counted from 0.  Then the tape kernel of
-the case's domain (K1 or K4) at the last segment's window (the largest
-start_block) and K3 at its stream's chunk base, each against its plain
-version on the same inputs; the cut under a budget scaled by cut / ops (so
-about as many segments), its proof equal to TorchKKW's with the same seeds;
-and last, the whole circuit compiled once to read its device_footprint,
+of K1, K3, K4 and the tail (csrc/blake3_tail.cu) in those runs, counted
+from 0.  Then the tape kernel of the case's domain (K1 or K4) at the last
+segment's window (the largest start_block) and K3 at its stream's chunk
+base, each against its plain version on the same inputs; the cut under a
+budget scaled by cut / ops (so about as many segments), its proof equal to
+TorchKKW's with the same seeds; and last, the whole circuit compiled once to read its device_footprint,
 which must pass the budget.  Prints one JSON line, then the card's name
 and power limit; exits 1 if any check fails.
 
@@ -37,10 +37,10 @@ verify of a copy with
 one flipped byte in the first preprocessing opening's comm_online (rc 1).
 For each process its system and segments, the budget make_system took,
 the peak max_memory_allocated, the host's peak RSS (at most 16 GB) and
-the launches of K1, K3 and K4; K1 and K3 must launch.  Last, on a
-4,000,000-AND cut under the budget scaled by the cut, the CLI's proof
-file equal to make_system's StreamingKKW's from mul_bench_circuit's list in
-this process, with the same os.urandom.
+the launches of K1, K3, K4 and the tail; K1, K3 and the tail must
+launch.  Last, on a 4,000,000-AND cut under the budget scaled by the
+cut, the CLI's proof file equal to make_system's StreamingKKW's from
+mul_bench_circuit's list in this process, with the same os.urandom.
 """
 
 from __future__ import annotations
@@ -75,14 +75,15 @@ from reverie_tpu_torch.circuit.builders import mul_bench_circuit, z64_mul_bench_
 from reverie_tpu_torch.circuit.compile import compile_program
 from reverie_tpu_torch.circuit.compile_native import OpArrays
 from reverie_tpu_torch.params import KEY_SIZE, PLAYERS
-from reverie_tpu_torch.crypto.kernels import aes_tape, aes_tape_z64, blake3 as b3
+from reverie_tpu_torch.crypto.kernels import aes_tape, aes_tape_z64, blake3 as b3, blake3_tail
 from reverie_tpu_torch.proof import Proof
 from reverie_tpu_torch.tools._timing import card
 
 CASES = {"gf2": (mul_bench_circuit, 48_000_000, 4_000_000),
          "z64": (z64_mul_bench_circuit, 1_200_000, 100_000)}
 #: the kernels of the streamed paths, by their launch counters
-KERNELS = {"aes_tape_gf2": aes_tape, "aes_tape_z64": aes_tape_z64, "blake3_chunk_cvs": b3}
+KERNELS = {"aes_tape_gf2": aes_tape, "aes_tape_z64": aes_tape_z64, "blake3_chunk_cvs": b3,
+           "blake3_tail": blake3_tail}
 #: the cli case: its ANDs, the cut held to StreamingKKW, the cut whose file
 #: is held to dumps_program's, the seed of os.urandom in the cut's proofs
 CLI_CASE = (48_000_000, 4_000_000)
@@ -445,8 +446,8 @@ def cli_failures(res: dict) -> list:
         checks[f"{leg}: make_system gave StreamingKKW"] = r["system"] == "StreamingKKW"
         checks[f"{leg}: peak within the budget"] = r["peak_bytes"] <= r["device_budget"]
         checks[f"{leg}: host peak RSS within 16 GB"] = r["host_peak_rss_bytes"] <= HOST_RSS_LIMIT
-        checks[f"{leg}: K1 and K3 launched"] = (r["launches"]["aes_tape_gf2"] > 0
-                                                and r["launches"]["blake3_chunk_cvs"] > 0)
+        checks[f"{leg}: K1, K3 and the tail launched"] = all(
+            r["launches"][k] > 0 for k in ("aes_tape_gf2", "blake3_chunk_cvs", "blake3_tail"))
     return [name for name, ok in checks.items() if not ok]
 
 
@@ -465,7 +466,8 @@ def failures(res: dict) -> list:
         "the cut equals TorchKKW": res["cut"]["equal_to_torchkkw"],
         "the cut streams": res["cut"]["segments"] > 1,
     }
-    kernels = ("aes_tape_gf2" if res["case"] == "gf2" else "aes_tape_z64", "blake3_chunk_cvs")
+    kernels = ("aes_tape_gf2" if res["case"] == "gf2" else "aes_tape_z64", "blake3_chunk_cvs",
+               "blake3_tail")
     checks[f"{' and '.join(kernels)} launched"] = all(res["launches"][k] > 0 for k in kernels)
     bad += [name for name, ok in checks.items() if not ok]
     return bad

@@ -1,6 +1,6 @@
 """Profile warm proves and verifies of each main path on the card.
 
-    python -m reverie_tpu_torch.trace [--out DIR]
+    python -m reverie_tpu_torch.trace [--out DIR] [--cells gf2_mul_1M,z64_mul_50k]
 
 For each cell of CELLS, `TorchKKW(mul_bench_circuit(1_000_000))` (GF(2),
 batches of up to 8), `TorchKKW(z64_mul_bench_circuit(50_000))` (Z_2^64, up
@@ -59,9 +59,12 @@ CELLS = {"gf2_mul_1M": Cell(functools.partial(mul_bench_circuit, 1_000_000), 8, 
          "sha256_1block": Cell(sha256_bench, 64, False)}
 TOP = 15  # kernel names listed by device time
 
-#: the port's own kernels, always listed by `by_kernel`
-PORT_KERNELS = ("aes_tape_gf2_kernel", "aes_tape_z64_kernel",
-                "blake3_chunk_cvs_kernel", "scan_gf2_kernel")
+#: the port's own kernels, always listed by `by_kernel` (a name matches
+#: every kernel whose name holds it: blake3_tail_kernel the tree's and the
+#: pairs' of csrc/blake3_tail.cu)
+PORT_KERNELS = ("aes_tape_gf2_kernel", "aes_tape_z64_kernel", "blake3_chunk_cvs_kernel",
+                "blake3_tail_kernel", "scan_gf2_kernel", "scan_gf2_carry_kernel",
+                "scan_z64_kernel", "scan_z64_carry_kernel")
 
 
 def _device_events(events):
@@ -147,15 +150,22 @@ def timed(fn):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None)
+    ap.add_argument("--cells", default=",".join(CELLS),
+                    help="the cells to profile, comma-separated (default: all)")
     args = ap.parse_args(argv)
+    cells = args.cells.split(",")
+    unknown = sorted(set(cells) - set(CELLS))
+    if unknown:
+        ap.error(f"unknown cells {unknown}; the cells are {list(CELLS)}")
 
     from reverie_tpu_torch import default_device
 
     dev = default_device()
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)
-    complete = [profile_cell(cell, spec.make(), spec.most, spec.many, dev, args.out)
-                for cell, spec in CELLS.items()]
+    complete = [profile_cell(cell, CELLS[cell].make(), CELLS[cell].most, CELLS[cell].many,
+                             dev, args.out)
+                for cell in cells]
     return 0 if all(complete) else 1
 
 

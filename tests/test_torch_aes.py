@@ -14,6 +14,7 @@ from reverie_tpu.backend.tpu_host import build_tapes
 from reverie_tpu.crypto import keystream_batch
 from reverie_tpu.crypto.kernels import aes_jax as aj
 from reverie_tpu_torch.crypto.kernels import aes_tape
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 

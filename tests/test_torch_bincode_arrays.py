@@ -44,6 +44,7 @@ from reverie_tpu_torch.circuit.compile_native import OpArrays
 from reverie_tpu_torch.params import DEFAULT_PARAMS
 
 from test_torch_cli import five_gate, fix_urandom, port
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 GOLDEN = pathlib.Path(__file__).resolve().parent / "golden"

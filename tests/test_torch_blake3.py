@@ -1,7 +1,9 @@
 """The port's per-column BLAKE3 (reverie_tpu_torch blake3) against
 reverie_tpu: the Pallas chunk kernel in interpret mode, the XLA chunk scan,
-the XLA pair hash and the host C blake3.  Every output is bytes or u32
-words: the tolerance is 0."""
+the XLA hash and pair hash and the host C blake3; and the CPU dispatch and
+argument checks of the tail's entry points (csrc/blake3_tail.cu on the
+card, tests/test_torch_package.py).  Every output is bytes or u32 words:
+the tolerance is 0."""
 
 import numpy as np
 import pytest
@@ -12,18 +14,9 @@ import jax.numpy as jnp
 from reverie_tpu.crypto import blake3_many
 from reverie_tpu.crypto.kernels import blake3_jax as bj
 from reverie_tpu.crypto.kernels.blake3_pallas import chunk_cvs_from_bytes
-from reverie_tpu_torch.crypto.kernels import blake3 as b3
-
-
-@pytest.fixture
-def one_thread():
-    """One intra-op torch thread while the test runs: its ops are small, and
-    the suite runs in parallel workers, where a pool of threads per op
-    costs more than the op."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from reverie_tpu_torch.crypto.kernels import blake3 as b3, blake3_tail
+from blake3_cases import HASHER_CASES, TAIL_LENGTHS, TAIL_WIDTHS, absorb_blocks
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 
 def _rand(shape, seed):
@@ -70,24 +63,8 @@ def test_hash_pair_columns_matches_xla():
     np.testing.assert_array_equal(got, blake3_many(np.concatenate([a, b], axis=1)))
 
 
-def absorb_blocks(T: int, block: int):
-    """(start, stop) of the blocks of `block` bytes that make a stream of T
-    bytes, the last one short."""
-    return [(i, min(i + block, T)) for i in range(0, T, block)]
-
-
-#: (T, absorb size, R, the hasher's bound in node CVs): T = 0, a partial
-#: chunk, 2, 3 and 5 whole chunks, 5 chunks ragged, each absorbed in blocks
-#: of 1, 1023, 1024 and 1025 bytes, at the three legs' R in turn; the bound
-#: 2 or 3 nodes (the held CVs paired into the CV stack past it) or none
-#: reached
-HASHER_CASES = [(T, a, (256, 40, 216)[i % 3], (None, 2, 3)[i % 3 if T == 5120 else i % 2])
-                for i, (T, a) in enumerate((T, a) for T in (0, 700, 2048, 3072, 5120, 4796)
-                                           for a in (1, 1023, 1024, 1025))]
-
-
 @pytest.mark.parametrize("T, block, R, nodes", HASHER_CASES)
-def test_column_hasher_matches_hash_columns(one_thread, T, block, R, nodes):
+def test_column_hasher_matches_hash_columns(T, block, R, nodes):
     """The incremental hash of a stream absorbed block by block equals
     hash_columns on the whole stream and the host C blake3 per column; the
     final chunk is never absorbed before finalize, and the held node CVs
@@ -112,7 +89,7 @@ def test_column_hasher_matches_hash_columns(one_thread, T, block, R, nodes):
 
 @pytest.mark.parametrize("n", [2, 3, 5, 8, 13])
 @pytest.mark.parametrize("max_pairs", [1, 2, 3])
-def test_tree_levels_in_blocks_match_tree_reduce(one_thread, n, max_pairs):
+def test_tree_levels_in_blocks_match_tree_reduce(n, max_pairs):
     """The tree of n whole chunks' CVs, its levels max_pairs parents at a
     time, equals a level's all at once and the host C blake3 of the chunks;
     so does the tree of a CV stack (the first k chunks paired with
@@ -133,7 +110,7 @@ def test_tree_levels_in_blocks_match_tree_reduce(one_thread, n, max_pairs):
             b3._rows_to_bytes(b3._tree_reduce(levels, max_pairs)).numpy(), want)
 
 
-def test_column_hasher_mixed_blocks_and_misuse(one_thread):
+def test_column_hasher_mixed_blocks_and_misuse():
     """Blocks of mixed sizes (empty ones too) across chunk boundaries; a
     block past the stream's length and a finalize before its end raise."""
     T, R = 3 * 1024 + 5, 40
@@ -149,3 +126,92 @@ def test_column_hasher_mixed_blocks_and_misuse(one_thread):
         h.finalize()
     with pytest.raises(ValueError):
         h.absorb(buf[:41])
+
+
+# -- the tail: the last chunk, the tree and the pair hashes ------------------
+# (plain torch on the CPU, csrc/blake3_tail.cu on the card)
+
+
+def _host_hashes(buf: np.ndarray, T: int) -> np.ndarray:
+    if buf.shape[1] == 0:
+        return np.zeros((0, 32), dtype=np.uint8)
+    return blake3_many(np.ascontiguousarray(buf[:T].T))
+
+
+@pytest.mark.parametrize("R", TAIL_WIDTHS)
+@pytest.mark.parametrize("T", TAIL_LENGTHS)
+def test_tail_matches_host_blake3(T, R):
+    """hash_columns equals the host C blake3 per column at every width, and
+    so does finalize_columns on each CV stack of the first k chunks
+    (pair_levels, as ColumnHasher pairs its CVs) and the chunks after it;
+    on the CPU no kernel is launched."""
+    buf = _rand((T + 3, R), seed=7 * T + R)  # rows beyond T are ignored
+    tbuf = torch.from_numpy(buf)
+    want = _host_hashes(buf, T)
+    n0 = (b3.LAUNCHES, blake3_tail.LAUNCHES)
+    got = b3.hash_columns(tbuf, T).numpy()
+    assert got.shape == (R, 32) and got.dtype == np.uint8
+    np.testing.assert_array_equal(got, want)
+    n = max(1, -(-T // 1024))
+    cvs = b3.chunk_cvs(tbuf, n - 1)
+    for k in range(2, n):
+        levels = [cvs[:, :k]]
+        b3.pair_levels(levels)
+        assert max(x.shape[1] for x in levels) <= 1 and len(levels) == k.bit_length()
+        levels[0] = torch.cat([levels[0], cvs[:, k:]], dim=1)
+        np.testing.assert_array_equal(
+            b3.finalize_columns(levels, tbuf[(n - 1) * 1024 : T], T).numpy(), want)
+    assert (b3.LAUNCHES, blake3_tail.LAUNCHES) == n0
+
+
+@pytest.mark.parametrize("T", [0, 65, 2048, 4096 + 65])
+def test_tail_matches_xla_hash_columns(T):
+    """hash_columns equals reverie_tpu's XLA hash_columns (its tail chunk,
+    tree and, for T = 0, blake3(b"")) at a shard's width."""
+    buf = _rand((T + 5, 21), seed=T + 1)
+    got = b3.hash_columns(torch.from_numpy(buf), T).numpy()
+    want = np.asarray(bj.hash_columns(jnp.asarray(buf), T, pallas_ok=False))
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("R", [256, 40, 216, 3, 22, 0])
+def test_rep_hashes_match_reverie_tpu(R):
+    """hash_rep_columns, H(H(hp2 || ho2) || H(hpz || hoz)), equals
+    reverie_tpu's hash_pair_columns three times over (as TpuKKW._hash_fn
+    pairs the four streams' hashes) and the host C blake3 per row, and
+    hash_pair_columns its one pair; no kernel is launched on the CPU."""
+    ins = [_rand((R, 32), seed=R + i) for i in range(4)]
+    n0 = blake3_tail.LAUNCHES
+    got = b3.hash_rep_columns(*map(torch.from_numpy, ins)).numpy()
+    pair = b3.hash_pair_columns(torch.from_numpy(ins[0]), torch.from_numpy(ins[1])).numpy()
+    assert got.shape == pair.shape == (R, 32) and blake3_tail.LAUNCHES == n0
+    if R == 0:
+        return
+    h = lambda a, b: blake3_many(np.concatenate([a, b], axis=1))  # noqa: E731
+    np.testing.assert_array_equal(pair, h(ins[0], ins[1]))
+    np.testing.assert_array_equal(got, h(h(ins[0], ins[1]), h(ins[2], ins[3])))
+    jp = lambda a, b: bj.hash_pair_columns(jnp.asarray(a), jnp.asarray(b))  # noqa: E731
+    np.testing.assert_array_equal(got, np.asarray(jp(jp(ins[0], ins[1]), jp(ins[2], ins[3]))))
+
+
+def test_tail_entry_points_check_their_arguments():
+    """finalize_columns raises unless the levels hold the chunks before the
+    last (on either device), and on a device neither CPU nor CUDA; the
+    kernels' launchers take CUDA tensors only."""
+    R = 8
+    buf = torch.from_numpy(_rand((3000, R), seed=2))
+    cvs = b3.chunk_cvs(buf, 2)
+    with pytest.raises(ValueError, match="chunks"):
+        b3.finalize_columns([cvs[:, :1]], buf[2048:], 3000)
+    with pytest.raises(ValueError, match="chunks"):
+        b3.finalize_columns([cvs], buf[:0], 0)
+    with pytest.raises(ValueError, match="device"):
+        b3.finalize_columns([cvs.to("meta")], buf[2048:].to("meta"), 3000)
+    rows = torch.zeros((R, 32), dtype=torch.uint8)
+    for launch in (lambda: blake3_tail.finalize([cvs], buf[2048:], 952),
+                   lambda: blake3_tail.stack([cvs]),
+                   lambda: blake3_tail.pairs(rows, rows),
+                   lambda: blake3_tail.pairs(rows, rows, rows, rows),
+                   lambda: b3.hash_pair_columns(rows.to("meta"), rows.to("meta"))):
+        with pytest.raises(ValueError, match="CUDA"):
+            launch()

@@ -29,6 +29,7 @@ from test_torch_package import (
     CARRY_KEYS, MODES, SEGMENT_ROWS, deep_b2a, deep_chain, executor_inputs, on, random_mixed,
     run_segments, segment_executor, z64_chain)
 from test_torch_wave_z64 import jax_inputs
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 #: (program, ops a segment); the levelized executor's cases are short, as

@@ -39,6 +39,7 @@ from reverie_tpu_torch.circuit import bristol as tbristol
 from reverie_tpu_torch.circuit import eval as teval
 from reverie_tpu_torch.proof import Proof
 from reverie_tpu_torch.tools import inspect_proof, make_sha256_statement
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 GOLDEN = REPO / "tests" / "golden"
@@ -62,17 +63,6 @@ BRISTOL_ALL_KINDS = """11 16
 1 1 10 14 EQW
 1 1 11 15 EQW
 """
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op torch thread while a test runs (the suite runs in
-    parallel workers, where a pool of threads per small op costs more than
-    the op)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

@@ -34,6 +34,7 @@ from reverie_tpu_torch.parity import sha256_bench
 
 from test_fuzz_differential import random_program
 from test_torch_z64_prove import z64_kinds_circuit
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 

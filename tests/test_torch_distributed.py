@@ -21,6 +21,7 @@ import numpy as np
 
 from reverie_tpu.circuit.builders import mixed_b2a_circuit, mul_bench_circuit
 from reverie_tpu.proof import prove as golden_prove
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 NPROC = 2
@@ -32,7 +33,6 @@ sys.modules["reverie_tpu"] = None
 import numpy as np
 import torch
 
-torch.set_num_threads(1)
 pid, nproc, port, d = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
 from reverie_tpu_torch import StreamingKKW, TorchKKW
 from reverie_tpu_torch.circuit.builders import mixed_b2a_circuit, mul_bench_circuit

@@ -17,6 +17,7 @@ from reverie_tpu_torch.backend import executor as tex
 from reverie_tpu_torch.circuit.compile import compile_program as port_compile
 
 from test_torch_prove import carry
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 R = 24
 

@@ -28,6 +28,7 @@ from reverie_tpu_torch.circuit.builders import (
     z64_mul_bench_circuit,
 )
 from reverie_tpu_torch.crypto.kernels import aes_tape, aes_tape_z64, blake3 as b3
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 CIRCUITS = {
     "gf2": lambda: mul_bench_circuit(3000),
@@ -170,17 +171,6 @@ def test_chunked_peak_tracks_pipeline_footprint(kernel_outputs_only, name):
     assert peak <= chip_smoke.PEAK_OVER_FOOTPRINT * pred, (peak, pred)
 
 
-@pytest.fixture
-def one_thread():
-    """One intra-op torch thread while the test runs: its ops are small, and
-    the suite runs in parallel workers, where a pool of threads per op
-    costs more than the op."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 class HostPull:
     """host._Pull without its host tensor: on the card a pull lands in
     pinned host memory, not on the device."""
@@ -192,8 +182,7 @@ class HostPull:
         return self._a
 
 
-def test_streamed_peak_does_not_grow_with_the_circuit(kernel_outputs_only, monkeypatch,
-                                                     one_thread):
+def test_streamed_peak_does_not_grow_with_the_circuit(kernel_outputs_only, monkeypatch):
     """StreamingKKW's peak over a prove of 4,596 and 33,268 ANDs in segments
     of 256 ops differs by the CVs its hashes may hold at most: the device
     holds one segment's tapes, executor and streams, and hash states of at

@@ -23,6 +23,7 @@ from reverie_tpu_torch.proof import Proof as TProof
 
 from test_torch_prove import MUTATIONS, carry, seeds256
 from test_tpu_backend import _deep_b2a_mixed_circuit
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 

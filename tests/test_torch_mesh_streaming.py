@@ -21,17 +21,9 @@ from reverie_tpu_torch.parallel import lane_slices, make_mesh
 
 from test_streaming import deep_chain_circuit
 from test_torch_prove import MUTATIONS, carry, seeds256
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op torch thread: a shard's ops are small."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def cpu_mesh(k: int):

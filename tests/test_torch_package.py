@@ -20,7 +20,10 @@ from reverie_tpu_torch.circuit.builders import z64_chain_circuit as z64_chain
 from reverie_tpu_torch.circuit.builders import z64_chains_circuit as z64_chains
 from reverie_tpu_torch.circuit.compile import _NOP, G_ASSERT, compile_program, compile_segments
 from reverie_tpu_torch.crypto.kernels import aes_planes, aes_tape, aes_tape_z64, blake3 as b3
+from reverie_tpu_torch.crypto.kernels import blake3_tail
 from reverie_tpu_torch.tools import r4_bwroof, r4_extract_probe, r5_u8emit
+from blake3_cases import HASHER_CASES, TAIL_LENGTHS, TAIL_WIDTHS, absorb_blocks
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -33,6 +36,7 @@ import reverie_tpu_torch.backend.executor, reverie_tpu_torch.backend.host
 import reverie_tpu_torch.backend.scan, reverie_tpu_torch.backend.streaming
 import reverie_tpu_torch.circuit.sha256
 import reverie_tpu_torch.crypto.kernels.aes_tape, reverie_tpu_torch.crypto.kernels.blake3
+import reverie_tpu_torch.crypto.kernels.blake3_tail
 import reverie_tpu_torch.crypto.kernels.aes_tape_z64, reverie_tpu_torch.crypto.kernels.aes_planes
 import reverie_tpu_torch.tools.r2_measure, reverie_tpu_torch.tools.r4_bwroof
 import reverie_tpu_torch.tools.r5_u8emit, reverie_tpu_torch.tools.r4_extract_probe
@@ -397,6 +401,129 @@ def test_blake3_kernel_matches_plain(cuda_device, R, n, base):
     assert b3.LAUNCHES == n0 + 1
     torch.cuda.synchronize()
     assert torch.equal(got, b3.chunk_cvs_ref(buf, n, base))
+
+
+# -- the tail kernels (csrc/blake3_tail.cu) against the torch tail ---------
+
+
+def _tail_stream(T: int, R: int) -> torch.Tensor:
+    return torch.from_numpy(np.random.RandomState(T + R).randint(
+        0, 256, (T + 3, R), dtype=np.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", TAIL_WIDTHS)
+@pytest.mark.parametrize("T", TAIL_LENGTHS)
+def test_blake3_tail_kernel_matches_plain(cuda_device, T, R):
+    """hash_columns on the card (the chunk kernel, then one tail launch)
+    equals the torch tail on the same bytes; each CV stack of the first k
+    chunks (one launch) has the nodes of _tree_reduce(root=False), and
+    finalize_columns on it and the chunks after it equals it too."""
+    buf = _tail_stream(T, R)
+    dbuf = buf.to(cuda_device)
+    n = max(1, -(-T // 1024))
+    n0, t0 = b3.LAUNCHES, blake3_tail.LAUNCHES
+    got = b3.hash_columns(dbuf, T)
+    assert (b3.LAUNCHES - n0, blake3_tail.LAUNCHES - t0) == (int(n > 1 and R > 0), int(R > 0))
+    want = b3.hash_columns(buf, T)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    cvs = b3.chunk_cvs(buf, n - 1)
+    for k in range(2, n):
+        plain, dev = [cvs[:, :k]], [cvs[:, :k].to(cuda_device)]
+        b3._tree_reduce(plain, root=False)
+        t0 = blake3_tail.LAUNCHES
+        b3.pair_levels(dev)
+        assert blake3_tail.LAUNCHES - t0 == int(R > 0)
+        nodes = lambda lv: {j: x.cpu() for j, x in enumerate(lv) if x.shape[1]}  # noqa: E731
+        got_nodes, want_nodes = nodes(dev), nodes(plain)
+        assert got_nodes.keys() == want_nodes.keys()
+        assert all(torch.equal(got_nodes[j], want_nodes[j]) for j in want_nodes)
+        dev[0] = torch.cat([dev[0], cvs[:, k:].to(cuda_device)], dim=1)
+        assert torch.equal(b3.finalize_columns(dev, dbuf[(n - 1) * 1024 : T], T).cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", TAIL_WIDTHS + (16_384,))
+def test_blake3_pairs_kernel_matches_plain(cuda_device, R):
+    """hash_rep_columns and hash_pair_columns on the card, one launch each,
+    equal their plain versions."""
+    ins = [torch.from_numpy(np.random.RandomState(R + i).randint(0, 256, (R, 32), dtype=np.uint8))
+           for i in range(4)]
+    dev = [x.to(cuda_device) for x in ins]
+    t0 = blake3_tail.LAUNCHES
+    rep, pair = b3.hash_rep_columns(*dev), b3.hash_pair_columns(dev[0], dev[1])
+    assert blake3_tail.LAUNCHES - t0 == (2 if R else 0)
+    torch.cuda.synchronize()
+    assert torch.equal(rep.cpu(), b3.hash_rep_columns_ref(*ins))
+    assert torch.equal(pair.cpu(), b3.hash_pair_columns_ref(ins[0], ins[1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T, block, R, nodes", HASHER_CASES)
+def test_column_hasher_tail_on_cuda_matches_cpu(cuda_device, T, block, R, nodes):
+    """ColumnHasher on the card at the CPU tests' cases: each absorb makes
+    at most one chunk launch and one tail launch (its pairing), finalize
+    one tail launch, and the hashes equal the hasher's on the CPU."""
+    buf = _tail_stream(T, R)
+    held = (nodes or 1 << 20) * b3.CV_BYTES * R
+    hashes = []
+    for dev in (torch.device("cpu"), cuda_device):
+        h = b3.ColumnHasher(T, R, dev, held, b3.COMPRESS_BYTES * R)
+        for lo, hi in absorb_blocks(T, block):
+            n0, t0 = b3.LAUNCHES, blake3_tail.LAUNCHES
+            h.absorb(buf[lo:hi].to(dev))
+            assert b3.LAUNCHES - n0 <= 1 and blake3_tail.LAUNCHES - t0 <= 1
+            sizes = [x.shape[1] for x in h.levels]
+            assert sum(sizes) <= h.max_nodes or max(sizes) <= 1
+        t0 = blake3_tail.LAUNCHES
+        hashes.append(h.finalize().cpu())
+        assert blake3_tail.LAUNCHES - t0 == (dev.type == "cuda")
+    assert torch.equal(hashes[0], hashes[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_and", [3000, 30_000])
+def test_hash_phases_launch_the_tail_once_a_stream(cuda_device, n_and):
+    """TorchKKW on the card at two sizes: the prove's and the online
+    verify's hash phases launch the tail five times (four streams, the pair
+    hashes), the preprocessing verify's three (two streams), whatever the
+    streams' lengths; the proof equals the CPU's."""
+    from reverie_tpu_torch import TorchKKW
+    from reverie_tpu_torch.circuit.builders import mul_bench_circuit
+
+    prog, wit2, witz = mul_bench_circuit(n_and)
+    seeds = np.random.RandomState(3).randint(0, 256, (256, 16), dtype=np.uint8)
+    kkw = TorchKKW(prog, device=cuda_device)
+    proof = kkw.prove(wit2, witz, seeds=seeds)
+    assert kkw.last_timings["hash"]["launches"]["blake3_tail"] == 5
+    assert proof.to_bytes() == TorchKKW(prog, device=torch.device("cpu")).prove(
+        wit2, witz, seeds=seeds).to_bytes()
+    assert kkw.verify(proof) is True
+    tail = {k: v["launches"]["blake3_tail"] for k, v in kkw.last_timings.items()}
+    assert (tail["onl_hash"], tail["pre_hash"]) == (5, 3)
+    assert sum(tail.values()) == 8
+
+
+@pytest.mark.cuda
+def test_blake3_tail_rejects_bad_input(cuda_device):
+    """On the card the tail raises on two nodes at a height above level 0,
+    node CVs of another type or off the card, a stream buffer of another
+    width, and pair inputs that are not contiguous or off the card."""
+    R = 8
+    cvs = torch.zeros((8, 2, R), dtype=torch.int32, device=cuda_device)
+    rem = torch.zeros((1024, R), dtype=torch.uint8, device=cuda_device)
+    for levels, r in (([cvs, cvs], rem), ([cvs.to(torch.int64)], rem), ([cvs.cpu()], rem),
+                      ([cvs], rem[:, :4])):
+        with pytest.raises(ValueError):
+            b3.finalize_columns(levels, r, sum(x.shape[1] << j for j, x in enumerate(levels))
+                                * 1024 + 1)
+    rows = torch.zeros((R, 64), dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError):
+        b3.hash_pair_columns(rows[:, :32], rows[:, 32:])
+    with pytest.raises(ValueError):
+        b3.hash_rep_columns(*[rows[:, :32].contiguous()] * 3,
+                            torch.zeros((R, 32), dtype=torch.uint8))
 
 
 # batch widths R = N * 256 whose outputs or inputs pass 2**31 bytes: the
@@ -1004,6 +1131,8 @@ def test_streaming_on_cuda_matches_cpu(cuda_device, name):
     assert launches["aes_tape_gf2"] >= 3
     if name == "mul":  # the streams pass 1 KiB
         assert launches["blake3_chunk_cvs"] >= 2
+    # the four streams' tails and the pair hashes, one launch each
+    assert sk.last_timings["hash_final"]["launches"]["blake3_tail"] == 5
     if name == "b2a":  # the last segment, 190 levels, on W2
         assert launches["aes_tape_z64"] >= 1 and launches["scan_z64"] == 1
     if name == "deep":

@@ -20,16 +20,9 @@ from reverie_tpu_torch.circuit import builders, load_program
 from reverie_tpu_torch.parallel import make_mesh
 
 from test_fuzz_differential import random_program
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def seeds(seed: int = 5) -> np.ndarray:

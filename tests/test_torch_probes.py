@@ -23,6 +23,7 @@ from reverie_tpu.crypto.kernels.aes_pallas import aes_ctr_planes_pallas
 from reverie_tpu_torch.crypto.kernels import aes_planes, aes_tape
 from reverie_tpu_torch import _build
 from reverie_tpu_torch.tools import build_time, r2_measure, r4_bwroof, r4_extract_probe, r5_u8emit
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")

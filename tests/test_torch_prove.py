@@ -25,6 +25,7 @@ from reverie_tpu.proof import verify as golden_verify
 from reverie_tpu_torch import TorchKKW
 from reverie_tpu_torch.circuit import load_program
 from reverie_tpu_torch.proof import Proof as TProof
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 

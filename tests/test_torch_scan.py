@@ -30,6 +30,7 @@ from reverie_tpu_torch.backend import executor as tex, host, scan
 from reverie_tpu_torch.circuit import dumps_program as t_dumps, load_program
 from reverie_tpu_torch.circuit import sha256 as tsha
 from reverie_tpu_torch.circuit.compile import build_waves, compile_program
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 MODES = [tex.PROVER, tex.VERIFY_ONL, tex.VERIFY_PRE]

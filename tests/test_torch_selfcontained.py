@@ -34,6 +34,7 @@ from reverie_tpu_torch import TorchKKW, parity
 from reverie_tpu_torch.circuit.compile import compile_program as t_compile
 
 from test_fuzz_differential import random_program
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 GOLDEN = REPO / "tests" / "golden"

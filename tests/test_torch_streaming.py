@@ -33,19 +33,9 @@ from reverie_tpu_torch.params import ProtocolParams
 from reverie_tpu_torch.proof import Proof
 
 from test_torch_prove import MUTATIONS
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op torch thread while a test runs: its ops are small, and
-    the suite runs in parallel workers, where a pool of threads per op
-    costs more than the op."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def seeds(seed: int = 42, R: int = 256) -> np.ndarray:

@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from reverie_tpu_torch import trace
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 CUDA, CPU = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
 
@@ -80,3 +81,20 @@ def test_cells_are_the_smokes_cells():
     assert (cell.most, cell.many) == (64, False)
     assert chip_smoke.SHA256_CHUNKS * cell.most == 512
     assert [c.most for k, c in trace.CELLS.items() if c.many] == [8, 4]
+
+
+def test_tail_kernels_are_traced_under_their_wrapper():
+    """Both kernels of csrc/blake3_tail.cu, the tree's and the pairs', hold
+    the name the blake3_tail wrapper is traced by, and are listed among the
+    port's kernels whatever their time."""
+    events = [ev("(anonymous namespace)::blake3_tail_kernel(Stack, Tree)", 0.0, 1.0),
+              ev("(anonymous namespace)::blake3_tail_kernel_pairs(...)", 2.0, 3.0)]
+    assert trace.traced_launches(events, {"blake3_tail": 2}) == {"blake3_tail": 2}
+    assert len(trace.by_kernel(events + EVENTS, 0)) == 3  # the tail's two and K3
+
+
+def test_cells_option_rejects_an_unknown_cell(capsys):
+    """--cells takes the names of CELLS only, and says which it knows."""
+    with pytest.raises(SystemExit) as exc:
+        trace.main(["--cells", "gf2_mul_1M,nope"])
+    assert exc.value.code == 2 and "nope" in capsys.readouterr().err

@@ -22,6 +22,7 @@ from reverie_tpu_torch.circuit.compile import (
     _NOP, B2A_CORR, B2A_OUT, G_ADD, G_ASSERT, G_INPUT, G_MUL, G_RANDOM, compile_program)
 
 from test_torch_package import boundary_waves, random_waves, run_waves, wave_inputs
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 MODES = [tex.PROVER, tex.VERIFY_ONL, tex.VERIFY_PRE]

@@ -33,6 +33,7 @@ from reverie_tpu_torch.proof import Proof
 from test_torch_package import (
     MODES, OUT_KEYS, Z64_PROGRAMS, deep_b2a, executor_inputs, on, random_mixed, z64_all_ops,
     z64_chain)
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 GOLDEN = pathlib.Path(__file__).resolve().parent / "golden"

@@ -19,6 +19,7 @@ from reverie_tpu_torch.circuit.compile import compile_program as port_compile
 from test_torch_prove import carry
 
 from test_torch_z64_prove import z64_kinds_circuit
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 R = 24
 

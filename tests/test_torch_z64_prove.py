@@ -22,6 +22,7 @@ from reverie_tpu_torch.proof import Proof as TProof
 
 from test_fuzz_differential import random_program
 from test_torch_prove import MUTATIONS, _flip, as_jax_proof, carry, seeds256
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
