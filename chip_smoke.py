@@ -35,13 +35,16 @@ prints no result line:
      legs, a flipped byte in a z64 online opening (False), and the z64 tape
      kernel launched in the prove, the online and the preprocessing verify;
   7. Z64 parity: 2,000 Z64 MULs equal to the golden's digest; then the
-     BLAKE3 tail kernels (csrc/blake3_tail.cu) against the torch tail,
-     byte for byte, on K3's chunk CVs of random streams: the four stream
-     lengths of phases 4, 6 and 8's circuits at R = 256, 40 and 216, an
-     empty stream, a partial and a whole chunk, R = 2,048 and 16,384, the
-     mesh's shard widths, a streamed hasher's CV stack and the tree on it,
-     the pair hashes at each R; timed with its bound on the 1M-AND onl2
-     stream at R = 256;
+     BLAKE3 tail kernel (csrc/blake3_tail.cu) against the torch tail,
+     byte for byte, on K3's chunk CVs of random streams: a hash leg (the
+     four streams and the pair hashes in one launch, with and without the
+     committed online hashes) on phases 4, 6 and 8's circuits' streams at
+     R = 256, 40 and 216, the GF(2) 1M-AND's at 2,048, SHA-256's at
+     16,384, the mesh's shard widths and 0, with each launch plan; one
+     stream's hash at the same lengths, an empty stream, a partial and a
+     whole chunk; a streamed hasher's CV stack and the tree on it, and
+     four hashers' leg; the pair hashes at each R; the leg timed with its
+     bound at the GF(2) 1M prove (R = 256), one stream's hash beside it;
   8. the SHA-256 phase, on reverie_tpu's SHA-256 preimage statement
      (parity.sha256_bench; 5,198 levels, pure GF(2), so TorchKKW runs it on
      the wave executor): the wave kernel (csrc/scan_gf2.cu) through the
@@ -367,34 +370,62 @@ TAIL_SHARD_WIDTHS = (3, 4, 18, 21, 22)
 
 
 def check_blake3_tail(dev, rng, clock: float, ccs: dict) -> dict:
-    """The tail kernels (csrc/blake3_tail.cu) against the torch tail on the
-    card, byte for byte, on the chunk CVs K3 makes of random streams: each
-    cell's four stream lengths (ccs: cell -> compiled circuit) at the
-    prover's R = 256, the online verifier's 40 (all four) and the
-    preprocessing verifier's 216 (pre2, prez); an empty stream, a partial
-    and a whole chunk at each; a batch of 8 1M-AND proofs (R = 2,048) and
-    a chunk of 64 SHA-256 proofs (R = 16,384) at their longest stream; the
-    mesh's shard widths; the CV stack of a streamed hasher (pair_levels)
-    against _tree_reduce(root=False) and the tree on it; the pair hashes at
-    each R.  The kernels line takes finalize_columns on the GF(2) 1M-AND
-    onl2 stream at R = 256: its ms, the torch tail's and its bound
-    (roofline.blake3_tail_work); the pair kernel's are logged."""
-    from reverie_tpu_torch.crypto.kernels import blake3 as b3
+    """The tail kernel (csrc/blake3_tail.cu) against the torch tail on the
+    card, byte for byte, on the chunk CVs K3 makes of random streams: a
+    hash leg (hash_leg: the four streams' tails and the pair hashes in one
+    launch) on each cell's four stream lengths (ccs: cell -> compiled
+    circuit) at the prover's R = 256, the online verifier's 40 and the
+    preprocessing verifier's 216, with and without the committed online
+    hashes; a batch of 8 1M-AND proofs (R = 2,048), a chunk of 64 SHA-256
+    proofs (R = 16,384), the mesh's shard widths and R = 0; each with its
+    launch plan.  One stream's hash (finalize_columns) at each of those
+    lengths and widths, an empty stream, a partial and a whole chunk; the
+    CV stack of a streamed hasher (pair_levels) against
+    _tree_reduce(root=False) and the tree on it; four ColumnHashers'
+    leg; the pair hashes at each R.  The kernels line takes the leg at the
+    GF(2) 1M prove (R = 256): its ms, the torch tail's and its bound
+    (roofline.blake3_tail_work over the four streams plus
+    blake3_pairs_work); one stream's hash (the 1M-AND onl2 stream) and the
+    pair hashes are logged beside it."""
+    from reverie_tpu_torch.crypto.kernels import blake3 as b3, blake3_tail
     from reverie_tpu_torch.roofline import blake3_pairs_work, blake3_tail_work
+    from reverie_tpu_torch.tools.tail_times import queued_ms
 
     gen = torch.Generator(device=dev).manual_seed(int(rng.randint(2**31)))
     res = {}
 
     def stream(T: int, R: int):
         buf = torch.randint(0, 256, (max(T, 1), R), dtype=torch.uint8, device=dev, generator=gen)
-        n = max(1, -(-T // b3.CHUNK_LEN))
-        levels = [b3.chunk_cvs(buf, n - 1)] if n > 1 and R else []
-        return levels, buf[(n - 1) * b3.CHUNK_LEN : T], n
+        return b3.stream_tail(buf, T)
 
     def case(T: int, R: int, what: str) -> None:
-        levels, rem, n = stream(T, R)
+        levels, rem, _ = stream(T, R)
+        n = b3._last_chunk(T)[0]
         check("blake3_tail", res, b3.finalize_columns(levels, rem, T),
               b3.finalize_columns_ref(levels, rem, T), f"finalize {what} T={T} R={R} n={n}")
+
+    def leg_inputs(cc, R: int, comm: bool):
+        legs = [stream(getattr(cc, name), R) for name in ("pre2", "onl2", "prez", "onlz")]
+        if comm:
+            legs[1], legs[3] = [torch.randint(0, 256, (R, 32), dtype=torch.uint8, device=dev,
+                                              generator=gen) for _ in range(2)]
+        return legs
+
+    def leg_plan(legs) -> str:
+        return blake3_tail.launch_plan([x if isinstance(x, torch.Tensor) else
+                                        (x[0], x[1], b3._last_chunk(x[2])[1])
+                                        for x in legs]).line()
+
+    def leg_case(cc, R: int, comm: bool, what: str) -> None:
+        legs = leg_inputs(cc, R, comm)
+        n0 = blake3_tail.LAUNCHES
+        got = b3.hash_leg(*legs)
+        if blake3_tail.LAUNCHES - n0 != int(R > 0):
+            raise AssertionError(f"blake3_tail: the leg {what} R={R} took "
+                                 f"{blake3_tail.LAUNCHES - n0} launches")
+        want = b3.hash_leg_ref(*legs)
+        check("blake3_tail", res, torch.cat(got, dim=1), torch.cat(want, dim=1),
+              f"leg {what} R={R} committed={comm} plan {leg_plan(legs)}")
 
     lengths = {}
     for cell, cc in ccs.items():
@@ -403,19 +434,26 @@ def check_blake3_tail(dev, rng, clock: float, ccs: dict) -> dict:
             lengths[T] = lengths.get(T, []) + [f"{cell}.{name}"]
             for R in (256, 40) + ((216,) if name.startswith("pre") else ()):
                 case(T, R, f"{cell}.{name}")
+        for R in (256, 40, 216) + TAIL_SHARD_WIDTHS + (0,):
+            for comm in (False, True):
+                leg_case(cc, R, comm, cell)
     for T in (0, 700, 1024):
         for R in (256, 40, 216):
             case(T, R, "short")
     gf2, sha = ccs["gf2_1M"], ccs["sha256"]
     case(gf2.onl2, 2048, "batch of 8")
     case(max(sha.onl2, sha.pre2), 16_384, "chunk of 64 SHA-256")
+    for comm in (False, True):
+        leg_case(gf2, 2048, comm, "gf2_1M batch of 8")
+        leg_case(sha, 16_384, comm, "sha256 chunk of 64")
     for R in TAIL_SHARD_WIDTHS:
         case(gf2.onl2, R, "shard")
         case(0, R, "shard")
 
     # a streamed hasher's CV stack: the first k chunk CVs paired
     T, R = gf2.onl2, 256
-    levels, rem, n = stream(T, R)
+    levels, rem, _ = stream(T, R)
+    n = b3._last_chunk(T)[0]
     k = (n - 1) // 2 + 3
     plain, stack = [levels[0][:, :k]], [levels[0][:, :k].clone()]
     b3._tree_reduce(plain, root=False)
@@ -428,6 +466,27 @@ def check_blake3_tail(dev, rng, clock: float, ccs: dict) -> dict:
     stack[0] = torch.cat([stack[0], levels[0][:, k:]], dim=1)
     check("blake3_tail", res, b3.finalize_columns(stack, rem, T),
           b3.finalize_columns_ref(levels, rem, T), f"finalize on the CV stack k={k} T={T} R={R}")
+
+    # four streamed hashers (each held to a few segments' CVs, its CV stack
+    # past them) and their leg, as StreamingKKW's hash_final runs it
+    T2 = (gf2.pre2, gf2.onl2, 5 * 1024 + 300, 3 * 1024)
+    for R in (256, 40):
+        bufs = [torch.randint(0, 256, (max(T, 1), R), dtype=torch.uint8, device=dev,
+                              generator=gen) for T in T2]
+        hashers = []
+        for T, buf in zip(T2, bufs):
+            h = b3.ColumnHasher(T, R, dev, 96 * b3.CV_BYTES * R, 1 << 30)
+            for lo in range(0, T, 150_000):
+                h.absorb(buf[lo : min(T, lo + 150_000)])
+            hashers.append(h)
+        n0 = blake3_tail.LAUNCHES
+        got = b3.hash_leg(*(h.tail() for h in hashers))
+        if blake3_tail.LAUNCHES - n0 != 1:
+            raise AssertionError("blake3_tail: the hashers' leg took more than one launch")
+        want = b3.hash_leg_ref(*(b3.stream_tail(buf, T) for T, buf in zip(T2, bufs)))
+        check("blake3_tail", res, torch.cat(got, dim=1), torch.cat(want, dim=1),
+              f"leg of four ColumnHashers R={R} "
+              f"p0={[blake3_tail.stack_items(h.levels)[1] for h in hashers]}")
 
     for R in (256, 40, 216, 2048, 16_384) + TAIL_SHARD_WIDTHS:
         ins = [torch.randint(0, 256, (R, 32), dtype=torch.uint8, device=dev, generator=gen)
@@ -443,11 +502,31 @@ def check_blake3_tail(dev, rng, clock: float, ccs: dict) -> dict:
                 pairs, lambda: b3.hash_rep_columns(*ins), lambda: b3.hash_rep_columns_ref(*ins)))
 
     T, R = gf2.onl2, 256
-    levels, rem, n = stream(T, R)
-    set_bound(res, *blake3_tail_work(n, T - (n - 1) * b3.CHUNK_LEN, R), clock)
-    log("kernel", f"blake3_tail finalize T={T} R={R} n={n} " + timed(
-        res, lambda: b3.finalize_columns(levels, rem, T),
-        lambda: b3.finalize_columns_ref(levels, rem, T)))
+    levels, rem, _ = stream(T, R)
+    n = b3._last_chunk(T)[0]
+    one = {}
+    set_bound(one, *blake3_tail_work(n, T - (n - 1) * b3.CHUNK_LEN, R), clock)
+    log("kernel", f"blake3_tail finalize T={T} R={R} n={n} queued_ms="
+        f"{queued_ms(lambda: b3.finalize_columns(levels, rem, T), dev):.4f} " + timed(
+            one, lambda: b3.finalize_columns(levels, rem, T),
+            lambda: b3.finalize_columns_ref(levels, rem, T)))
+
+    legs = leg_inputs(gf2, R, False)
+    n_bytes = ops = 0
+    for name in ("pre2", "onl2", "prez", "onlz"):
+        T = getattr(gf2, name)
+        n = b3._last_chunk(T)[0]
+        b, o = blake3_tail_work(n, T - (n - 1) * b3.CHUNK_LEN, R)
+        n_bytes, ops = n_bytes + b, ops + o
+    b, o = blake3_pairs_work(R)
+    set_bound(res, n_bytes + b, ops + o, clock)
+    # the leg is shorter than its host call: its ms queued behind a spin of
+    # the card (tail_times.queued_ms), the host's call beside it
+    line = timed(res, lambda: b3.hash_leg(*legs), lambda: b3.hash_leg_ref(*legs))
+    host_ms, res["ms"] = res["ms"], queued_ms(lambda: b3.hash_leg(*legs), dev)
+    log("kernel", f"blake3_tail leg gf2_1M prove R={R} plan {leg_plan(legs)} "
+        f"kernel_ms={res['ms']:.4f} (back to back on the host {host_ms:.4f}) "
+        + line.split(" ", 1)[1])
     log("kernel", f"blake3_tail stream lengths {json.dumps(lengths)}")
     return res
 
@@ -611,6 +690,8 @@ def main_path(dev, tag: str, make, domain: str, rng, executor_kernel: str = "") 
             + (f" {executor_kernel}_launches={c}" if executor_kernel else ""))
         if a < 1 or b < 1 or c < 1 or d < 1:
             raise AssertionError(f"{tag} {leg} did not launch every kernel of its path")
+        if d != 1:
+            raise AssertionError(f"{tag} {leg}: the tail launched {d} times, not once a leg")
     tail_routes(tag, kkw, w2, wz, seeds, proof)
 
     tampered = kkw.verify(flipped(proof, domain))
@@ -625,18 +706,19 @@ def torch_tail():
     """The torch tail on the card, as the port ran it before the tail
     kernel, for its time beside the kernel's: while the block runs,
     blake3's entry points on CUDA tensors take their plain versions
-    (finalize_columns_ref, _tree_reduce, hash_pair_columns_ref) instead of
-    csrc/blake3_tail.cu.
+    (finalize_columns_ref, _tree_reduce, hash_pair_columns_ref,
+    hash_leg_ref) instead of csrc/blake3_tail.cu.
     Only for that measurement: the port itself never routes a CUDA tensor
     to a plain version."""
     from reverie_tpu_torch.crypto.kernels import blake3 as b3
 
-    names = ("finalize_columns", "pair_levels", "hash_pair_columns", "hash_rep_columns")
+    names = ("finalize_columns", "pair_levels", "hash_pair_columns", "hash_rep_columns", "hash_leg")
     saved = {k: getattr(b3, k) for k in names}
     b3.finalize_columns = b3.finalize_columns_ref
     b3.pair_levels = functools.partial(b3._tree_reduce, root=False)
     b3.hash_pair_columns = b3.hash_pair_columns_ref
     b3.hash_rep_columns = b3.hash_rep_columns_ref
+    b3.hash_leg = b3.hash_leg_ref
     try:
         yield
     finally:

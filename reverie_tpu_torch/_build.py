@@ -110,12 +110,10 @@ def kernels() -> ctypes.CDLL:
             plan.restype = i32
         lib.reverie_blake3_chunk_cvs.argtypes = [vp, i32, i64, i64, vp, vp]
         lib.reverie_blake3_chunk_cvs.restype = i32
-        lib.reverie_blake3_tail.argtypes = [
-            ctypes.POINTER(vp), ctypes.POINTER(i64), vp, i64, i64, i64, i64, vp, i64, i32, i32,
-            vp, vp, i32, vp]
+        lib.reverie_blake3_tail.argtypes = [vp, vp]  # the launch's int64 words, the stream
         lib.reverie_blake3_tail.restype = i32
-        lib.reverie_blake3_tail_pairs.argtypes = [vp, vp, vp, vp, vp, i32, vp]
-        lib.reverie_blake3_tail_pairs.restype = i32
+        lib.reverie_blake3_tail_registers.argtypes = []
+        lib.reverie_blake3_tail_registers.restype = i32
         lib.reverie_aes_ctr_planes.argtypes = [vp, vp, i64, i32, vp]
         lib.reverie_aes_ctr_planes.restype = i32
         lib.reverie_copy.argtypes = [vp, vp, i64, vp]

@@ -680,16 +680,14 @@ class TorchKKW:
         of an executor's four streams (transcript/mod.rs:77-96 +
         combine.rs:104-118) -> (rep_h, ho2, hoz), each (R, 32).  With
         comm2/commz the online hashes are the committed values (preprocess
-        verification, verifier/preprocess.rs:55-57)."""
-        cc = self.cc
-        hp2 = b3.hash_columns(out["pre2"], cc.pre2)
-        hpz = b3.hash_columns(out["prez"], cc.prez)
-        if comm2 is None:
-            ho2 = b3.hash_columns(out["onl2"], cc.onl2)
-            hoz = b3.hash_columns(out["onlz"], cc.onlz)
-        else:
-            ho2, hoz = comm2, commz
-        return b3.hash_rep_columns(hp2, ho2, hpz, hoz), ho2, hoz
+        verification, verifier/preprocess.rs:55-57).  On CUDA: K3 on each
+        stream's whole chunks, then one launch of the tail kernel for the
+        leg (blake3.hash_leg)."""
+        def tail(name):
+            return b3.stream_tail(out[name], getattr(self.cc, name))
+
+        return b3.hash_leg(tail("pre2"), tail("onl2") if comm2 is None else comm2,
+                           tail("prez"), tail("onlz") if commz is None else commz)
 
     # -- proving ------------------------------------------------------------
     def prove(self, wit_gf2, wit_z64, seeds: Optional[np.ndarray] = None) -> Proof:

@@ -81,12 +81,14 @@ def _absorb(hashers: Dict[str, b3.ColumnHasher], cc, out: Dict[str, torch.Tensor
 
 def _rep_hashes(hashers: Dict[str, b3.ColumnHasher], comm2=None, commz=None):
     """(rep hashes, ho2, hoz), each (R, 32): H(H(pre2 || onl2) || H(prez ||
-    onlz)) of the finalized streams (host.TorchKKW._hash_fn); with
-    comm2 / commz the online hashes are the committed values."""
-    ho2 = hashers["onl2"].finalize() if comm2 is None else comm2
-    hoz = hashers["onlz"].finalize() if commz is None else commz
-    rep_h = b3.hash_rep_columns(hashers["pre2"].finalize(), ho2, hashers["prez"].finalize(), hoz)
-    return rep_h, ho2, hoz
+    onlz)) of the finalized streams (host.TorchKKW._hash_fn), one launch
+    of the tail kernel on CUDA (blake3.hash_leg); with comm2 / commz the
+    online hashes are the committed values."""
+    def tail(name, given=None):
+        return hashers[name].tail() if given is None else given
+
+    return b3.hash_leg(tail("pre2"), tail("onl2", comm2), tail("prez"), tail("onlz", commz),
+                       hashers["pre2"].max_pairs)
 
 
 def _column(w: np.ndarray, R: int, device) -> torch.Tensor:

@@ -12,10 +12,11 @@ per-repetition streams.  The whole chunks go through `chunk_cvs` (CPU
 tensors: the plain version `chunk_cvs_ref`; CUDA tensors: the kernel).  The
 rest of a stream's hash, its tail (the final partial chunk, the tree
 reduction and the pair hashes; XLA in the reference), is plain torch on CPU
-tensors (`finalize_columns_ref`, `_tree_reduce`, `hash_pair_columns_ref`)
-and on CUDA tensors the kernels of csrc/blake3_tail.cu
-(crypto/kernels/blake3_tail.py): one launch a stream, one for a stream's CV
-stack, one for the pair hashes.
+tensors (`finalize_columns_ref`, `_tree_reduce`, `hash_pair_columns_ref`,
+`hash_leg_ref`) and on CUDA tensors the kernel of csrc/blake3_tail.cu
+(crypto/kernels/blake3_tail.py): one launch a hash leg (`hash_leg`: its
+streams' tails and the pair hashes), one for a stream's CV stack, one for
+a stream or a pair hash alone.
 
 Words are carried as int64 holding values in [0, 2^32) and masked after
 every add and shift; the chunk CVs leave `chunk_cvs` as int32 (the kernel's
@@ -247,12 +248,19 @@ def _rows_to_bytes(words: torch.Tensor) -> torch.Tensor:
     return b.permute(1, 0, 2).reshape(words.shape[1], 32).to(torch.uint8)
 
 
+def stream_tail(buf: torch.Tensor, T: int):
+    """buf: (>= T, R) uint8 -> (levels, rem, T): the chunk CVs of each
+    column's first T bytes but the last chunk (`chunk_cvs`) and that
+    chunk's rows, what `finalize_columns` and `hash_leg` take."""
+    n_chunks = max(1, (T + CHUNK_LEN - 1) // CHUNK_LEN)
+    bulk = [chunk_cvs(buf, n_chunks - 1, 0)] if n_chunks > 1 else []
+    return bulk, buf[(n_chunks - 1) * CHUNK_LEN : T], T
+
+
 def hash_columns(buf: torch.Tensor, T: int) -> torch.Tensor:
     """buf: (>= T, R) uint8 -> (R, 32) uint8, blake3 of each column's first
     T bytes (rows beyond T are ignored)."""
-    n_chunks = max(1, (T + CHUNK_LEN - 1) // CHUNK_LEN)
-    bulk = [chunk_cvs(buf, n_chunks - 1, 0)] if n_chunks > 1 else []
-    return finalize_columns(bulk, buf[(n_chunks - 1) * CHUNK_LEN : T], T)
+    return finalize_columns(*stream_tail(buf, T))
 
 
 # ---------------------------------------------------------------------------
@@ -394,10 +402,15 @@ class ColumnHasher:
             if sum(x.shape[1] for x in self.levels) > self.max_nodes:
                 pair_levels(self.levels, self.max_pairs)
 
-    def finalize(self) -> torch.Tensor:
+    def tail(self):
+        """(levels, rem, total_len) of the whole stream, what
+        `finalize_columns` and `hash_leg` take."""
         if self.chunk_base * CHUNK_LEN + self.rem_len != self.total_len:
             raise ValueError("ColumnHasher: finalized before the whole stream was absorbed")
-        return finalize_columns(self.levels, self.rem, self.total_len, self.max_pairs)
+        return self.levels, self.rem, self.total_len
+
+    def finalize(self) -> torch.Tensor:
+        return finalize_columns(*self.tail(), self.max_pairs)
 
 
 def hash_columns_transient_bytes(T: int, R: int) -> int:
@@ -448,3 +461,34 @@ def hash_rep_columns(hp2: torch.Tensor, ho2: torch.Tensor, hpz: torch.Tensor,
     if hp2.device.type == "cpu":
         return hash_rep_columns_ref(hp2, ho2, hpz, hoz)
     return blake3_tail.pairs(hp2, ho2, hpz, hoz)
+
+
+def hash_leg_ref(pre2, onl2, prez, onlz, max_pairs: Optional[int] = None):
+    """Plain PyTorch version of `hash_leg` (on any device)."""
+    def h(x):
+        return x if isinstance(x, torch.Tensor) else finalize_columns_ref(*x, max_pairs)
+
+    hp2, ho2, hpz, hoz = map(h, (pre2, onl2, prez, onlz))
+    return hash_rep_columns_ref(hp2, ho2, hpz, hoz), ho2, hoz
+
+
+def hash_leg(pre2, onl2, prez, onlz, max_pairs: Optional[int] = None):
+    """A hash leg: the four streams, each (levels, rem, total_len)
+    (`stream_tail`, `ColumnHasher.tail`), or for onl2 and onlz their given
+    (R, 32) uint8 hashes (the committed ones of a preprocessing verify) ->
+    (H(H(pre2 || onl2) || H(prez || onlz)), onl2's hashes, onlz's hashes),
+    each (R, 32) uint8 (transcript/mod.rs:77-96 + combine.rs:104-118, as
+    TpuKKW._hash_fn).  CPU tensors take the plain version (at most
+    max_pairs parent compressions at once); CUDA tensors one launch of
+    csrc/blake3_tail.cu for the whole leg."""
+    legs = (pre2, onl2, prez, onlz)
+    for x in legs:
+        if not isinstance(x, torch.Tensor):
+            _check_held(x[0], _last_chunk(x[2])[0])
+    first = pre2 if isinstance(pre2, torch.Tensor) else pre2[1]
+    if first.device.type == "cpu":
+        return hash_leg_ref(*legs, max_pairs)
+    if first.device.type != "cuda":
+        raise ValueError(f"hash_leg: unsupported device {first.device}")
+    return blake3_tail.leg([x if isinstance(x, torch.Tensor) else (x[0], x[1], _last_chunk(x[2])[1])
+                            for x in legs])

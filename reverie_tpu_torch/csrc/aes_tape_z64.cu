@@ -14,8 +14,8 @@
 //
 // What bounds it on the H100: the AES table lookups.  The main path's tape
 // (mz = 100,002, R = 256) is 1.64 GB of stores, 0.5 ms at 3.35 TB/s, and
-// 50,001 x 2,048 = 102M AES blocks: 242 ALU instructions each (1.48 ms on
-// the INT32 lanes, roofline.py) and 160 shared-memory lookups, 512M warp
+// 50,001 x 2,048 = 102M AES blocks: 242 ALU instructions each (0.74 ms at
+// the SMs' issue rate, roofline.py) and 160 shared-memory lookups, 512M warp
 // lookups, 1.96 ms at one wavefront per clock per SM if no lookup meets a
 // bank conflict (one shared 1 KiB table costs ~3.16 wavefronts a lookup).
 //

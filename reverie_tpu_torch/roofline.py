@@ -1,12 +1,17 @@
 """The least time an H100 could take for a kernel's work (its bound).
 
-bound = max(bytes / memory rate, integer operations / INT32 rate), where
+bound = max(bytes / memory rate, integer operations / issue rate), where
   * bytes are what the function must move: each input read once, each
     output written once;
   * the memory rate is the H100 SXM's 3.35 TB/s of HBM3 (NVIDIA data
     sheet);
-  * the INT32 rate is 132 SMs x 64 INT32 lanes x the SM clock, which the
-    caller reads from `nvidia-smi --query-gpu=clocks.max.sm`.
+  * the issue rate is 132 SMs x 128 lanes x the SM clock, which the caller
+    reads from `nvidia-smi --query-gpu=clocks.max.sm`: an SM's four
+    schedulers issue one warp instruction each a clock.  The ALU pipe has
+    only 64 INT32 lanes an SM, but adds, moves, shifts and multiplies also
+    issue as IMAD on the FMA pipe (the BLAKE3 tail's adds do:
+    tools/tail_probe.py measures more compressions a second than 64 lanes
+    allow), so only the issue rate bounds every mix of instructions.
 
 Operation counts are the fewest 32-bit integer instructions that the
 function needs per unit of work, in Hopper's instruction forms: a 3-input
@@ -25,7 +30,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12
 SMS = 132
-INT32_LANES_PER_SM = 64
+ISSUE_LANES_PER_SM = 128
 
 #: integer instructions of one AES-128 CTR block in the T-table form
 #: (csrc/aes_core.cuh): the counter into the state (2 XORs); 9 rounds x 4
@@ -35,11 +40,14 @@ INT32_LANES_PER_SM = 64
 #: shared-memory loads.
 AES_BLOCK_INT_OPS = 2 + 9 * 4 * (4 + 2) + 4 * (4 + 2)
 
-#: integer instructions of one BLAKE3 compression of a chunk read as in
-#: csrc/blake3_chunks.cu: 7 rounds x 8 G x 12 (2 IADD3, 2 adds, 4 XORs, 4
-#: rotations) = 672, the 8 output XORs, and 16 message words x 2 PRMT (a
-#: 4 x 4 byte transpose of 4 rows' words).
-BLAKE3_COMPRESSION_INT_OPS = 7 * 8 * 12 + 8 + 16 * 2
+#: integer instructions of one BLAKE3 compression of message words in
+#: registers (a parent node, a pair hash, a staged block): 7 rounds x 8 G x
+#: 12 (2 IADD3, 2 adds, 4 XORs, 4 rotations) = 672 and the 8 output XORs.
+BLAKE3_NODE_INT_OPS = 7 * 8 * 12 + 8
+#: those of one compression of a chunk read as in csrc/blake3_chunks.cu:
+#: BLAKE3_NODE_INT_OPS and 16 message words x 2 PRMT (a 4 x 4 byte
+#: transpose of 4 rows' words).
+BLAKE3_COMPRESSION_INT_OPS = BLAKE3_NODE_INT_OPS + 16 * 2
 
 
 def blake3_tail_work(n_chunks: int, tail_len: int, R: int) -> Tuple[int, int]:
@@ -51,7 +59,7 @@ def blake3_tail_work(n_chunks: int, tail_len: int, R: int) -> Tuple[int, int]:
     last chunk's blocks (one for an empty chunk)."""
     blocks = max(1, -(-tail_len // 64))
     n_bytes = ((n_chunks - 1) * 32 + tail_len + 32) * R
-    return n_bytes, (n_chunks - 1 + blocks) * R * BLAKE3_COMPRESSION_INT_OPS
+    return n_bytes, (n_chunks - 1 + blocks) * R * BLAKE3_NODE_INT_OPS
 
 
 def blake3_pairs_work(R: int, pairs: int = 3) -> Tuple[int, int]:
@@ -59,7 +67,7 @@ def blake3_pairs_work(R: int, pairs: int = 3) -> Tuple[int, int]:
     (csrc/blake3_tail.cu's pairs kernel; 3: H(H(a || b) || H(c || d))): the
     pairs + 1 inputs of 32 bytes read once and the 32-byte output written,
     one compression a pair."""
-    return (pairs + 2) * 32 * R, pairs * R * BLAKE3_COMPRESSION_INT_OPS
+    return (pairs + 2) * 32 * R, pairs * R * BLAKE3_NODE_INT_OPS
 
 
 #: integer instructions per rep of one slot of the wave kernel
@@ -131,7 +139,7 @@ def wave_z64_work(zops: np.ndarray, n_b2a: int, mode: int, R: int, input_bytes: 
 
 
 def int32_ops_per_s(sm_clock_mhz: float) -> float:
-    return SMS * INT32_LANES_PER_SM * sm_clock_mhz * 1e6
+    return SMS * ISSUE_LANES_PER_SM * sm_clock_mhz * 1e6
 
 
 def bound_ms(n_bytes: float, int_ops: float, sm_clock_mhz: float) -> Tuple[float, str]:

@@ -9,7 +9,10 @@ which runs it on the card:
 
 `build_time` times the nvcc build of the kernels' library, parallel
 against one nvcc over all sources; `wave_times` the wave kernels W1 and W2
-(one tree against another's, in one call).
+and `tail_times` the BLAKE3 tail's hash legs (one tree against another's,
+in one call); `tail_probe` where the tail kernel's time goes (its phases,
+on builds cut by the macros csrc/blake3_tail.cu defines, and a
+compression's latency and rate).
 
 The CLI's helpers, reverie_tpu's tools of the same names:
 `make_sha256_statement` writes a SHA-256 preimage statement's program and

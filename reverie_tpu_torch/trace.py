@@ -60,8 +60,7 @@ CELLS = {"gf2_mul_1M": Cell(functools.partial(mul_bench_circuit, 1_000_000), 8, 
 TOP = 15  # kernel names listed by device time
 
 #: the port's own kernels, always listed by `by_kernel` (a name matches
-#: every kernel whose name holds it: blake3_tail_kernel the tree's and the
-#: pairs' of csrc/blake3_tail.cu)
+#: every kernel whose name holds it)
 PORT_KERNELS = ("aes_tape_gf2_kernel", "aes_tape_z64_kernel", "blake3_chunk_cvs_kernel",
                 "blake3_tail_kernel", "scan_gf2_kernel", "scan_gf2_carry_kernel",
                 "scan_z64_kernel", "scan_z64_carry_kernel")

@@ -28,3 +28,9 @@ TAIL_LENGTHS = (0, 1, 65, 1023, 1024, 2048, 3072, 5120, 1024 + 1, 2048 + 64, 409
 #: the widths: the three legs' R, a batch of two proofs (2 x 256), the
 #: mesh's shard widths (12 shards of 256, 40 and 216 lanes) and none
 TAIL_WIDTHS = (256, 40, 216, 512, 3, 4, 18, 21, 22, 0)
+
+#: the four streams (pre2, onl2, prez, onlz) of a hash leg's cases: ragged
+#: and whole chunks, a GF(2) circuit's empty z64 streams, all empty, and
+#: single chunks beside longer streams
+LEG_LENGTHS = ((5120, 4096 + 65, 0, 1023), (2048 + 64, 1, 65, 3072), (3072, 5120, 0, 0),
+               (0, 0, 0, 0), (1024, 1024 + 1, 2048, 700))

@@ -1,8 +1,9 @@
 """The port's per-column BLAKE3 (reverie_tpu_torch blake3) against
 reverie_tpu: the Pallas chunk kernel in interpret mode, the XLA chunk scan,
-the XLA hash and pair hash and the host C blake3; and the CPU dispatch and
-argument checks of the tail's entry points (csrc/blake3_tail.cu on the
-card, tests/test_torch_package.py).  Every output is bytes or u32 words:
+the XLA hash and pair hash and the host C blake3; the tail kernel's
+schedule (blake3_tail.plan, pieces, merge_order) run in torch; and the CPU
+dispatch and argument checks of the tail's entry points
+(csrc/blake3_tail.cu on the card, tests/test_torch_package.py).  Every output is bytes or u32 words:
 the tolerance is 0."""
 
 import numpy as np
@@ -15,7 +16,7 @@ from reverie_tpu.crypto import blake3_many
 from reverie_tpu.crypto.kernels import blake3_jax as bj
 from reverie_tpu.crypto.kernels.blake3_pallas import chunk_cvs_from_bytes
 from reverie_tpu_torch.crypto.kernels import blake3 as b3, blake3_tail
-from blake3_cases import HASHER_CASES, TAIL_LENGTHS, TAIL_WIDTHS, absorb_blocks
+from blake3_cases import HASHER_CASES, LEG_LENGTHS, TAIL_LENGTHS, TAIL_WIDTHS, absorb_blocks
 from torch_threads import one_thread  # noqa: F401  (autouse)
 
 
@@ -208,10 +209,169 @@ def test_tail_entry_points_check_their_arguments():
     with pytest.raises(ValueError, match="device"):
         b3.finalize_columns([cvs.to("meta")], buf[2048:].to("meta"), 3000)
     rows = torch.zeros((R, 32), dtype=torch.uint8)
+    leg = [([cvs], buf[2048:], 952)] * 4
     for launch in (lambda: blake3_tail.finalize([cvs], buf[2048:], 952),
                    lambda: blake3_tail.stack([cvs]),
+                   lambda: blake3_tail.leg(leg),
                    lambda: blake3_tail.pairs(rows, rows),
                    lambda: blake3_tail.pairs(rows, rows, rows, rows),
                    lambda: b3.hash_pair_columns(rows.to("meta"), rows.to("meta"))):
         with pytest.raises(ValueError, match="CUDA"):
             launch()
+
+
+# -- the tail kernel's schedule: its piece cut and merge order in torch -----
+
+
+def _jax_hashes(buf: np.ndarray, T: int) -> np.ndarray:
+    return np.asarray(bj.hash_columns(jnp.asarray(buf), T, pallas_ok=False))
+
+
+def _stream(tail):
+    """A (levels, rem, total_len) stream as the kernel takes it: (levels,
+    rem, the last chunk's bytes)."""
+    return tail[0], tail[1], b3._last_chunk(tail[2])[1]
+
+
+@pytest.mark.parametrize("T", TAIL_LENGTHS)
+def test_tail_schedule_matches_reverie_tpu(T):
+    """The kernel's schedule (the plan's pieces reduced, merged in
+    merge_order's rounds, folded with the last chunk) on a stream at a
+    shard's width equals reverie_tpu's hash_columns (its _tree_reduce) and
+    the host C blake3; so it does on every CV stack of the first k chunks
+    and the chunks after it (p0 = k)."""
+    R = 5
+    buf = _rand((T + 2, R), seed=3 * T + 1)
+    want = _host_hashes(buf, T)
+    np.testing.assert_array_equal(_jax_hashes(buf, T), want)
+    tail = b3.stream_tail(torch.from_numpy(buf), T)
+    out, hashes = blake3_tail.model([_stream(tail)])
+    np.testing.assert_array_equal(out.numpy(), want)
+    np.testing.assert_array_equal(hashes[0].numpy(), want)
+    n = b3._last_chunk(T)[0]
+    for k in range(1, n - 1):
+        levels = [tail[0][0][:, :k].clone()]
+        b3._tree_reduce(levels, root=False)
+        levels[0] = torch.cat([levels[0], tail[0][0][:, k:]], dim=1)
+        np.testing.assert_array_equal(
+            blake3_tail.model([(levels, tail[1], b3._last_chunk(T)[1])])[0].numpy(), want)
+
+
+@pytest.mark.parametrize("T, block, R, nodes", HASHER_CASES)
+def test_tail_schedule_on_column_hasher_stacks(T, block, R, nodes):
+    """The schedule on a ColumnHasher's levels (its CV stack at whatever
+    offset p0 its bound left it, and level 0 after it) equals the host C
+    blake3 per column."""
+    buf = torch.from_numpy(_rand((T, R), seed=T + block + R + 1))
+    held = (nodes or 1 << 20) * b3.CV_BYTES * R
+    h = b3.ColumnHasher(T, R, torch.device("cpu"), held, b3.COMPRESS_BYTES * R)
+    for lo, hi in absorb_blocks(T, block):
+        h.absorb(buf[lo:hi])
+    got = blake3_tail.model([_stream(h.tail())])[0].numpy()
+    np.testing.assert_array_equal(got, _host_hashes(buf.numpy(), T))
+
+
+def test_piece_cut_and_merge_order():
+    """The kernel's closed-form piece (piece_at) is pieces()'s and
+    piece_index its inverse, every piece aligned to its size and at most
+    2^k nodes, the pieces tiling level 0; merge_order leaves the CV stack
+    of the chunks (one node a set bit, highest first) after at most log2
+    of the nodes rounds beyond the pieces' heights."""
+    for p0 in range(0, 70, 3):
+        for c0 in range(0, 90, 7):
+            for k in range(0, 8):
+                cut = blake3_tail.pieces(p0, c0, k)
+                assert [blake3_tail.piece_at(p0, p0 + c0, k, i) for i in range(len(cut))] == cut
+                assert [blake3_tail.piece_index(p0, p0 + c0, k, q) for q, _ in cut] == \
+                    list(range(len(cut)))
+                assert sum(1 << h for _, h in cut) == c0
+                assert all(q % (1 << h) == 0 and h <= k for q, h in cut)
+                stack = [(q, j) for q, j in
+                         zip(np.cumsum([0] + [1 << j for j in range(63, -1, -1) if p0 >> j & 1]),
+                             [j for j in range(63, -1, -1) if p0 >> j & 1])]
+                items = stack + cut
+                rounds, live = blake3_tail.merge_order(items)
+                n = p0 + c0
+                h = [x for _, x in items]
+                for pairs in rounds:
+                    for i, j in pairs:
+                        assert h[i] == h[j]
+                        h[i] += 1
+                assert [h[i] for i in live] == [j for j in range(63, -1, -1) if n >> j & 1]
+                assert len(rounds) <= max(1, n).bit_length()
+
+
+@pytest.mark.parametrize("R", TAIL_WIDTHS + (2048, 16_384))
+def test_tail_plan_lanes_and_warps(R):
+    """The plan at each width: whole warps of at most 512 threads a block,
+    a column's lanes (its items and one an input) within them, C adjacent
+    columns (a power of two, at most 8) covering R, the grid at least 3/4
+    of the SMs where R allows; at the GF(2) 1M-AND prove (two streams of
+    977 chunks, R = 256) 2 columns a block, pieces of 32 nodes, 128 blocks
+    of 160 threads."""
+    gf2 = (blake3_tail.Shape(0, 0, 976, 578), blake3_tail.Shape(0, 0, 976, 576),
+           blake3_tail.Shape(0, 0, 0, 0), blake3_tail.Shape(0, 0, 0, 0))
+    sha = (blake3_tail.Shape(0, 0, 22, 625), None, blake3_tail.Shape(0, 0, 0, 0), None)
+    for shapes in (gf2, sha, gf2[:1]):
+        p = blake3_tail.plan(R, shapes)
+        assert p.threads % 32 == 0 and p.C * p.slots <= p.threads <= blake3_tail.MAX_THREADS
+        assert p.slots == sum(p.items) + len(shapes)
+        assert p.C in (1, 2, 4, 8) and p.blocks * p.C >= R > (p.blocks - 1) * p.C
+        assert p.blocks >= min(R, 99) or p.C == 1
+        assert 0 <= p.k <= blake3_tail.MAX_PIECE
+        assert p.items == tuple(0 if s is None else len(blake3_tail.pieces(0, s.c0, p.k))
+                                for s in shapes)
+    if R == 256:
+        p = blake3_tail.plan(R, gf2)
+        assert (p.C, p.k, p.items, p.threads, p.blocks) == (2, 5, (31, 31, 0, 0), 160, 128)
+
+
+@pytest.mark.parametrize("sms,registers", [(132, 80), (66, 80), (114, 80), (132, 128)])
+@pytest.mark.parametrize("R", (40, 256, 2048))
+def test_tail_plan_follows_the_card(R, sms, registers):
+    """The plan takes the card's SMs and the kernel's registers (a launch
+    reads them, blake3_tail.card): C adjacent columns leave the grid at
+    least 3/4 of the SMs where R allows, and fewer SMs take more columns a
+    block; the plan stays whole warps within a block."""
+    gf2 = (blake3_tail.Shape(0, 0, 976, 578), blake3_tail.Shape(0, 0, 976, 576),
+           blake3_tail.Shape(0, 0, 0, 0), blake3_tail.Shape(0, 0, 0, 0))
+    p = blake3_tail.plan(R, gf2, sms, registers)
+    assert p.threads % 32 == 0 and p.C * p.slots <= p.threads <= blake3_tail.MAX_THREADS
+    assert p.C == blake3_tail.columns_per_block(R, sms)
+    assert p.blocks >= min(R, sms * 3 // 4) or p.C == 1
+    if sms <= blake3_tail.SMS:
+        assert p.C >= blake3_tail.plan(R, gf2).C
+    if (R, sms) == (256, 66):
+        assert p.C == 4
+
+
+@pytest.mark.parametrize("lengths", LEG_LENGTHS)
+@pytest.mark.parametrize("comm", [False, True])
+def test_hash_leg_matches_reverie_tpu(lengths, comm):
+    """hash_leg (the plain version on the CPU, no kernel launched) and the
+    kernel's schedule equal reverie_tpu's hash_columns of the four streams
+    and hash_pair_columns three times over (TpuKKW._hash_fn), with the
+    online hashes computed or the committed ones given."""
+    R = 6
+    bufs = [_rand((T + 1, R), seed=T + 17 * i) for i, T in enumerate(lengths)]
+    tails = [b3.stream_tail(torch.from_numpy(b), T) for b, T in zip(bufs, lengths)]
+    jh = [jnp.asarray(_jax_hashes(b, T)) for b, T in zip(bufs, lengths)]
+    legs = list(tails)
+    if comm:
+        given = [_rand((R, 32), seed=40 + i) for i in range(2)]
+        legs[1], legs[3] = map(torch.from_numpy, given)
+        jh[1], jh[3] = map(jnp.asarray, given)
+    want = np.asarray(bj.hash_pair_columns(bj.hash_pair_columns(jh[0], jh[1]),
+                                           bj.hash_pair_columns(jh[2], jh[3])))
+    n0 = blake3_tail.LAUNCHES
+    rep, ho2, hoz = b3.hash_leg(*legs)
+    assert blake3_tail.LAUNCHES == n0
+    np.testing.assert_array_equal(rep.numpy(), want)
+    np.testing.assert_array_equal(ho2.numpy(), np.asarray(jh[1]))
+    np.testing.assert_array_equal(hoz.numpy(), np.asarray(jh[3]))
+    out, hashes = blake3_tail.model([x if isinstance(x, torch.Tensor) else _stream(x)
+                                     for x in legs])
+    np.testing.assert_array_equal(out.numpy(), want)
+    if not comm:
+        np.testing.assert_array_equal(hashes[1].numpy(), np.asarray(jh[1]))
+        np.testing.assert_array_equal(hashes[3].numpy(), np.asarray(jh[3]))

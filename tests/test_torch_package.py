@@ -22,7 +22,7 @@ from reverie_tpu_torch.circuit.compile import _NOP, G_ASSERT, compile_program, c
 from reverie_tpu_torch.crypto.kernels import aes_planes, aes_tape, aes_tape_z64, blake3 as b3
 from reverie_tpu_torch.crypto.kernels import blake3_tail
 from reverie_tpu_torch.tools import r4_bwroof, r4_extract_probe, r5_u8emit
-from blake3_cases import HASHER_CASES, TAIL_LENGTHS, TAIL_WIDTHS, absorb_blocks
+from blake3_cases import HASHER_CASES, LEG_LENGTHS, TAIL_LENGTHS, TAIL_WIDTHS, absorb_blocks
 from torch_threads import one_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -41,6 +41,7 @@ import reverie_tpu_torch.crypto.kernels.aes_tape_z64, reverie_tpu_torch.crypto.k
 import reverie_tpu_torch.tools.r2_measure, reverie_tpu_torch.tools.r4_bwroof
 import reverie_tpu_torch.tools.r5_u8emit, reverie_tpu_torch.tools.r4_extract_probe
 import reverie_tpu_torch.tools.wave_times, reverie_tpu_torch.tools.stream_peak
+import reverie_tpu_torch.tools.tail_times, reverie_tpu_torch.tools.tail_probe
 import reverie_tpu_torch.parallel.mesh, reverie_tpu_torch.parallel.distributed
 import chip_smoke
 assert not any(m.split(".")[0] in ("jax", "reverie_tpu") for m in sys.modules if sys.modules[m] is not None)
@@ -483,12 +484,77 @@ def test_column_hasher_tail_on_cuda_matches_cpu(cuda_device, T, block, R, nodes)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("lengths", LEG_LENGTHS)
+@pytest.mark.parametrize("R", TAIL_WIDTHS + (2048,))
+@pytest.mark.parametrize("comm", [False, True])
+def test_blake3_leg_kernel_matches_plain(cuda_device, lengths, R, comm):
+    """hash_leg on the card (K3 on each stream's whole chunks, then one
+    tail launch for the four streams and the pair hashes) equals its plain
+    version on the same bytes, with the online hashes computed or the
+    committed ones given; so does one launch on CV stacks at several
+    offsets p0 (the first k chunks of each stream paired)."""
+    bufs = [torch.from_numpy(np.random.RandomState(T + 7 * i + R).randint(
+        0, 256, (T + 3, R), dtype=np.uint8)) for i, T in enumerate(lengths)]
+    legs = [b3.stream_tail(b, T) for b, T in zip(bufs, lengths)]
+    if comm:
+        legs[1], legs[3] = [torch.from_numpy(np.random.RandomState(R + i).randint(
+            0, 256, (R, 32), dtype=np.uint8)) for i in (1, 3)]
+    dev = [x.to(cuda_device) if isinstance(x, torch.Tensor)
+           else b3.stream_tail(bufs[i].to(cuda_device), x[2])
+           for i, x in enumerate(legs)]
+    t0 = blake3_tail.LAUNCHES
+    got = b3.hash_leg(*dev)
+    assert blake3_tail.LAUNCHES - t0 == int(R > 0)
+    want = b3.hash_leg_ref(*legs)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    if comm or R == 0:
+        return
+    stacked = []
+    for x in dev:
+        levels, rem, T = x
+        n = b3._last_chunk(T)[0]
+        if n > 3:
+            k = n // 2 + 1
+            levels = blake3_tail.stack([levels[0][:, :k]])
+            levels[0] = torch.cat([levels[0], x[0][0][:, k:]], dim=1)
+        stacked.append((levels, rem, T))
+    t0 = blake3_tail.LAUNCHES
+    got = b3.hash_leg(*stacked)
+    assert blake3_tail.LAUNCHES - t0 == 1
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+def test_blake3_tail_plans_with_the_card(cuda_device):
+    """A launch plans with its card's SMs and the kernel's registers, read
+    from the device and the built kernel: launch_plan is plan at those, and
+    every one of the plan's blocks fits the registers of an SM."""
+    sms, registers = blake3_tail.card(cuda_device.index or 0)
+    assert sms == torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert 0 < registers <= 255
+    R = 256
+    bufs = [torch.zeros((T + 3, R), dtype=torch.uint8, device=cuda_device)
+            for T in LEG_LENGTHS[0]]
+    legs = [b3.stream_tail(b, T) for b, T in zip(bufs, LEG_LENGTHS[0])]
+    inputs = [(x[0], x[1], b3._last_chunk(x[2])[1]) for x in legs]
+    p = blake3_tail.launch_plan(inputs)
+    R_, shapes = blake3_tail._shapes(inputs)
+    assert p == blake3_tail.plan(R_, tuple(shapes), sms, registers)
+    assert p.threads * registers <= 65536
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n_and", [3000, 30_000])
 def test_hash_phases_launch_the_tail_once_a_stream(cuda_device, n_and):
-    """TorchKKW on the card at two sizes: the prove's and the online
-    verify's hash phases launch the tail five times (four streams, the pair
-    hashes), the preprocessing verify's three (two streams), whatever the
-    streams' lengths; the proof equals the CPU's."""
+    """TorchKKW on the card at two sizes: the prove's, the online
+    verify's and the preprocessing verify's hash phases launch the tail
+    once each (all four streams, or two and the committed online hashes,
+    with the pair hashes in the same launch), whatever the streams'
+    lengths; the proof equals the CPU's."""
     from reverie_tpu_torch import TorchKKW
     from reverie_tpu_torch.circuit.builders import mul_bench_circuit
 
@@ -496,13 +562,13 @@ def test_hash_phases_launch_the_tail_once_a_stream(cuda_device, n_and):
     seeds = np.random.RandomState(3).randint(0, 256, (256, 16), dtype=np.uint8)
     kkw = TorchKKW(prog, device=cuda_device)
     proof = kkw.prove(wit2, witz, seeds=seeds)
-    assert kkw.last_timings["hash"]["launches"]["blake3_tail"] == 5
+    assert kkw.last_timings["hash"]["launches"]["blake3_tail"] == 1
     assert proof.to_bytes() == TorchKKW(prog, device=torch.device("cpu")).prove(
         wit2, witz, seeds=seeds).to_bytes()
     assert kkw.verify(proof) is True
     tail = {k: v["launches"]["blake3_tail"] for k, v in kkw.last_timings.items()}
-    assert (tail["onl_hash"], tail["pre_hash"]) == (5, 3)
-    assert sum(tail.values()) == 8
+    assert (tail["onl_hash"], tail["pre_hash"]) == (1, 1)
+    assert sum(tail.values()) == 2
 
 
 @pytest.mark.cuda
@@ -1131,8 +1197,8 @@ def test_streaming_on_cuda_matches_cpu(cuda_device, name):
     assert launches["aes_tape_gf2"] >= 3
     if name == "mul":  # the streams pass 1 KiB
         assert launches["blake3_chunk_cvs"] >= 2
-    # the four streams' tails and the pair hashes, one launch each
-    assert sk.last_timings["hash_final"]["launches"]["blake3_tail"] == 5
+    # the four streams' tails and the pair hashes, one launch
+    assert sk.last_timings["hash_final"]["launches"]["blake3_tail"] == 1
     if name == "b2a":  # the last segment, 190 levels, on W2
         assert launches["aes_tape_z64"] >= 1 and launches["scan_z64"] == 1
     if name == "deep":
