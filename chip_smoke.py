@@ -16,7 +16,10 @@ prints no result line:
      version's, a library call's where one computes the same function (all
      from CUDA events) and its bound: the GF(2) tape at m2 = 2,000,002 and the z64 tape at
      mz = 100,002, each at the three legs' R (256, 40 with random omits,
-     216) with its launch plan, the BLAKE3 chunks, then the
+     216) with its launch plan, the BLAKE3 chunks (K3: at the prove's
+     shape, then on each route of its plan — widths, buffers past a
+     16-byte boundary, one chunk, chunk bases crossing 2^32 — and timed
+     at R = 40, 216, 2,048 and 16,384, each with its plan), then the
      per-column hash against the host C blake3; the keystream planes
      (B = 15,626, 2,048 keys) with its launch plan, the copy (512 MB in
      u8 and in u32), the u32 -> u8 emission (T = 1,000,001, both orders)
@@ -336,10 +339,33 @@ def check_tape(dev, rng, name: str, m: int, clock: float) -> dict:
     return res
 
 
+#: K3 (csrc/blake3_chunks.cu) on each of its routes, held to the plain
+#: version: (R, chunks, chunk base, the buffer's bytes past a 16-byte
+#: boundary): the legs' widths 40 and 216 (span40, span216), a batch's 2,048
+#: and the SHA-256 chunk of 64 proofs (16,384 at 21 and 22 chunks) on rows;
+#: the mesh's shard widths on span; a ragged rows tile (272); rows_shifted
+#: (300, and 272 on a buffer 3 bytes past a 16-byte boundary); buffers 1, 5
+#: and 8 bytes past a boundary (span, span40, span216); one chunk; chunk
+#: bases whose chunks cross 2^32
+K3_CASES = ((40, 976, 0, 0), (216, 976, 0, 0), (2048, 64, 0, 0), (16_384, 21, 0, 0),
+            (16_384, 22, 0, 0), (3, 976, 0, 0), (4, 976, 0, 0), (18, 976, 0, 0),
+            (21, 976, 0, 0), (22, 976, 0, 0), (272, 40, 0, 0), (272, 40, 0, 3),
+            (300, 40, 0, 5), (256, 976, 0, 1), (40, 976, 0, 5), (216, 976, 0, 8),
+            (256, 1, 0, 0), (40, 1, 0, 0), (216, 1, 0, 0), (256, 64, 2**32 - 8, 0),
+            (40, 64, 2**32 - 8, 3))
+#: K3 timed with its bound beside the prove's R = 256: (R, chunks)
+K3_TIMED = ((40, 976), (216, 976), (2048, 976), (16_384, 22))
+
+
 def check_blake3(dev, rng, T: int, clock: float) -> dict:
+    """K3 at the GF(2) 1M prove's shape (R = 256, the kernels line) against
+    its plain version and timed with its bound, then on each route
+    (K3_CASES) and timed at K3_TIMED's widths, each with its launch plan;
+    then the per-column hash against the host C blake3 at each leg's R."""
     from reverie_tpu_torch.crypto import blake3_many
     from reverie_tpu_torch.crypto.kernels import blake3 as b3
-    from reverie_tpu_torch.roofline import BLAKE3_COMPRESSION_INT_OPS
+    from reverie_tpu_torch.tools._timing import cuda_ms
+    from reverie_tpu_torch.tools.k3_times import case_bound, case_buffer
 
     R = REPS[0]
     n = T // 1024
@@ -347,10 +373,22 @@ def check_blake3(dev, rng, T: int, clock: float) -> dict:
     res = {}
     line = f"T={T} R={R} n={n}"
     check("blake3_chunk_cvs", res, b3.chunk_cvs(buf, n, 0), b3.chunk_cvs_ref(buf, n, 0), line)
-    set_bound(res, n * 1024 * R + 8 * n * R * 4,
-              n * R * 16 * BLAKE3_COMPRESSION_INT_OPS, clock)
-    log("kernel", f"blake3_chunk_cvs {line} " + timed(
+    res["bound_ms"], res["bound_by"] = case_bound(R, n, clock)
+    log("kernel", f"blake3_chunk_cvs {line} plan {b3.launch_plan(buf, n).line()} " + timed(
         res, lambda: b3.chunk_cvs(buf, n, 0), lambda: b3.chunk_cvs_ref(buf, n, 0)))
+    for i, (R, n, base, offset) in enumerate(K3_CASES):
+        buf = case_buffer(dev, R, n, offset, seed=200 + i)
+        check("blake3_chunk_cvs", res, b3.chunk_cvs(buf, n, base), b3.chunk_cvs_ref(buf, n, base),
+              f"R={R} n={n} chunk_base={base} offset={offset} "
+              f"plan {b3.launch_plan(buf, n).line()}")
+    for R, n in K3_TIMED:
+        buf = case_buffer(dev, R, n, 0, seed=R)
+        ms = cuda_ms(lambda: b3.chunk_cvs(buf, n, 0), dev)
+        bound, by = case_bound(R, n, clock)
+        log("kernel", f"blake3_chunk_cvs R={R} n={n} plan {b3.launch_plan(buf, n).line()} "
+            f"kernel_ms={ms:.4f} bound_ms={bound:.4f} ({by}) bound_share={bound / ms:.3f}")
+    del buf
+    torch.cuda.empty_cache()
     for R in REPS:
         cols = rng.randint(0, 256, (R, T), dtype=np.uint8)
         dbuf = torch.from_numpy(np.ascontiguousarray(cols.T)).to(dev)

@@ -108,8 +108,12 @@ def kernels() -> ctypes.CDLL:
                      lib.reverie_aes_ctr_planes_plan):
             plan.argtypes = [i64, i32, vp]
             plan.restype = i32
-        lib.reverie_blake3_chunk_cvs.argtypes = [vp, i32, i64, i64, vp, vp]
+        # buf, R, n_chunks, chunk_base, out, then the plan (blake3.py ChunkPlan:
+        # route, cols, chunks, chunk_stage, stages, threads) and the stream
+        lib.reverie_blake3_chunk_cvs.argtypes = [vp, i32, i64, i64, vp, *[i32] * 6, vp]
         lib.reverie_blake3_chunk_cvs.restype = i32
+        lib.reverie_blake3_chunk_cvs_registers.argtypes = []
+        lib.reverie_blake3_chunk_cvs_registers.restype = i32
         lib.reverie_blake3_tail.argtypes = [vp, vp]  # the launch's int64 words, the stream
         lib.reverie_blake3_tail.restype = i32
         lib.reverie_blake3_tail_registers.argtypes = []

@@ -9,7 +9,9 @@ the CUDA kernel csrc/blake3_chunks.cu.
 
 A transcript buffer is a (T, R) uint8 tensor whose columns are the
 per-repetition streams.  The whole chunks go through `chunk_cvs` (CPU
-tensors: the plain version `chunk_cvs_ref`; CUDA tensors: the kernel).  The
+tensors: the plain version `chunk_cvs_ref`; CUDA tensors: the kernel, at
+`plan`'s route, tiles and stages; `model` runs its staged read in torch for
+the CPU tests).  The
 rest of a stream's hash, its tail (the final partial chunk, the tree
 reduction and the pair hashes; XLA in the reference), is plain torch on CPU
 tensors (`finalize_columns_ref`, `_tree_reduce`, `hash_pair_columns_ref`,
@@ -26,7 +28,7 @@ u32 bit patterns).
 from __future__ import annotations
 
 import functools
-from typing import List, Optional
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -146,11 +148,278 @@ def chunk_cvs_ref(buf: torch.Tensor, n_chunks: int, chunk_base: int = 0
     return _to_i32(cv)
 
 
+# -- the chunk kernel's plan (csrc/blake3_chunks.cu) --------------------------
+
+#: the kernel's routes (csrc/blake3_chunks.cu Route), by index: a tile of
+#: whole rows (`chunks` chunks x all R columns, R <= MAX_THREADS), one copy a
+#: chunk, its rows at the runtime pitch R, or at a compile-time pitch for the
+#: verify legs' widths (ProtocolParams' 40 online and 216 preprocessing reps);
+#: a tile of one chunk x ROW_COLS columns: for R a multiple of 16 on a
+#: 16-byte-aligned buffer one 2-D tensor copy a stage, rows at the pitch
+#: ROW_COLS ("rows"); on any other buffer past MAX_THREADS columns a copy a
+#: row at the pitch ROW_PITCH, each at its own offset mod 16 ("rows_shifted")
+ROUTES = ("span", "span40", "span216", "rows", "rows_shifted")
+SPAN_PITCHES = {40: 1, 216: 2}
+#: threads a block (the kernel's __launch_bounds__) and stages a ring at most
+MAX_THREADS, MAX_STAGES = 256, 4
+#: columns of a tile on the rows routes, and the row pitch of rows_shifted
+#: (the columns and 16 bytes of alignment)
+ROW_COLS, ROW_PITCH = 128, 144
+#: the most rows the rows route's tensor copies reach (their coordinates are
+#: int32)
+MAX_TENSOR_ROWS = 2**31 - 1
+#: the SMs and registers a thread that `plan` assumes where it is given no
+#: card (the CPU tests and `model`): an H100 SXM's 132 and the kernel's
+#: __launch_bounds__ cap; a launch plans with its card's (`card`)
+SMS, REGISTERS = 132, 64
+#: an H100's shared memory: an SM's, a block's at most, and what the runtime
+#: keeps of an SM's a block; the kernel's barriers after its ring
+SMEM_PER_SM, SMEM_PER_BLOCK, SMEM_RESERVED = 233_472, 232_448, 1_024
+BARRIER_BYTES = 8 * MAX_STAGES
+#: warps an SM needs to compress at its full rate (blake3_tail: four warps
+#: fill its issue, 128 compressions a compression's latency an SM)
+SATURATION_WARPS = 4
+
+
+class ChunkPlan(NamedTuple):
+    """A launch of csrc/blake3_chunks.cu on R columns of n chunks whose
+    buffer lies `delta` bytes past a 16-byte boundary: one block a tile of
+    `chunks` chunks x `cols` columns (a thread a (chunk, column)), a ring of
+    `stages` stages of `chunk_stage` bytes a chunk; `per_sm` blocks an SM
+    holds; `cost` the estimate `plan` minimised, in compression latencies."""
+
+    R: int
+    n: int
+    delta: int
+    route: int
+    cols: int
+    chunks: int
+    chunk_stage: int
+    stages: int
+    threads: int
+    blocks: int
+    smem: int
+    per_sm: int
+    cost: float
+
+    @property
+    def col_tiles(self) -> int:
+        return -(-self.R // self.cols)
+
+    def line(self) -> str:
+        return (f"route={ROUTES[self.route]} tile={self.chunks}x{self.cols} "
+                f"stages={self.stages} chunk_stage={self.chunk_stage} threads={self.threads} "
+                f"blocks={self.blocks} smem={self.smem} per_sm={self.per_sm}")
+
+
+def _round16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def chunk_stage_bytes(route: int, R: int, delta: int) -> int:
+    """A chunk's bytes in a stage.  Rows routes: 64 rows at their pitch.  Span
+    routes: the 16-byte-aligned run of its 64 rows (delta + 64 R bytes),
+    rounded up so that the next chunk's rows start 16 * ceil(R / 16) bytes
+    on, mod 128, from this one's: a warp's lanes in two chunks then read
+    other banks."""
+    if route == ROUTES.index("rows"):
+        return 64 * ROW_COLS
+    if route > ROUTES.index("rows"):
+        return 64 * ROW_PITCH
+    run = _round16(delta + 64 * R)
+    return run + (16 * -(-R // 16) - run) % 128
+
+
+def _estimate(blocks: int, threads: int, per_sm: int, sms: int) -> float:
+    """The busiest SM's time in compression latencies: the block scheduler
+    hands each free slot the next tile, so it runs ceil(blocks / sms) of
+    them; at SATURATION_WARPS warps or more it retires four warp-compressions
+    a latency, fewer warps proportionally fewer; and no round of its
+    resident tiles takes less than their chains of 16 compressions and a
+    copy's latency."""
+    warps = threads // 32
+    load = -(-blocks // sms)
+    live = min(load, per_sm) * warps
+    busy = load * warps * 16 / (4 * min(1.0, live / SATURATION_WARPS))
+    return max(busy, -(-load // per_sm) * 17.0)
+
+
+def plan_at(R: int, n: int, delta: int, route: int, chunks: int = 1,
+            stages: Optional[int] = None, sms: int = SMS,
+            registers: int = REGISTERS) -> ChunkPlan:
+    """The launch on route `route` with tiles of `chunks` chunks (one on the
+    rows routes), and `stages` stages (None: the most, up to MAX_STAGES,
+    that keep the blocks an SM holds by its registers and threads)."""
+    rows = route >= ROUTES.index("rows")
+    cols = ROW_COLS if rows else R
+    chunks = 1 if rows else max(1, min(chunks, n))
+    threads = ROW_COLS if rows else 32 * -(-chunks * R // 32)
+    cs = chunk_stage_bytes(route, R, delta)
+    blocks = -(-n // chunks) * -(-R // cols)
+    by_regs = max(1, min(2048 // threads, 32, 65536 // (threads * -(-registers // 8) * 8)))
+
+    def held(s):
+        smem = s * chunks * cs + BARRIER_BYTES
+        return smem, (0 if smem > SMEM_PER_BLOCK else
+                      min(by_regs, SMEM_PER_SM // (smem + SMEM_RESERVED)))
+
+    if stages is None:
+        stages = max([s for s in range(2, MAX_STAGES + 1) if held(s)[1] == held(2)[1]] or [2])
+    smem, per_sm = held(stages)
+    cost = _estimate(blocks, threads, per_sm, sms) if per_sm else float("inf")
+    return ChunkPlan(R, n, delta, route, cols, chunks, cs, stages, threads, blocks, smem,
+                     per_sm, cost)
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(R: int, n: int, delta: int = 0, sms: int = SMS, registers: int = REGISTERS) -> ChunkPlan:
+    """The launch plan of `chunk_cvs` at R >= 1 columns of n >= 1 chunks, the
+    buffer `delta` = data_ptr mod 16 bytes past a 16-byte boundary, on a
+    card of sms SMs, the kernel holding `registers` a thread.  The route
+    follows R and the alignment: span (span40, span216 at those widths) with
+    whole rows for R <= MAX_THREADS; rows for R a multiple of 16 on an
+    aligned buffer (delta 0) of at most MAX_TENSOR_ROWS rows of chunks;
+    rows_shifted for any other buffer past
+    MAX_THREADS (a copy a row: a tile's 64 copies a stage issue one by one,
+    so it comes last).  Of
+    the span tiles (1 to MAX_THREADS // R chunks) and the rows tile, the
+    least `_estimate`, then a compile-time pitch, then the fewest threads a
+    block (where the estimates tie the smaller tiles spread over more SMs),
+    then the most stages.  delta also sizes a span chunk's stage and the
+    rows' copies (every route takes any alignment: the 1-D copies move
+    16-byte-aligned runs)."""
+    cands = []
+    if R <= MAX_THREADS:
+        route = SPAN_PITCHES.get(R, 0)
+        cands += [plan_at(R, n, delta, route, ct, None, sms, registers)
+                  for ct in range(1, min(n, MAX_THREADS // R) + 1)]
+    if R % 16 == 0 and delta == 0 and n * CHUNK_LEN <= MAX_TENSOR_ROWS:
+        rows = "rows"
+    else:
+        rows = "rows_shifted" if R > MAX_THREADS else None
+    if rows:
+        cands.append(plan_at(R, n, delta, ROUTES.index(rows), 1, None, sms, registers))
+    runtime_pitch = (ROUTES.index("span"), ROUTES.index("rows_shifted"))
+    return min(cands, key=lambda p: (round(p.cost, 6), p.route in runtime_pitch, p.threads,
+                                     -p.stages))
+
+
+def tile(p: ChunkPlan, block: int) -> Tuple[int, int, int, int]:
+    """(first chunk, chunks, first column, columns) of a block's tile."""
+    group, ct = divmod(block, p.col_tiles)
+    c0, r0 = group * p.chunks, ct * p.cols
+    return c0, min(p.chunks, p.n - c0), r0, min(p.cols, p.R - r0)
+
+
+def copies(p: ChunkPlan, block: int, step: int) -> List[Tuple[int, int, int]]:
+    """(offset in the stage, offset from the buffer's 16-byte boundary,
+    bytes) of each copy that fills a stage with block `step` of a tile: the
+    16-byte-aligned runs of device memory that hold a chunk's 64 rows (span
+    routes) or each row's columns (rows_shifted); on rows the rows of the
+    tile's one 2-D copy (its box's columns past R are zeros)."""
+    c0, chunks, r0, cols = tile(p, block)
+    if p.route < ROUTES.index("rows"):
+        n_bytes = _round16(p.delta + 64 * p.R)
+        return [(j * p.chunk_stage, ((c0 + j) * CHUNK_LEN + 64 * step) * p.R, n_bytes)
+                for j in range(chunks)]
+    if p.route == ROUTES.index("rows"):
+        return [(row * ROW_COLS, (c0 * CHUNK_LEN + 64 * step + row) * p.R + r0, cols)
+                for row in range(64)]
+    out = []
+    for j in range(chunks):
+        for row in range(64):
+            off = ((c0 + j) * CHUNK_LEN + 64 * step + row) * p.R + r0 + p.delta
+            lo = off & ~15
+            out.append((j * p.chunk_stage + row * ROW_PITCH, lo, _round16(off - lo + cols)))
+    return out
+
+
+def read_offsets(p: ChunkPlan, block: int) -> torch.Tensor:
+    """(chunks, columns, 64) stage offsets of the bytes a tile's threads read
+    for rows 0..63 of a block, as the kernel reads them."""
+    _, chunks, r0, cols = tile(p, block)
+    j = torch.arange(chunks)[:, None, None]
+    col = torch.arange(cols)[None, :, None]
+    row = torch.arange(64)[None, None, :]
+    if p.route == ROUTES.index("rows_shifted"):
+        pitch, shift = ROW_PITCH, (p.delta + r0 + row * p.R) & 15
+    else:
+        pitch, shift = (ROW_COLS if p.route == ROUTES.index("rows") else p.R), p.delta
+    return j * p.chunk_stage + row * pitch + shift + col
+
+
+def model(buf: torch.Tensor, n_chunks: int, chunk_base: int, p: ChunkPlan) -> torch.Tensor:
+    """The kernel's staged read, in torch on the CPU: device memory is buf's
+    first n_chunks * 1024 rows p.delta bytes past a 16-byte boundary, with
+    filler around them; each block's stages are filled by `copies` (which
+    must stay inside the stage and not overlap) and its words assembled from
+    `read_offsets`, four rows a word little-endian; then the plain
+    compression, as `chunk_cvs_ref`.  -> (8, n_chunks, R) int32."""
+    R, n = buf.shape[1], n_chunks
+    size = n * CHUNK_LEN * R
+    mem = torch.full((_round16(p.delta + size),), 0xA5, dtype=torch.uint8)
+    mem[p.delta : p.delta + size] = buf[:n * CHUNK_LEN].reshape(-1)
+    words = torch.empty((n, 16, 16, R), dtype=torch.int64)
+    for block in range(p.blocks):
+        c0, chunks, r0, cols = tile(p, block)
+        offs = read_offsets(p, block)
+        for step in range(16):
+            stage = torch.full((p.chunks * p.chunk_stage,), 0x5A, dtype=torch.uint8)
+            written = torch.zeros(stage.shape, dtype=torch.bool)
+            for dst, src, n_bytes in copies(p, block, step):
+                if dst % 16 or src % 16 or n_bytes % 16 or dst + n_bytes > stage.numel() \
+                        or src + n_bytes > mem.numel() or written[dst : dst + n_bytes].any():
+                    raise AssertionError(f"blake3 model: copy ({dst}, {src}, {n_bytes}) "
+                                         f"misplaced in {p.line()}")
+                stage[dst : dst + n_bytes] = mem[src : src + n_bytes]
+                written[dst : dst + n_bytes] = True
+            b = stage[offs].to(torch.int64).reshape(chunks, cols, 16, 4)
+            w = b[..., 0] | (b[..., 1] << 8) | (b[..., 2] << 16) | (b[..., 3] << 24)
+            words[c0 : c0 + chunks, step, :, r0 : r0 + cols] = w.transpose(1, 2)
+    ctr = (chunk_base + torch.arange(n, dtype=torch.int64))[:, None]
+    cv = _iv(buf.device)[:, None, None]
+    for blk in range(16):
+        flags = (CHUNK_START if blk == 0 else 0) | (CHUNK_END if blk == 15 else 0)
+        cv = compress(cv, words[:, blk].transpose(0, 1), ctr, 64, flags)
+    return _to_i32(cv)
+
+
+@functools.lru_cache(maxsize=None)
+def card(index: int) -> Tuple[int, int]:
+    """(SMs, the most registers a thread of the chunk kernel's routes holds)
+    of CUDA device `index`, read once: what a launch's `plan` takes."""
+    lib = _build.kernels()
+    with torch.cuda.device(index):
+        registers = lib.reverie_blake3_chunk_cvs_registers()
+    if registers <= 0:
+        raise RuntimeError("blake3_chunks: the kernel's registers could not be read")
+    return torch.cuda.get_device_properties(index).multi_processor_count, registers
+
+
+def launch_plan(buf: torch.Tensor, n_chunks: int) -> ChunkPlan:
+    """The plan of `chunk_cvs` on this CUDA buffer: `plan` with its
+    alignment, its card's SMs and the kernel's registers."""
+    return plan(buf.shape[1], n_chunks, buf.data_ptr() % 16, *card(buf.device.index))
+
+
+def launch(buf: torch.Tensor, n_chunks: int, chunk_base: int, out: torch.Tensor,
+           p: ChunkPlan, lib=None) -> None:
+    """One launch of the kernel (`lib`'s, default the port's build) at plan p
+    on the buffer's device and current stream; raises if it is refused."""
+    lib = lib or _build.kernels()
+    with torch.cuda.device(buf.device):
+        stream = torch.cuda.current_stream(buf.device).cuda_stream
+        rc = lib.reverie_blake3_chunk_cvs(buf.data_ptr(), p.R, n_chunks, chunk_base,
+                                          out.data_ptr(), p.route, p.cols, p.chunks,
+                                          p.chunk_stage, p.stages, p.threads, stream)
+    _build.check(rc, "blake3_chunk_cvs kernel")
+
+
 def chunk_cvs(buf: torch.Tensor, n_chunks: int, chunk_base: int = 0
               ) -> torch.Tensor:
     """(>= n_chunks*1024, R) uint8 -> (8, n_chunks, R) int32 chunk CVs.
-    CPU tensors take the plain version; CUDA tensors launch
-    csrc/blake3_chunks.cu."""
+    CPU tensors take the plain version; CUDA tensors one launch of
+    csrc/blake3_chunks.cu at `launch_plan`."""
     global LAUNCHES
     dev = buf.device
     if dev.type == "cpu":
@@ -167,12 +436,7 @@ def chunk_cvs(buf: torch.Tensor, n_chunks: int, chunk_base: int = 0
     out = torch.empty((8, n_chunks, R), dtype=torch.int32, device=dev)
     if R == 0:
         return out
-    lib = _build.kernels()
-    with torch.cuda.device(dev):  # launched on the buffer's device
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.reverie_blake3_chunk_cvs(buf.data_ptr(), R, n_chunks, chunk_base,
-                                          out.data_ptr(), stream)
-    _build.check(rc, "blake3_chunk_cvs kernel")
+    launch(buf, n_chunks, chunk_base, out, launch_plan(buf, n_chunks))
     LAUNCHES += 1
     return out
 

@@ -19,15 +19,32 @@ __device__ __forceinline__ uint32_t rotr32(uint32_t x, int n) {
   return (x >> n) | (x << (32 - n));
 }
 
+// The adds of a compression.  AluAdds leaves them to the compiler, which
+// issues most as IADD3 on the ALU pipe beside the XORs and rotations;
+// ImadAdds issues each as an IMAD, a * one + b with `one` a 1 the compiler
+// cannot see (a kernel argument), on the FMA pipe: the ALU pipe (64 lanes an
+// SM, half the issue rate) then holds only the 456 XORs and rotations of a
+// compression.
+struct AluAdds {
+  __device__ __forceinline__ uint32_t operator()(uint32_t a, uint32_t b) const { return a + b; }
+};
+struct ImadAdds {
+  uint32_t one;
+  __device__ __forceinline__ uint32_t operator()(uint32_t a, uint32_t b) const {
+    return a * one + b;
+  }
+};
+
+template <class Add>
 __device__ __forceinline__ void g(uint32_t& a, uint32_t& b, uint32_t& c,
-                                  uint32_t& d, uint32_t mx, uint32_t my) {
-  a = a + b + mx;
+                                  uint32_t& d, uint32_t mx, uint32_t my, const Add& add) {
+  a = add(add(a, b), mx);
   d = rotr32(d ^ a, 16);
-  c = c + d;
+  c = add(c, d);
   b = rotr32(b ^ c, 12);
-  a = a + b + my;
+  a = add(add(a, b), my);
   d = rotr32(d ^ a, 8);
-  c = c + d;
+  c = add(c, d);
   b = rotr32(b ^ c, 7);
 }
 
@@ -35,23 +52,24 @@ __device__ __forceinline__ void g(uint32_t& a, uint32_t& b, uint32_t& c,
 // words, and m is left permuted.  The message schedule is applied as a
 // register permutation after each round (fully unrolled, so it costs no
 // instructions).
+template <class Add = AluAdds>
 __device__ __forceinline__ void compress(uint32_t cv[8], uint32_t m[16],
                                          uint64_t counter, uint32_t block_len,
-                                         uint32_t flags) {
+                                         uint32_t flags, const Add& add = Add()) {
   uint32_t v[16] = {cv[0], cv[1], cv[2], cv[3], cv[4], cv[5], cv[6], cv[7],
                     kIV[0], kIV[1], kIV[2], kIV[3],
                     static_cast<uint32_t>(counter),
                     static_cast<uint32_t>(counter >> 32), block_len, flags};
 #pragma unroll
   for (int rnd = 0; rnd < 7; ++rnd) {
-    g(v[0], v[4], v[8], v[12], m[0], m[1]);
-    g(v[1], v[5], v[9], v[13], m[2], m[3]);
-    g(v[2], v[6], v[10], v[14], m[4], m[5]);
-    g(v[3], v[7], v[11], v[15], m[6], m[7]);
-    g(v[0], v[5], v[10], v[15], m[8], m[9]);
-    g(v[1], v[6], v[11], v[12], m[10], m[11]);
-    g(v[2], v[7], v[8], v[13], m[12], m[13]);
-    g(v[3], v[4], v[9], v[14], m[14], m[15]);
+    g(v[0], v[4], v[8], v[12], m[0], m[1], add);
+    g(v[1], v[5], v[9], v[13], m[2], m[3], add);
+    g(v[2], v[6], v[10], v[14], m[4], m[5], add);
+    g(v[3], v[7], v[11], v[15], m[6], m[7], add);
+    g(v[0], v[5], v[10], v[15], m[8], m[9], add);
+    g(v[1], v[6], v[11], v[12], m[10], m[11], add);
+    g(v[2], v[7], v[8], v[13], m[12], m[13], add);
+    g(v[3], v[4], v[9], v[14], m[14], m[15], add);
     if (rnd < 6) {
       // MSG_PERMUTATION = [2, 6, 3, 10, 7, 0, 4, 13, 1, 11, 12, 5, 9, 14, 15, 8]
       const uint32_t t[16] = {m[2], m[6], m[3],  m[10], m[7],  m[0],  m[4],  m[13],

@@ -44,9 +44,11 @@ AES_BLOCK_INT_OPS = 2 + 9 * 4 * (4 + 2) + 4 * (4 + 2)
 #: registers (a parent node, a pair hash, a staged block): 7 rounds x 8 G x
 #: 12 (2 IADD3, 2 adds, 4 XORs, 4 rotations) = 672 and the 8 output XORs.
 BLAKE3_NODE_INT_OPS = 7 * 8 * 12 + 8
-#: those of one compression of a chunk read as in csrc/blake3_chunks.cu:
-#: BLAKE3_NODE_INT_OPS and 16 message words x 2 PRMT (a 4 x 4 byte
-#: transpose of 4 rows' words).
+#: those of one compression of a chunk's block read from its rows:
+#: BLAKE3_NODE_INT_OPS and 16 message words x 2 PRMT, the fewest that make
+#: a word of four rows' bytes (a 4 x 4 byte transpose of 4 rows' words;
+#: csrc/blake3_chunks.cu reads a byte a row from shared memory and merges
+#: four, which issues more).
 BLAKE3_COMPRESSION_INT_OPS = BLAKE3_NODE_INT_OPS + 16 * 2
 
 

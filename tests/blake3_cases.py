@@ -34,3 +34,22 @@ TAIL_WIDTHS = (256, 40, 216, 512, 3, 4, 18, 21, 22, 0)
 #: single chunks beside longer streams
 LEG_LENGTHS = ((5120, 4096 + 65, 0, 1023), (2048 + 64, 1, 65, 3072), (3072, 5120, 0, 0),
                (0, 0, 0, 0), (1024, 1024 + 1, 2048, 700))
+
+#: the chunk kernel's (csrc/blake3_chunks.cu) cases, (R, chunks, chunk base,
+#: the buffer's bytes past a 16-byte boundary), on each route: the legs'
+#: widths (rows at 256, span40, span216), a batch (2,048) and the SHA-256
+#: chunk of 64 proofs (16,384 at 21 and 22 chunks) on rows, the mesh's shard
+#: widths on span, a ragged rows tile (272), rows_shifted (300, and 16,384
+#: and 272 on buffers 3 bytes past a 16-byte boundary); buffers
+#: 1, 3, 5, 8 and 13 bytes past a boundary; one chunk; chunk bases whose
+#: chunks cross 2^32
+CHUNK_CASES = ((256, 3, 0, 0), (40, 2, 7, 0), (216, 1, 1, 0), (2048, 2, 5, 0),
+               (16_384, 21, 0, 0), (16_384, 22, 0, 3), (3, 5, 0, 0), (4, 5, 0, 0),
+               (18, 3, 0, 0), (21, 4, 0, 0), (22, 4, 0, 0), (272, 2, 0, 0), (300, 2, 0, 0),
+               (300, 3, 9, 5), (256, 3, 0, 1), (40, 9, 0, 3), (216, 2, 0, 8), (21, 7, 2, 13),
+               (256, 1, 0, 0), (40, 1, 0, 0), (1, 3, 0, 0), (256, 4, 2**32 - 2, 0),
+               (40, 6, 2**32 - 3, 1), (272, 2, 0, 3))
+
+#: the widths the chunk kernel's plan is checked at: the cases' and a batch
+#: of verifies (8 x 40)
+CHUNK_WIDTHS = (1, 3, 4, 18, 21, 22, 40, 216, 256, 272, 300, 320, 2048, 16_384)

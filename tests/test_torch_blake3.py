@@ -1,7 +1,8 @@
 """The port's per-column BLAKE3 (reverie_tpu_torch blake3) against
 reverie_tpu: the Pallas chunk kernel in interpret mode, the XLA chunk scan,
-the XLA hash and pair hash and the host C blake3; the tail kernel's
-schedule (blake3_tail.plan, pieces, merge_order) run in torch; and the CPU
+the XLA hash and pair hash and the host C blake3; the chunk kernel's plan
+and its staged read (blake3.plan, copies, read_offsets, model) run in torch;
+the tail kernel's schedule (blake3_tail.plan, pieces, merge_order) run in torch; and the CPU
 dispatch and argument checks of the tail's entry points
 (csrc/blake3_tail.cu on the card, tests/test_torch_package.py).  Every output is bytes or u32 words:
 the tolerance is 0."""
@@ -16,7 +17,8 @@ from reverie_tpu.crypto import blake3_many
 from reverie_tpu.crypto.kernels import blake3_jax as bj
 from reverie_tpu.crypto.kernels.blake3_pallas import chunk_cvs_from_bytes
 from reverie_tpu_torch.crypto.kernels import blake3 as b3, blake3_tail
-from blake3_cases import HASHER_CASES, LEG_LENGTHS, TAIL_LENGTHS, TAIL_WIDTHS, absorb_blocks
+from blake3_cases import (CHUNK_CASES, CHUNK_WIDTHS, HASHER_CASES, LEG_LENGTHS, TAIL_LENGTHS,
+                          TAIL_WIDTHS, absorb_blocks)
 from torch_threads import one_thread  # noqa: F401  (autouse)
 
 
@@ -375,3 +377,111 @@ def test_hash_leg_matches_reverie_tpu(lengths, comm):
     if not comm:
         np.testing.assert_array_equal(hashes[1].numpy(), np.asarray(jh[1]))
         np.testing.assert_array_equal(hashes[3].numpy(), np.asarray(jh[3]))
+
+
+# -- the chunk kernel's plan and staged read (csrc/blake3_chunks.cu) -------------
+
+
+@pytest.mark.parametrize("sms, registers", [(132, 64), (132, 40), (114, 56), (66, 64)])
+@pytest.mark.parametrize("R", CHUNK_WIDTHS)
+def test_chunk_plan_covers_each_column_once(R, sms, registers):
+    """At each width, chunk count and alignment, and on cards of other SMs
+    and registers: the tiles' chunk groups and column tiles partition the
+    chunks and the columns, one block a (group, column tile); a block's
+    threads are whole warps, at most MAX_THREADS, and hold one (chunk,
+    column) each of its tile; its ring fits a block's shared memory and an
+    SM holds at least one; each stage's copies stay inside it."""
+    for n in (1, 2, 21, 22, 30, 390, 976, 3125):
+        for delta in (0, 1, 8, 15):
+            p = b3.plan(R, n, delta, sms, registers)
+            groups = -(-n // p.chunks)
+            assert p.blocks == groups * p.col_tiles
+            c0 = np.arange(groups) * p.chunks
+            ch = np.minimum(p.chunks, n - c0)
+            assert ch.min() >= 1 and ch.sum() == n and np.all(c0[1:] == c0[:-1] + ch[:-1])
+            r0 = np.arange(p.col_tiles) * p.cols
+            co = np.minimum(p.cols, R - r0)
+            assert co.min() >= 1 and co.sum() == R and np.all(r0[1:] == r0[:-1] + co[:-1])
+            for g, t in ((0, 0), (groups - 1, p.col_tiles - 1), (groups // 2, p.col_tiles // 2)):
+                assert b3.tile(p, g * p.col_tiles + t) == (c0[g], ch[g], r0[t], co[t])
+            assert p.threads % 32 == 0 and 32 <= p.threads <= b3.MAX_THREADS
+            assert p.threads >= p.chunks * p.cols and p.threads // p.cols >= p.chunks
+            assert 2 <= p.stages <= b3.MAX_STAGES
+            assert p.smem == p.stages * p.chunks * p.chunk_stage + b3.BARRIER_BYTES
+            assert p.smem <= b3.SMEM_PER_BLOCK
+            assert 1 <= p.per_sm and p.per_sm * (p.smem + b3.SMEM_RESERVED) <= b3.SMEM_PER_SM
+            for block in {0, p.blocks - 1}:
+                for step in (0, 15):
+                    spans = sorted((d, d + k) for d, _, k in b3.copies(p, block, step))
+                    assert all(a % 16 == 0 and b <= p.chunks * p.chunk_stage for a, b in spans)
+                    assert all(b <= c for (_, b), (c, _) in zip(spans, spans[1:]))
+
+
+@pytest.mark.parametrize("delta", range(16))
+def test_chunk_route_follows_width_and_alignment(delta):
+    """The route follows R and the buffer's alignment: span for whole rows up
+    to MAX_THREADS columns (at a compile-time pitch for 40 and 216), rows (a
+    2-D copy a stage) for multiples of 16 on an aligned buffer, rows_shifted
+    for any other buffer past MAX_THREADS (and past 2^31 - 1 rows of chunks,
+    which a tensor copy's int32 row cannot reach); each 1-D copy moves a
+    16-byte-aligned run whose first byte of the tile's lies delta into it
+    (rows_shifted: each row's own offset; 144 bytes where R is a multiple of
+    16), and a span chunk's stage holds delta + 64 R bytes, the next chunk's
+    rows 16 * ceil(R / 16) bytes on, mod 128."""
+    span = {1: "span", 3: "span", 4: "span", 18: "span", 21: "span", 22: "span",
+            40: "span40", 216: "span216"}
+    wide = {272: "rows", 320: "rows", 2048: "rows", 16_384: "rows"}
+    for R, route in {**span, **wide, 300: "rows_shifted"}.items():
+        if route == "rows" and delta:
+            route = "rows_shifted"
+        for n in (1, 30, 976):
+            p = b3.plan(R, n, delta)
+            assert b3.ROUTES[p.route] == route, (R, n, p.line())
+            for step in (0, 7):
+                cps = b3.copies(p, p.blocks - 1, step)
+                assert all(src % 16 == 0 and k % 16 == 0 for _, src, k in cps)
+            if route.startswith("span"):
+                assert p.chunk_stage >= delta + 64 * R and p.chunk_stage % 16 == 0
+                assert (p.chunk_stage - 16 * -(-R // 16)) % 128 == 0
+                assert b3.read_offsets(p, 0)[0, 0, 0] == delta
+            elif route == "rows_shifted" and R % 16 == 0:
+                assert {k for _, _, k in b3.copies(p, 0, 0)} == {144}
+                assert b3.read_offsets(p, 0)[0, 0, 1] == b3.ROW_PITCH + delta
+            elif route == "rows":
+                assert len(b3.copies(p, 0, 0)) == 64 and b3.read_offsets(p, 0)[0, 1, 1] == 129
+    p = b3.plan(256, 976, delta)
+    assert b3.ROUTES[p.route] == ("rows" if delta == 0 else "span"), p.line()
+    # past 2^31 - 1 rows of chunks a tensor copy's int32 row cannot reach
+    for R, route in ((256, "span"), (2048, "rows_shifted")):
+        assert b3.ROUTES[b3.plan(R, 2**21, delta).route] == route
+
+
+@pytest.mark.parametrize("R", [3, 40, 216])
+def test_chunk_model_matches_reverie_tpu(R):
+    """The staged read modelled in torch (stages filled by the kernel's
+    copies, words assembled from its read offsets, the plain compression),
+    at the plan and with buffers 0, 5 and 8 bytes past a 16-byte boundary,
+    equals chunk_cvs_ref and reverie_tpu's Pallas chunk kernel in interpret
+    mode (chunk base below 2^31: the Pallas kernel takes an int32 base)."""
+    n, base = 3 if R < 200 else 2, 9
+    buf = _rand((n * 1024 + 7, R), seed=R + 1)
+    r0, r1 = chunk_cvs_from_bytes(jnp.asarray(buf), n, base, interpret=True)
+    want = np.concatenate([np.asarray(r0), np.asarray(r1)])
+    np.testing.assert_array_equal(_port_cvs(buf, n, base), want)
+    for delta in (0, 5, 8):
+        got = b3.model(torch.from_numpy(buf), n, base, b3.plan(R, n, delta))
+        np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+
+
+@pytest.mark.parametrize("R, n, base, delta", [c for c in CHUNK_CASES if c[0] * c[1] <= 1200])
+def test_chunk_model_on_every_route(R, n, base, delta):
+    """The model at the kernel's cases (each route, alignments, one chunk,
+    chunk bases crossing 2^32), at the plan and at the span route's other
+    tiles and runtime pitch, equals chunk_cvs_ref."""
+    buf = torch.from_numpy(_rand((n * 1024 + 3, R), seed=R * n + delta))
+    want = b3.chunk_cvs_ref(buf, n, base)
+    plans = [b3.plan(R, n, delta)]
+    if R <= b3.MAX_THREADS:
+        plans += [b3.plan_at(R, n, delta, 0, ct) for ct in {1, 2, b3.MAX_THREADS // R}]
+    for p in plans:
+        assert torch.equal(b3.model(buf, n, base, p), want), p.line()

@@ -22,7 +22,8 @@ from reverie_tpu_torch.circuit.compile import _NOP, G_ASSERT, compile_program, c
 from reverie_tpu_torch.crypto.kernels import aes_planes, aes_tape, aes_tape_z64, blake3 as b3
 from reverie_tpu_torch.crypto.kernels import blake3_tail
 from reverie_tpu_torch.tools import r4_bwroof, r4_extract_probe, r5_u8emit
-from blake3_cases import HASHER_CASES, LEG_LENGTHS, TAIL_LENGTHS, TAIL_WIDTHS, absorb_blocks
+from blake3_cases import (CHUNK_CASES, HASHER_CASES, LEG_LENGTHS, TAIL_LENGTHS, TAIL_WIDTHS,
+                          absorb_blocks)
 from torch_threads import one_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -42,6 +43,7 @@ import reverie_tpu_torch.tools.r2_measure, reverie_tpu_torch.tools.r4_bwroof
 import reverie_tpu_torch.tools.r5_u8emit, reverie_tpu_torch.tools.r4_extract_probe
 import reverie_tpu_torch.tools.wave_times, reverie_tpu_torch.tools.stream_peak
 import reverie_tpu_torch.tools.tail_times, reverie_tpu_torch.tools.tail_probe
+import reverie_tpu_torch.tools.k3_times
 import reverie_tpu_torch.parallel.mesh, reverie_tpu_torch.parallel.distributed
 import chip_smoke
 assert not any(m.split(".")[0] in ("jax", "reverie_tpu") for m in sys.modules if sys.modules[m] is not None)
@@ -393,15 +395,21 @@ def test_aes_z64_kernel_matches_plain(cuda_device, R, mz, omit_kind, start):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("R, n, base", [(256, 3, 0), (40, 2, 7), (216, 1, 1)])
-def test_blake3_kernel_matches_plain(cuda_device, R, n, base):
-    buf = torch.from_numpy(np.random.RandomState(n).randint(
-        0, 256, (n * 1024 + 5, R), dtype=np.uint8)).to(cuda_device)
+@pytest.mark.parametrize("R, n, base, offset", CHUNK_CASES)
+def test_blake3_kernel_matches_plain(cuda_device, R, n, base, offset):
+    """The chunk kernel on each of its routes (blake3.plan: R, and a buffer
+    `offset` bytes into a 16-byte-aligned allocation) is one launch and
+    equals the plain version."""
+    rows = np.random.RandomState(n + R).randint(0, 256, (n * 1024 + 5) * R, dtype=np.uint8)
+    flat = torch.empty(rows.size + offset, dtype=torch.uint8, device=cuda_device)
+    buf = flat[offset:].view(n * 1024 + 5, R)
+    buf.copy_(torch.from_numpy(rows).view(n * 1024 + 5, R))
+    assert buf.data_ptr() % 16 == offset
     n0 = b3.LAUNCHES
     got = b3.chunk_cvs(buf, n, base)
     assert b3.LAUNCHES == n0 + 1
     torch.cuda.synchronize()
-    assert torch.equal(got, b3.chunk_cvs_ref(buf, n, base))
+    assert torch.equal(got, b3.chunk_cvs_ref(buf, n, base)), b3.launch_plan(buf, n).line()
 
 
 # -- the tail kernels (csrc/blake3_tail.cu) against the torch tail ---------
