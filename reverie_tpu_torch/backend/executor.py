@@ -56,10 +56,19 @@ from ..circuit.compile import (
     Z_SUB,
     CompiledCircuit,
 )
+from .profiling import annotate
 
 PROVER = 0
 VERIFY_ONL = 1
 VERIFY_PRE = 2
+
+#: a compiled gate kind's name (circuit.compile's G_*, Z_SUB, B2A_*)
+KIND_NAMES = ("INPUT", "ADD", "ADDC", "SUBC", "MULC", "MUL", "ASSERT", "RANDOM", "CONST",
+              "SUB", "B2A_CORR", "B2A_OUT")
+#: the profiler range of a level's step of one table key (domain, kind):
+#: "executor.<gf2|z64>.<KIND>", the level kept out of the name
+STEP_NAMES = tuple(f"executor.{'gf2' if d == GF2 else 'z64'}.{k}"
+                   for d in range(2) for k in KIND_NAMES)
 
 
 def _parity8(x: torch.Tensor) -> torch.Tensor:
@@ -333,11 +342,13 @@ class Executor:
             for key in sorted(table):
                 domain, kind = divmod(key, N_KINDS)
                 run = self._gf2_kind if domain == GF2 else self._z64_kind
-                run(st, inp, kind, _Acc(self, li, key))
+                with annotate(STEP_NAMES[key]):
+                    run(st, inp, kind, _Acc(self, li, key))
         out = {"fail": st["fail"]}
-        for name, n_rows in (("onl2", cc.onl2), ("pre2", cc.pre2),
-                             ("onlz", cc.onlz), ("prez", cc.prez)):
-            out[name] = _assemble_stream(st["pending"][name], n_rows, R, dev)
+        with annotate("executor.assemble"):
+            for name, n_rows in (("onl2", cc.onl2), ("pre2", cc.pre2),
+                                 ("onlz", cc.onlz), ("prez", cc.prez)):
+                out[name] = _assemble_stream(st["pending"][name], n_rows, R, dev)
         if self.carry_out_vals is not None:
             vals = self.tables["carry_out_vals"]
             out["carry_mask2"] = st["mask2"].index_select(0, vals)

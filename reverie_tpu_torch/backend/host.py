@@ -60,7 +60,7 @@ from ..proof.container import (
 from ..device import default_device
 from ..parallel.distributed import _allgather_rows, gather_rows, mesh_is_multiprocess
 from ..parallel.mesh import check_mesh, lane_slices, process_index
-from . import scan
+from . import profiling, scan
 from .executor import (
     PROVER,
     VERIFY_ONL,
@@ -94,46 +94,142 @@ def launch_counts() -> Dict[str, int]:
             "scan_gf2": scan.LAUNCHES, "scan_z64": scan.LAUNCHES_Z64}
 
 
+class _Row:
+    """An open phase: its name, its children (name, start, end) in
+    perf_counter_ns, and whether one is open."""
+
+    __slots__ = ("name", "spans", "child")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.spans: List[tuple] = []
+        self.child = False
+
+    def child_range(self, child: str) -> str:
+        """The profiler range of a child: "<phase>.<child><tag>", the
+        phase's "[i]" tag kept last."""
+        base, bracket, tag = self.name.rpartition("[")
+        if bracket and tag.endswith("]"):
+            return f"{base}.{child}[{tag}"
+        return f"{self.name}.{child}"
+
+
+class _Child:
+    """A child span of an open phase's row (PhaseTimer.span)."""
+
+    __slots__ = ("row", "name", "rf", "t0")
+
+    def __init__(self, row: _Row, name: str):
+        self.row, self.name = row, name
+
+    def __enter__(self):
+        # stamped around its profiler range, whose cost is then the child's
+        # and not its phase's self time
+        row = self.row
+        row.child = True
+        self.t0 = time.perf_counter_ns()
+        self.rf = None
+        if profiling.enabled():
+            self.rf = profiling.annotate(row.child_range(self.name))
+            self.rf.__enter__()
+
+    def __exit__(self, *exc):
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        row = self.row
+        row.spans.append((self.name, self.t0, time.perf_counter_ns()))
+        row.child = False
+        return False
+
+
+#: the PhaseTimer whose phase is open, into which span() records; None
+#: outside every phase
+_current: Optional["PhaseTimer"] = None
+
+
+def span(name: str):
+    """A child span `name` of the open phase of the current PhaseTimer
+    (PhaseTimer.span), for code that does not hold the timer; nothing
+    outside a phase."""
+    t = _current
+    return profiling.NOTHING if t is None else t.span(name)
+
+
 class PhaseTimer:
-    """Per phase: host wall time (time.perf_counter), the stream time
-    between two CUDA events on each CUDA device of `devices` (the longest
-    reported: on a mesh the phase ends with its slowest card), and the
-    kernel launches made."""
+    """Per phase: host wall time, the stream time between two CUDA events
+    on each CUDA device of `devices` (the longest reported: on a mesh the
+    phase ends with its slowest card; not the device's busy time, since it
+    holds any gap in which the stream waited for the host), the kernel
+    launches made, and the phase's child spans (span): named host intervals
+    inside it, such as each blocking wait on a pull ("wait").
+
+    Times are stamped on the profiler's clock: time.perf_counter_ns plus
+    one offset to time.time_ns taken when the timer is made, the Unix
+    nanoseconds of torch.profiler's events.  While a profiler records,
+    each phase is also a record_function range of its name, and each child
+    one of "<phase>.<child><tag>" ("challenge.commit[3]")."""
 
     def __init__(self, devices: Sequence[torch.device]):
         cuda = [torch.device("cuda", torch.cuda.current_device() if d.index is None else d.index)
                 for d in map(torch.device, devices) if d.type == "cuda"]
         self.devices = list(dict.fromkeys(cuda))
+        #: each device's current stream, on which a phase's events are
+        #: recorded (taken once: a call does not switch streams)
+        self.streams = [torch.cuda.current_stream(d) for d in self.devices]
         self._rows = []
+        self._open: Optional[_Row] = None
+        #: perf_counter_ns + offset = time.time_ns
+        self.offset = time.time_ns() - time.perf_counter_ns()
 
     @contextmanager
     def phase(self, name: str):
+        global _current
         evs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
                for _ in self.devices]
-        for d, ev in zip(self.devices, evs):
-            ev[0].record(torch.cuda.current_stream(d))
+        for s, ev in zip(self.streams, evs):
+            ev[0].record(s)
         l0 = launch_counts()
-        t0 = time.perf_counter()
+        row = _Row(name)
+        outer, _current, self._open = _current, self, row
+        # stamped around its profiler range, as a child is
+        t0 = time.perf_counter_ns()
         try:
-            yield
+            with profiling.annotate(name):
+                yield
         finally:
-            host_ms = (time.perf_counter() - t0) * 1e3
-            for d, ev in zip(self.devices, evs):
-                ev[1].record(torch.cuda.current_stream(d))
+            t1 = time.perf_counter_ns()
+            _current, self._open = outer, None
+            for s, ev in zip(self.streams, evs):
+                ev[1].record(s)
             l1 = launch_counts()
-            self._rows.append((name, host_ms, evs, {k: l1[k] - l0[k] for k in l0}))
+            self._rows.append((row, t0, t1, evs, {k: l1[k] - l0[k] for k in l0}))
+
+    def span(self, name: str):
+        """A host-only child span of the open phase (no CUDA events, no
+        launch counts): recorded as [name, start_ns, end_ns] into the
+        phase's row.  Nothing outside a phase; one opened inside an open
+        child is part of that child, not a span of its own."""
+        row = self._open
+        return profiling.NOTHING if row is None or row.child else _Child(row, name)
 
     def report(self) -> Dict[str, dict]:
-        """{phase: {host_ms, device_ms (None off CUDA), launches}}."""
+        """{phase: {host_ms, device_ms (None off CUDA), launches, start_ns,
+        end_ns, wait_ms, spans}}: spans [[child, start_ns, end_ns]] in
+        order, wait_ms the sum of the "wait" children's."""
         for d in self.devices:
             torch.cuda.synchronize(d)
+        off = self.offset
         return {
-            name: {
-                "host_ms": host_ms,
+            row.name: {
+                "host_ms": (t1 - t0) / 1e6,
                 "device_ms": max((a.elapsed_time(b) for a, b in evs), default=None),
                 "launches": launches,
+                "start_ns": t0 + off,
+                "end_ns": t1 + off,
+                "wait_ms": sum(e - s for n, s, e in row.spans if n == "wait") / 1e6,
+                "spans": [[n, s + off, e + off] for n, s, e in row.spans],
             }
-            for name, host_ms, evs, launches in self._rows
+            for row, t0, t1, evs, launches in self._rows
         }
 
 
@@ -337,8 +433,11 @@ class _Pull:
             self._event.record(torch.cuda.current_stream(t.device))
 
     def numpy(self) -> np.ndarray:
-        if self._event is not None:
-            self._event.synchronize()
+        """The host copy, once the copy is done: a blocking wait, the child
+        span "wait" of the open phase."""
+        with span("wait"):
+            if self._event is not None:
+                self._event.synchronize()
         return self._host.numpy()
 
 
@@ -551,7 +650,11 @@ class Lanes:
 
     def gather(self, blocks: Sequence[np.ndarray], width: int) -> np.ndarray:
         """Every shard's (rows, width) host block, in lane order, on every
-        process (parallel.gather_rows)."""
+        process (parallel.gather_rows); on a mesh over several processes
+        the gloo all-gather is the child span "allgather"."""
+        if mesh_is_multiprocess(self.mesh):
+            with span("allgather"):
+                return gather_rows(self.mesh, blocks, width)
         return gather_rows(self.mesh, blocks, width)
 
     def seeds(self, seeds: Optional[np.ndarray], n: int, R: int) -> np.ndarray:
@@ -623,7 +726,23 @@ class TorchKKW:
     one row per phase after `prove`, `verify` and `prove_batch`; one row
     per phase and chunk or proof, "<phase>[<i>]", after
     `prove_batch_chunked`, `prove_many` and `verify_many` of more than one
-    chunk or proof."""
+    chunk or proof.  The phases: witness, expand_seeds, tape_gf2, tape_z64,
+    execute, hash, challenge, extract_pull (prove); check, onl_inject,
+    onl_tape, onl_exec, onl_hash, pre_tape, pre_exec, pre_hash, finish
+    (verify).  A row (PhaseTimer.report): host_ms; device_ms, the stream
+    time between two CUDA events (None off CUDA); launches; start_ns and
+    end_ns on the profiler's clock (Unix ns); spans, its child spans
+    [[name, start_ns, end_ns]]; wait_ms, the sum of its "wait" children.
+    The children: each blocking wait on a pull, "wait"; "round_keys" (the
+    host key schedule and its upload) in tape_gf2, tape_z64, onl_tape and
+    pre_tape, after pre_tape's "expand_seeds"; challenge's "commit" (the
+    commitments and challenges) and "extract" (the extraction's launches
+    and its pull's enqueue); extract_pull's "gather" (the pulled buffer
+    split, gathered and made bytes) and "assemble" (the Proof objects);
+    onl_inject's "parse" (the openings' streams and keys) and "upload"
+    (their unpacking and host -> device copies); finish's "check" (the
+    commitment's); on a mesh over several processes each gloo gather,
+    "allgather"."""
 
     def __init__(self, program, params: ProtocolParams = DEFAULT_PARAMS, mesh=None,
                  cc: Optional[CompiledCircuit] = None, cache_key: Optional[bytes] = None, *,
@@ -661,7 +780,8 @@ class TorchKKW:
         (by default the first; the AES tape kernel on CUDA, whatever the
         size)."""
         device = self.device if device is None else device
-        rk = aes_tape.round_keys(player_keys, device)
+        with span("round_keys"):
+            rk = aes_tape.round_keys(player_keys, device)
         return aes_tape.aes_ctr_tape_gf2(rk, self.cc.m2, self._omit_tensor(omit, device))
 
     def _z64_tape(self, player_keys: np.ndarray, omit: Optional[np.ndarray] = None,
@@ -670,7 +790,8 @@ class TorchKKW:
         `device` (by default the first; the z64 tape kernel on CUDA,
         whatever the size)."""
         device = self.device if device is None else device
-        rk = aes_tape.round_keys(player_keys, device)
+        with span("round_keys"):
+            rk = aes_tape.round_keys(player_keys, device)
         return aes_tape_z64.aes_ctr_tape_z64(rk, self.cc.mz, self._omit_tensor(omit, device))
 
     def _hash_fn(self, out: Dict[str, torch.Tensor],
@@ -694,6 +815,7 @@ class TorchKKW:
         """`seeds` (total_reps, 16) makes the proof deterministic."""
         return self.prove_batch([(wit_gf2, wit_z64)], seeds)[0]
 
+    @profiling.entry
     def prove_batch(self, witnesses, seeds: Optional[np.ndarray] = None) -> List[Proof]:
         """Prove N statements of this circuit in one device batch.
         `witnesses`: [(wit_gf2, wit_z64)] * N; `seeds`: (N, total_reps, 16)
@@ -706,6 +828,7 @@ class TorchKKW:
         device_footprint(cc, N * 256)."""
         return self._prove_pipeline(witnesses, seeds, max(len(witnesses), 1))
 
+    @profiling.entry
     def prove_batch_chunked(self, witnesses, seeds: Optional[np.ndarray] = None,
                             chunk: int = 64) -> List[Proof]:
         """prove_batch in chunks of `chunk` statements, software-pipelined:
@@ -718,6 +841,7 @@ class TorchKKW:
             raise ValueError("prove_batch_chunked: chunk must be at least 1")
         return self._prove_pipeline(witnesses, seeds, chunk)
 
+    @profiling.entry
     def prove_many(self, jobs, seeds: Optional[np.ndarray] = None) -> List[Proof]:
         """Prove statements one after another, software-pipelined: proof
         i + 1's device work is queued before proof i's challenge, pulls and
@@ -766,11 +890,12 @@ class TorchKKW:
         asynchronous pull of its rep hashes and fail flags."""
         cc = self.cc
         N, R = len(witnesses), self.params.total_reps
-        wit2 = np.zeros((cc.n_wit2, N), dtype=np.uint8)
-        witz = np.zeros((cc.n_witz, N), dtype=np.int64)
-        for p, (wit_gf2, wit_z64) in enumerate(witnesses):
-            wit2[:, p], witz[:, p] = witness_columns(wit_gf2, wit_z64, cc.n_wit2, cc.n_witz,
-                                                     first + p)
+        with timer.phase("witness" + tag):
+            wit2 = np.zeros((cc.n_wit2, N), dtype=np.uint8)
+            witz = np.zeros((cc.n_witz, N), dtype=np.int64)
+            for p, (wit_gf2, wit_z64) in enumerate(witnesses):
+                wit2[:, p], witz[:, p] = witness_columns(wit_gf2, wit_z64, cc.n_wit2,
+                                                         cc.n_witz, first + p)
         shards = self.lanes.split(N * R)
         with timer.phase("expand_seeds" + tag):
             player_keys = expand_seeds(seeds.reshape(N * R, KEY_SIZE)).reshape(
@@ -799,27 +924,30 @@ class TorchKKW:
         AssertZero); then on every shard one extraction of the opened lanes
         it holds and its asynchronous pull."""
         N, R = st["N"], self.params.total_reps
-        with st["timer"].phase("challenge" + st["tag"]):
+        timer = st["timer"]
+        with timer.phase("challenge" + st["tag"]):
             rows = self.lanes.gather([p.numpy() for p in st.pop("pulls")], HASH_ROW)
-            rep_h = rows[:, :32].reshape(N, R, 32)
-            st["ho2"] = rows[:, 32:64].reshape(N, R, 32)
-            st["hoz"] = rows[:, 64:96].reshape(N, R, 32)
-            failed = rows[:, 96].reshape(N, R).any(axis=1)
-            if failed.any():
-                raise AssertionError(f"witness {st['first'] + int(np.argmax(failed))} "
-                                     "is invalid (AssertZero failed)")
-            comms = [blake3(rep_h[p].tobytes()) for p in range(N)]
-            omits = np.stack([challenge_omits(c, self.params) for c in comms])
-            omit = omits.reshape(N * R)
+            with timer.span("commit"):
+                rep_h = rows[:, :32].reshape(N, R, 32)
+                st["ho2"] = rows[:, 32:64].reshape(N, R, 32)
+                st["hoz"] = rows[:, 64:96].reshape(N, R, 32)
+                failed = rows[:, 96].reshape(N, R).any(axis=1)
+                if failed.any():
+                    raise AssertionError(f"witness {st['first'] + int(np.argmax(failed))} "
+                                         "is invalid (AssertZero failed)")
+                comms = [blake3(rep_h[p].tobytes()) for p in range(N)]
+                omits = np.stack([challenge_omits(c, self.params) for c in comms])
+                omit = omits.reshape(N * R)
             st["xpulls"] = []
-            for (dev, sl), out in zip(st.pop("shards"), st.pop("outs")):
-                cols = np.nonzero(omit[sl] < 8)[0]
-                if not len(cols):
-                    continue
-                g2 = extract_gf2(self.cc, out["onl2"], out["pre2"], cols, omit[sl][cols])
-                gz = extract_z64(self.cc, out["onlz"], out["prez"], cols, omit[sl][cols])
-                # one flat buffer a shard, pulled once: [gf2 openings | z64 openings]
-                st["xpulls"].append((_Pull(torch.cat([g2, gz])), g2.numel(), len(cols)))
+            with timer.span("extract"):
+                for (dev, sl), out in zip(st.pop("shards"), st.pop("outs")):
+                    cols = np.nonzero(omit[sl] < 8)[0]
+                    if not len(cols):
+                        continue
+                    g2 = extract_gf2(self.cc, out["onl2"], out["pre2"], cols, omit[sl][cols])
+                    gz = extract_z64(self.cc, out["onlz"], out["prez"], cols, omit[sl][cols])
+                    # one flat buffer a shard, pulled once: [gf2 openings | z64 openings]
+                    st["xpulls"].append((_Pull(torch.cat([g2, gz])), g2.numel(), len(cols)))
         st.update(comms=comms, omits=omits)
 
     def _gf2_parts(self, buf: np.ndarray, K: int):
@@ -844,31 +972,33 @@ class TorchKKW:
         order, proof by proof."""
         R = self.params.total_reps
         cc = self.cc
-        with st["timer"].phase("extract_pull" + st["tag"]):
-            parts2, partsz = [], []
-            for pull, n_g2, K in st.pop("xpulls"):
-                buf = pull.numpy()
-                parts2.append(self._gf2_parts(buf[:n_g2], K))
-                partsz.append(self._z64_parts(buf[n_g2:], K))
-            widths2 = [packed_len(n) for n in (cc.n_recons2, cc.n_corrs2, cc.n_inputs2)]
-            widthsz = [8 * len(s) for s in (cc.recon_slotsz, cc.corr_slotsz, cc.input_slotsz)]
-            open2, openz = ([tuple(r.tobytes() for r in rows) for rows in zip(*(
-                self.lanes.gather([p[i] for p in parts], w) for i, w in enumerate(widths)))]
-                for parts, widths in ((parts2, widths2), (partsz, widthsz)))
-            proofs, j = [], 0
-            for p in range(st["N"]):
-                omit = st["omits"][p]
-                k = int((omit < 8).sum())
-                proofs.append(assemble_proof(
-                    st["comms"][p], st["seeds"][p], st["player_keys"][p * R : (p + 1) * R],
-                    omit, st["ho2"][p], st["hoz"][p], open2[j : j + k], openz[j : j + k]))
-                j += k
+        timer = st["timer"]
+        with timer.phase("extract_pull" + st["tag"]):
+            bufs = [(pull.numpy(), n_g2, K) for pull, n_g2, K in st.pop("xpulls")]
+            with timer.span("gather"):
+                parts2 = [self._gf2_parts(buf[:n_g2], K) for buf, n_g2, K in bufs]
+                partsz = [self._z64_parts(buf[n_g2:], K) for buf, n_g2, K in bufs]
+                widths2 = [packed_len(n) for n in (cc.n_recons2, cc.n_corrs2, cc.n_inputs2)]
+                widthsz = [8 * len(s) for s in (cc.recon_slotsz, cc.corr_slotsz, cc.input_slotsz)]
+                open2, openz = ([tuple(r.tobytes() for r in rows) for rows in zip(*(
+                    self.lanes.gather([p[i] for p in parts], w) for i, w in enumerate(widths)))]
+                    for parts, widths in ((parts2, widths2), (partsz, widthsz)))
+            with timer.span("assemble"):
+                proofs, j = [], 0
+                for p in range(st["N"]):
+                    omit = st["omits"][p]
+                    k = int((omit < 8).sum())
+                    proofs.append(assemble_proof(
+                        st["comms"][p], st["seeds"][p], st["player_keys"][p * R : (p + 1) * R],
+                        omit, st["ho2"][p], st["hoz"][p], open2[j : j + k], openz[j : j + k]))
+                    j += k
         return proofs
 
     # -- verification -------------------------------------------------------
     def verify(self, proof: Proof, strict_zero_check: bool = True) -> bool:
         return self.verify_many([proof], strict_zero_check)[0]
 
+    @profiling.entry
     def verify_many(self, proofs: Sequence[Proof],
                     strict_zero_check: bool = True) -> List[bool]:
         """Verify a stream of proofs, software-pipelined: proof i + 1's
@@ -893,19 +1023,23 @@ class TorchKKW:
         hashes and the asynchronous pulls of those; False for a malformed
         proof."""
         cc = self.cc
-        if not check_formats(proof, self.params):
+        with timer.phase("check" + tag):
+            formed = check_formats(proof, self.params)
+        if not formed:
             return False
 
         # ---- online re-execution (the opened reps as one batch) -----------
         Ro = self.params.online_reps
         shards = self.lanes.split(Ro)
         with timer.phase("onl_inject" + tag):
-            streams = online_streams(proof.gf2.online, proof.z64.online, cc)
-            injs = [online_inputs(_lanes_of(streams, sl), cc, dev) for dev, sl in shards]
-            omit, omitz = streams["omit"], streams["omitz"]
+            with timer.span("parse"):
+                streams = online_streams(proof.gf2.online, proof.z64.online, cc)
+                omit, omitz = streams["omit"], streams["omitz"]
+                player_keys = opened_keys(proof.gf2.online)
+                player_keysz = opened_keys(proof.z64.online)
+            with timer.span("upload"):
+                injs = [online_inputs(_lanes_of(streams, sl), cc, dev) for dev, sl in shards]
             del streams
-            player_keys = opened_keys(proof.gf2.online)
-            player_keysz = opened_keys(proof.z64.online)
         with timer.phase("onl_tape" + tag):
             for (dev, sl), inj in zip(shards, injs):
                 inj.update(tape=self._gf2_tape(player_keys[sl], omit[sl], dev),
@@ -927,10 +1061,11 @@ class TorchKKW:
         Rp = self.params.preprocessing_reps
         shards = self.lanes.split(Rp)
         with timer.phase("pre_tape" + tag):
-            pk2 = expand_seeds(preprocessing_seeds(proof.gf2.preprocessing)).reshape(
-                Rp, 8, KEY_SIZE)
-            pkz = expand_seeds(preprocessing_seeds(proof.z64.preprocessing)).reshape(
-                Rp, 8, KEY_SIZE)
+            with timer.span("expand_seeds"):
+                pk2 = expand_seeds(preprocessing_seeds(proof.gf2.preprocessing)).reshape(
+                    Rp, 8, KEY_SIZE)
+                pkz = expand_seeds(preprocessing_seeds(proof.z64.preprocessing)).reshape(
+                    Rp, 8, KEY_SIZE)
             inps = [{"tape": self._gf2_tape(pk2[sl], device=dev),
                      "tapez": self._z64_tape(pkz[sl], device=dev)} for dev, sl in shards]
         with timer.phase("pre_exec" + tag):
@@ -948,9 +1083,11 @@ class TorchKKW:
     def _verify_finish(self, st: dict, strict_zero_check: bool = True) -> bool:
         """Wait for the hash pulls and gather them in lane order, reorder
         the rep hashes per the challenge and compare the commitment."""
-        with st["timer"].phase("finish" + st["tag"]):
+        timer = st["timer"]
+        with timer.phase("finish" + st["tag"]):
             onl = self.lanes.gather([p.numpy() for p in st["pull_onl"]], 33)
             hashes_pre = self.lanes.gather([p.numpy() for p in st["pull_pre"]], 32)
-            if strict_zero_check and onl[:, 32].any():
-                return False
-            return commitment_ok(st["comm"], onl[:, :32], hashes_pre, self.params)
+            with timer.span("check"):
+                if strict_zero_check and onl[:, 32].any():
+                    return False
+                return commitment_ok(st["comm"], onl[:, :32], hashes_pre, self.params)

@@ -61,7 +61,7 @@ from ..crypto import blake3, expand_seeds
 from ..crypto.kernels import aes_tape, aes_tape_z64, blake3 as b3
 from ..params import DEFAULT_PARAMS, KEY_SIZE, ProtocolParams
 from ..proof.container import Proof
-from . import host, scan
+from . import host, profiling, scan
 from .executor import PROVER, VERIFY_ONL, VERIFY_PRE, Executor, stream_bytes
 
 #: z64 tape words a 1 KiB keystream refill holds, and its AES counter blocks
@@ -130,7 +130,12 @@ class StreamingKKW:
     seeds, verdicts its verify's.  After each call `last_timings` holds its
     PhaseTimer report: pass1, hash_final, challenge, pass2, pack after
     `prove`; onl_inject, onl_exec, onl_hash, pre_tape, pre_exec, pre_hash
-    after `verify`."""
+    after `verify`.  Each row (host.PhaseTimer.report): host_ms, device_ms
+    (stream time between two CUDA events; None off CUDA), launches,
+    start_ns and end_ns on the profiler's clock (Unix ns), its child spans
+    [[name, start_ns, end_ns]] (each blocking wait on a pull "wait";
+    onl_inject's "parse" and "round_keys", pre_tape's "expand_seeds" and
+    "round_keys") and wait_ms, the sum of the "wait" ones."""
 
     def __init__(self, program, seg_ops: int,
                  params: ProtocolParams = DEFAULT_PARAMS, mesh=None, *,
@@ -290,6 +295,7 @@ class StreamingKKW:
         return [sh.pop("fail") for sh in shards]
 
     # -- proving ------------------------------------------------------------
+    @profiling.entry
     def prove(self, wit_gf2, wit_z64=(), seeds: Optional[np.ndarray] = None) -> Proof:
         """`seeds` (total_reps, 16) makes the proof deterministic."""
         params, T = self.params, self.totals
@@ -373,6 +379,7 @@ class StreamingKKW:
         return proof
 
     # -- verification -------------------------------------------------------
+    @profiling.entry
     def verify(self, proof: Proof, strict_zero_check: bool = True) -> bool:
         """The online and preprocessing re-executions segment by segment;
         False for a malformed proof."""
@@ -391,19 +398,19 @@ class StreamingKKW:
         Ro = params.online_reps
         lanes = self.lanes.split(Ro)
         with timer.phase("onl_inject"):
-            on2, onz = proof.gf2.online, proof.z64.online
-            streams = host.online_streams(on2, onz, SimpleNamespace(**T))
-            keys2, keysz = host.opened_keys(on2), host.opened_keys(onz)
-            shards = []
-            for dev, sl in lanes:
-                mine = host._lanes_of(streams, sl)
-                shards.append(dict(
-                    dev=dev, omit=mine["omit"], omitz=mine["omitz"],
-                    rk2=aes_tape.round_keys(keys2[sl], dev),
-                    rkz=aes_tape.round_keys(keysz[sl], dev),
-                    inject=lambda seg, mine=mine, dev=dev: host.online_inputs(
-                        mine, seg.cc, dev, seg)))
+            with timer.span("parse"):
+                on2, onz = proof.gf2.online, proof.z64.online
+                streams = host.online_streams(on2, onz, SimpleNamespace(**T))
+                keys2, keysz = host.opened_keys(on2), host.opened_keys(onz)
+                mines = [host._lanes_of(streams, sl) for _, sl in lanes]
             del streams
+            with timer.span("round_keys"):
+                shards = [dict(dev=dev, omit=mine["omit"], omitz=mine["omitz"],
+                               rk2=aes_tape.round_keys(keys2[sl], dev),
+                               rkz=aes_tape.round_keys(keysz[sl], dev),
+                               inject=lambda seg, mine=mine, dev=dev: host.online_inputs(
+                                   mine, seg.cc, dev, seg))
+                          for (dev, sl), mine in zip(lanes, mines)]
 
         hashers = [self._hashers(sl.stop - sl.start, device=dev) for dev, sl in lanes]
         with timer.phase("onl_exec"):
@@ -421,12 +428,14 @@ class StreamingKKW:
         Rp = params.preprocessing_reps
         lanes = self.lanes.split(Rp)
         with timer.phase("pre_tape"):
-            pre2, prez = proof.gf2.preprocessing, proof.z64.preprocessing
-            pk2 = expand_seeds(host.preprocessing_seeds(pre2)).reshape(Rp, 8, KEY_SIZE)
-            pkz = expand_seeds(host.preprocessing_seeds(prez)).reshape(Rp, 8, KEY_SIZE)
-            comm2, commz = host.committed_hashes(pre2), host.committed_hashes(prez)
-            shards = [dict(dev=dev, rk2=aes_tape.round_keys(pk2[sl], dev),
-                           rkz=aes_tape.round_keys(pkz[sl], dev)) for dev, sl in lanes]
+            with timer.span("expand_seeds"):
+                pre2, prez = proof.gf2.preprocessing, proof.z64.preprocessing
+                pk2 = expand_seeds(host.preprocessing_seeds(pre2)).reshape(Rp, 8, KEY_SIZE)
+                pkz = expand_seeds(host.preprocessing_seeds(prez)).reshape(Rp, 8, KEY_SIZE)
+                comm2, commz = host.committed_hashes(pre2), host.committed_hashes(prez)
+            with timer.span("round_keys"):
+                shards = [dict(dev=dev, rk2=aes_tape.round_keys(pk2[sl], dev),
+                               rkz=aes_tape.round_keys(pkz[sl], dev)) for dev, sl in lanes]
         hashers = [self._hashers(sl.stop - sl.start, ("pre2", "prez"), dev) for dev, sl in lanes]
         with timer.phase("pre_exec"):
             self._run_segments(VERIFY_PRE, shards,

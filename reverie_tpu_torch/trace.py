@@ -20,6 +20,17 @@ line. With --out it also writes each leg's Chrome trace there. The wall
 time inside a window includes the profiler's own overhead, so the idle
 share is given against both it and the same leg's unprofiled wall time.
 
+Each line also reads the program's own records (the leg's `last_timings`,
+host.PhaseTimer) beside the trace: `span_self_ms`, each phase's host ms
+less what its child spans cover, and each child's ms; `idle_by_span`, the
+card's idle ms inside the entry call named by the innermost of those rows
+and children; `clock_skew_us`, the median and most of |a row's or child's
+start_ns - its profiler range's start_ns()| (both on the Unix ns clock);
+and `device_ms_by_span`, the device ms of the kernels, copies and sets by
+the innermost profiler range their launch fell in (the launch found
+through correlation_id() and linked_correlation_id()): the levelized
+executor's kernels by its "executor.*" ranges, each phase's busy time.
+
 A leg's trace is whole when it holds every launch of the port's kernels
 that the wrappers counted in the recorded run, and no more device time
 than the run's wall; where it is not, its busy time and idle shares are
@@ -30,8 +41,11 @@ Needs a CUDA card.
 from __future__ import annotations
 
 import argparse
+import bisect
 import functools
 import json
+import re
+import statistics
 import sys
 import time
 from pathlib import Path
@@ -73,16 +87,21 @@ def _device_events(events):
             if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
 
 
+def _union(spans) -> list:
+    """The union of (start, end) intervals, as disjoint ones in order."""
+    out = []
+    for s, e in sorted(spans):
+        if out and s <= out[-1][1]:
+            out[-1] = (out[-1][0], max(out[-1][1], e))
+        else:
+            out.append((s, e))
+    return out
+
+
 def busy_us(events) -> float:
     """Length of the union of the device events' time intervals, in µs."""
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in _device_events(events))
-    total, end = 0.0, float("-inf")
-    for s, e in spans:
-        if e > end:
-            total += e - max(s, end)
-            end = e
-    return total
+    return sum(e - s for s, e in _union((e.time_range.start, e.time_range.end)
+                                        for e in _device_events(events)))
 
 
 def by_kernel(events, top: int) -> list:
@@ -117,6 +136,144 @@ def traced_launches(events, launched: dict) -> dict:
     named after its wrapper)."""
     names = [e.name for e in _device_events(events)]
     return {k: sum(f"{k}_kernel" in n for n in names) for k in launched}
+
+
+# -- the program's records beside the trace (raw events:
+#    prof.profiler.kineto_results.events(), nanosecond stamps) ----------------
+
+#: the port's entry calls, each a profiler range of its name (profiling.entry)
+ENTRIES = ("prove_batch", "prove_batch_chunked", "prove_many", "verify_many", "prove", "verify")
+OUTSIDE = "outside phases"
+
+
+def _untagged(name: str) -> str:
+    return re.sub(r"\[\d+\]$", "", name)
+
+
+def _ranges(raw) -> list:
+    """(start_ns, end_ns, name) of the host's profiler ranges (the
+    program's annotations), by start; the schedule's ProfilerStep left out."""
+    cpu = torch.autograd.DeviceType.CPU
+    return sorted((e.start_ns(), e.end_ns(), e.name()) for e in raw
+                  if e.is_user_annotation() and e.device_type() == cpu
+                  and not e.name().startswith("ProfilerStep"))
+
+
+def _on_card(raw) -> list:
+    cuda = torch.autograd.DeviceType.CUDA
+    return [e for e in raw if e.device_type() == cuda and not e.is_user_annotation()]
+
+
+def span_self_ms(timings: dict) -> dict:
+    """{phase: Σ host_ms less what its children cover, "<phase>.<child>":
+    Σ the child's ms} over a last_timings report, "[i]" tags stripped."""
+    out: dict = {}
+    for name, row in timings.items():
+        base = _untagged(name)
+        kids = 0.0
+        for child, s, e in row["spans"]:
+            out[f"{base}.{child}"] = out.get(f"{base}.{child}", 0.0) + (e - s) / 1e6
+            kids += (e - s) / 1e6
+        out[base] = out.get(base, 0.0) + row["host_ms"] - kids
+    return out
+
+
+def _segments(timings: dict) -> list:
+    """The program's host timeline: (start_ns, end_ns, name) of each child
+    as "<phase>.<child>", and of each stretch of a row its children leave."""
+    segs = []
+    for name, row in timings.items():
+        base, at = _untagged(name), row["start_ns"]
+        for child, s, e in sorted(row["spans"], key=lambda c: c[1]):
+            if s > at:
+                segs.append((at, s, base))
+            segs.append((s, e, f"{base}.{child}"))
+            at = max(at, e)
+        if row["end_ns"] > at:
+            segs.append((at, row["end_ns"], base))
+    return sorted(segs)
+
+
+def idle_by_span(raw, timings: dict) -> dict:
+    """{name: ms} of the card's idle time inside the entry call (its
+    ENTRIES range; else the rows' extent), each idle stretch split over
+    the program's rows and children (_segments) it overlaps, the rest
+    OUTSIDE.  Empty where the trace holds no such call."""
+    roots = [(s, e) for s, e, n in _ranges(raw) if n in ENTRIES]
+    if roots:
+        w0, w1 = min(s for s, _ in roots), max(e for _, e in roots)
+    elif timings:
+        w0 = min(r["start_ns"] for r in timings.values())
+        w1 = max(r["end_ns"] for r in timings.values())
+    else:
+        return {}
+    busy = _union((max(e.start_ns(), w0), min(e.end_ns(), w1)) for e in _on_card(raw)
+                  if e.end_ns() > w0 and e.start_ns() < w1)
+    edges = [w0] + [x for b in busy for x in b] + [w1]
+    segs = _segments(timings)
+    out: dict = {}
+    for g0, g1 in zip(edges[0::2], edges[1::2]):
+        if g1 <= g0:
+            continue
+        left = g1 - g0
+        for s, e, name in segs:
+            cut = min(e, g1) - max(s, g0)
+            if cut > 0:
+                out[name] = out.get(name, 0.0) + cut / 1e6
+                left -= cut
+        if left > 0:
+            out[OUTSIDE] = out.get(OUTSIDE, 0.0) + left / 1e6
+    return out
+
+
+def clock_skew_us(raw, timings: dict) -> dict:
+    """{median, most, pairs}: |start_ns - the profiler range's start_ns()|
+    in µs over the report's rows and children, each paired with the range
+    of its name ("<phase>[i]", "<phase>.<child>[i]") in order; nulls where
+    none pairs."""
+    starts: dict = {}
+    for s, _, name in _ranges(raw):
+        starts.setdefault(name, []).append(s)
+    mine: dict = {}
+    for name, row in timings.items():
+        mine.setdefault(name, []).append(row["start_ns"])
+        base, tag = re.match(r"(.*?)(\[\d+\])?$", name).groups()
+        for child, s, _ in row["spans"]:
+            mine.setdefault(f"{base}.{child}{tag or ''}", []).append(s)
+    d = [abs(a - b) / 1e3 for name, ss in mine.items() for a, b in zip(ss, starts.get(name, []))]
+    return {"median": statistics.median(d) if d else None, "most": max(d, default=None),
+            "pairs": len(d)}
+
+
+def device_ms_by_span(raw) -> dict:
+    """{range: device ms} of the card's kernels, copies and sets, each by the
+    innermost host profiler range ("[i]" stripped) in flight when it was
+    launched: the launch is the host runtime call of its correlation_id()
+    (cudaLaunchKernel, cudaMemcpyAsync, ...), else the host op of its
+    linked_correlation_id().  "unmatched" where neither is in the trace,
+    OUTSIDE where no range holds the launch."""
+    cpu = torch.autograd.DeviceType.CPU
+    runtime, ops = {}, {}
+    for e in raw:
+        if e.device_type() == cpu:
+            (runtime if e.name().startswith("cu") and not e.is_user_annotation()
+             else ops)[e.correlation_id()] = e.start_ns()
+    ranges = _ranges(raw)
+    starts = [r[0] for r in ranges]
+    out: dict = {}
+    for d in _on_card(raw):
+        t = runtime.get(d.correlation_id())
+        if t is None:
+            t = ops.get(d.linked_correlation_id())
+        name = "unmatched"
+        if t is not None:
+            name = OUTSIDE
+            for i in range(bisect.bisect_right(starts, t) - 1, -1, -1):
+                if ranges[i][1] >= t:
+                    name = _untagged(ranges[i][2])
+                    break
+        out[name] = out.get(name, 0.0) + (d.end_ns() - d.start_ns()) / 1e6
+    return out
 
 
 def profiled(fn):
@@ -193,6 +350,7 @@ def profile_cell(cell: str, circuit, most: int, many: bool, dev, out) -> bool:
         fn()  # cold: builds, allocates
         _, plain_wall = timed(fn)
         prof, wall, launched = profiled(fn)
+        raw = prof.profiler.kineto_results.events()
         events = prof.events()
         busy = busy_us(events) / 1e3
         if busy == 0:
@@ -211,6 +369,10 @@ def profile_cell(cell: str, circuit, most: int, many: bool, dev, out) -> bool:
             "device_idle_share_of_unprofiled_wall": 1 - busy / plain_wall if whole else None,
             "phases": kkw.last_timings, "n_device_events": len(_device_events(events)),
             "by_kernel": by_kernel(events, TOP), "host_api": host_api(events, TOP),
+            "span_self_ms": span_self_ms(kkw.last_timings),
+            "idle_by_span": idle_by_span(raw, kkw.last_timings),
+            "clock_skew_us": clock_skew_us(raw, kkw.last_timings),
+            "device_ms_by_span": device_ms_by_span(raw),
         }), flush=True)
     return complete
 

@@ -98,3 +98,86 @@ def test_cells_option_rejects_an_unknown_cell(capsys):
     with pytest.raises(SystemExit) as exc:
         trace.main(["--cells", "gf2_mul_1M,nope"])
     assert exc.value.code == 2 and "nope" in capsys.readouterr().err
+
+
+class Raw:
+    """A raw profiler event (kineto_results.events()), in ms."""
+
+    def __init__(self, name, start, end, device=CUDA, annotation=False, corr=0, linked=0):
+        self._v = (name, device, int(start * 1e6), int(end * 1e6), annotation, corr, linked)
+
+    def name(self):
+        return self._v[0]
+
+    def device_type(self):
+        return self._v[1]
+
+    def start_ns(self):
+        return self._v[2]
+
+    def end_ns(self):
+        return self._v[3]
+
+    def is_user_annotation(self):
+        return self._v[4]
+
+    def correlation_id(self):
+        return self._v[5]
+
+    def linked_correlation_id(self):
+        return self._v[6]
+
+
+MS = 1_000_000
+#: a verify's rows: its check, and a finish with two children
+TIMINGS = {
+    "check[0]": {"host_ms": 5.0, "start_ns": 0, "end_ns": 5 * MS, "spans": []},
+    "finish[0]": {"host_ms": 40.0, "start_ns": 10 * MS, "end_ns": 50 * MS,
+                  "spans": [["wait", 10 * MS, 20 * MS], ["check", 20 * MS, 40 * MS]]},
+}
+RAW = [
+    Raw("verify_many", 0, 100, CPU, True, corr=1),
+    Raw("ProfilerStep#1", -5, 105, CPU, True, corr=2),
+    Raw("check[0]", 0.01, 5, CPU, True, corr=3),
+    Raw("finish[0]", 9.98, 50, CPU, True, corr=4),
+    Raw("finish.wait[0]", 9.97, 20, CPU, True, corr=5),
+    Raw("finish.check[0]", 20, 40, CPU, True, corr=6),
+    Raw("executor.gf2.MUL", 60, 70, CPU, True, corr=7),
+    Raw("aten::bitwise_xor", 61, 62, CPU, corr=8),
+    Raw("cudaLaunchKernel", 61.5, 61.6, CPU, corr=900),
+    Raw("cudaLaunchKernel", 1, 1.1, CPU, corr=901),
+    Raw("gpu_user_annotation", 0, 100, CUDA, True),
+    Raw("K3", 0, 15, corr=901),  # launched in check[0]
+    Raw("elementwise_kernel", 60, 100, corr=900),  # launched in executor.gf2.MUL
+    Raw("xor_kernel", 70, 71, corr=999, linked=8),  # by its op, in the same range
+    Raw("lost_kernel", 72, 73, corr=998, linked=77),
+]
+
+
+def test_span_self_ms_takes_the_children_out():
+    assert trace.span_self_ms(TIMINGS) == {
+        "check": 5.0, "finish": pytest.approx(10.0), "finish.wait": pytest.approx(10.0),
+        "finish.check": pytest.approx(20.0)}
+
+
+def test_idle_by_span_names_idle_by_the_programs_rows():
+    """The card idles from 15 to 60 ms inside the call: 15-20 in finish's
+    wait, 20-40 in its check, 40-50 in finish itself, 50-60 outside every
+    row."""
+    assert trace.idle_by_span(RAW, TIMINGS) == {
+        "finish.wait": pytest.approx(5.0), "finish.check": pytest.approx(20.0),
+        "finish": pytest.approx(10.0), trace.OUTSIDE: pytest.approx(10.0)}
+    assert trace.idle_by_span([], {}) == {}
+
+
+def test_clock_skew_pairs_rows_with_their_ranges():
+    skew = trace.clock_skew_us(RAW, TIMINGS)
+    assert skew["pairs"] == 4  # the two rows, finish's two children
+    assert skew["median"] == pytest.approx(15.0) and skew["most"] == pytest.approx(30.0)
+    assert trace.clock_skew_us([], TIMINGS) == {"median": None, "most": None, "pairs": 0}
+
+
+def test_device_ms_by_span_follows_the_launch():
+    assert trace.device_ms_by_span(RAW) == {
+        "check": pytest.approx(15.0), "executor.gf2.MUL": pytest.approx(41.0),
+        "unmatched": pytest.approx(1.0)}
