@@ -9,8 +9,9 @@ Port of reverie_tpu/backend/tpu_host.py's `TpuKKW` (`_gf2_tape`,
 REVERIE_DEBUG omitted-lane checks, `_verify_finish`), of its
 `device_footprint`, re-derived for the port's tensors, and of its helpers
 `make_gf2_extractor` and `make_z64_extractor` in their gather forms,
-`_pack_rows_device`, `_stack_streams`, `_u64s_from_stream`,
-`build_online_injection_packed` and `make_online_unpacker`, for circuits
+`_pack_rows_device`, `_stack_streams` and `_u64s_from_stream` (here one
+rep-major `_stream_rows`), `build_online_injection_packed` and
+`make_online_unpacker`, for circuits
 over GF(2), Z_2^64 and B2A bridges.  One proof is a batch of one: the
 single and batch paths, and reverie_tpu's two sets of pipeline stages, are
 one set of stages here, over N * 256 proof-major lanes.
@@ -96,14 +97,17 @@ def launch_counts() -> Dict[str, int]:
 
 class _Row:
     """An open phase: its name, its children (name, start, end) in
-    perf_counter_ns, and whether one is open."""
+    perf_counter_ns, whether one is open, and the bytes `upload` handed to
+    a device in it, and of those the bytes copied from pinned memory."""
 
-    __slots__ = ("name", "spans", "child")
+    __slots__ = ("name", "spans", "child", "h2d_bytes", "h2d_pinned_bytes")
 
     def __init__(self, name: str):
         self.name = name
         self.spans: List[tuple] = []
         self.child = False
+        self.h2d_bytes = 0
+        self.h2d_pinned_bytes = 0
 
     def child_range(self, child: str) -> str:
         """The profiler range of a child: "<phase>.<child><tag>", the
@@ -160,8 +164,10 @@ class PhaseTimer:
     on each CUDA device of `devices` (the longest reported: on a mesh the
     phase ends with its slowest card; not the device's busy time, since it
     holds any gap in which the stream waited for the host), the kernel
-    launches made, and the phase's child spans (span): named host intervals
-    inside it, such as each blocking wait on a pull ("wait").
+    launches made, the host bytes handed to a device by `upload` (and, of
+    those, the ones copied from pinned memory), and the phase's child spans
+    (span): named host intervals inside it, such as each blocking wait on a
+    pull ("wait").
 
     Times are stamped on the profiler's clock: time.perf_counter_ns plus
     one offset to time.time_ns taken when the timer is made, the Unix
@@ -213,9 +219,10 @@ class PhaseTimer:
         return profiling.NOTHING if row is None or row.child else _Child(row, name)
 
     def report(self) -> Dict[str, dict]:
-        """{phase: {host_ms, device_ms (None off CUDA), launches, start_ns,
-        end_ns, wait_ms, spans}}: spans [[child, start_ns, end_ns]] in
-        order, wait_ms the sum of the "wait" children's."""
+        """{phase: {host_ms, device_ms (None off CUDA), launches,
+        h2d_bytes, h2d_pinned_bytes, start_ns, end_ns, wait_ms, spans}}:
+        spans [[child, start_ns, end_ns]] in order, wait_ms the sum of the
+        "wait" children's."""
         for d in self.devices:
             torch.cuda.synchronize(d)
         off = self.offset
@@ -224,6 +231,8 @@ class PhaseTimer:
                 "host_ms": (t1 - t0) / 1e6,
                 "device_ms": max((a.elapsed_time(b) for a, b in evs), default=None),
                 "launches": launches,
+                "h2d_bytes": row.h2d_bytes,
+                "h2d_pinned_bytes": row.h2d_pinned_bytes,
                 "start_ns": t0 + off,
                 "end_ns": t1 + off,
                 "wait_ms": sum(e - s for n, s, e in row.spans if n == "wait") / 1e6,
@@ -324,13 +333,42 @@ def extract_z64(cc: CompiledCircuit, onlz: torch.Tensor, prez: torch.Tensor,
     return torch.cat(parts)
 
 
-def _stack_streams(streams: List[bytes], nb: int) -> np.ndarray:
-    """Per-rep byte streams -> (nb, R) uint8, zero-padded / truncated to nb
-    rows per rep (lenient parsing, online.rs:124,163,171)."""
-    out = np.zeros((nb, len(streams)), dtype=np.uint8)
+def upload(t: torch.Tensor, device) -> torch.Tensor:
+    """Host tensor t on `device`.  On CUDA, from pinned memory (t contiguous
+    and pinned), one non_blocking copy: the host goes on at once, and the
+    caching host allocator hands t's block to no later tensor until the
+    copy is done; from pageable memory a copy that returns when the stream
+    has reached it.  Counted into the open phase's row (PhaseTimer):
+    h2d_bytes, and h2d_pinned_bytes for a pinned copy."""
+    device = torch.device(device)
+    pinned = device.type == "cuda" and t.is_contiguous() and t.is_pinned()
+    row = None if _current is None else _current._open
+    if row is not None:
+        nbytes = t.numel() * t.element_size()
+        row.h2d_bytes += nbytes
+        row.h2d_pinned_bytes += nbytes if pinned else 0
+    return t.to(device, non_blocking=pinned)
+
+
+def _stream_rows(streams: List[bytes], n: int, dtype: torch.dtype, pin: bool) -> torch.Tensor:
+    """Per-rep byte streams -> (R, n) host rows of dtype (uint8: bytes;
+    int64: little-endian words, as the host), rep-major, in pinned memory
+    when `pin`: each rep's first n whole items, zero-padded / truncated to
+    n (lenient parsing, online.rs:124,163,171), one contiguous copy a rep
+    (one stack of them where every stream holds its n items)."""
+    out = torch.empty((len(streams), n), dtype=dtype, pin_memory=pin)
+    if out.numel() == 0:
+        return out
+    rows = out.numpy().view(np.uint8)
+    need = rows.shape[1]
+    if all(len(s) >= need for s in streams):
+        np.stack([np.frombuffer(s, dtype=np.uint8, count=need) for s in streams], out=rows)
+        return out
+    size = out.element_size()
     for r, s in enumerate(streams):
-        n = min(len(s), nb)
-        out[:n, r] = np.frombuffer(s[:n], dtype=np.uint8)
+        k = min(len(s) // size * size, need)
+        rows[r, :k] = np.frombuffer(s, dtype=np.uint8, count=k)
+        rows[r, k:] = 0
     return out
 
 
@@ -343,16 +381,6 @@ def _unpack_bits(packed: torch.Tensor, n: int) -> torch.Tensor:
     return ((packed[:, None, :] >> sh[None, :, None]) & 1).reshape(nb * 8, R)[:n]
 
 
-def _u64s_from_stream(stream: bytes, n: int) -> np.ndarray:
-    """The first n little-endian u64 words of a byte stream as int64,
-    truncated to whole words and zero-padded to n (lenient parsing)."""
-    words = np.frombuffer(stream[: len(stream) // 8 * 8], dtype="<i8")
-    out = np.zeros(n, dtype=np.int64)
-    k = min(n, len(words))
-    out[:k] = words[:k]
-    return out
-
-
 #: the online records a VERIFY_ONL executor takes: its input, the field of
 #: the opening that holds them, their count on a CompiledCircuit, their
 #: first record on a Segment
@@ -361,50 +389,69 @@ ONLINE_RECORDS = (("co2", "corrs", "n_corrs2", "cor0"), ("in2", "inputs", "n_inp
                   ("inz", "inputs", "n_inputsz", "inpz0"), ("rez", "recons", "n_reconsz", "recz0"))
 
 
-def online_streams(openings2: List[OpenOnline], openingsz: List[OpenOnline], counts) -> dict:
-    """The online openings on the host, as the verifier reads them: each
-    GF(2) stream packed, (packed_len(n), R) uint8, each z64 stream as (n, R)
-    int64 words, n the count on `counts` (an object with ONLINE_RECORDS'
-    count attributes; lenient parsing: zero-padded or truncated to n), and
-    the omits 'omit' and 'omitz' (R,) int64 of the two domains, which a
-    malformed proof can make differ (build_online_injection_packed)."""
-    out = {"omit": np.array([o.omit for o in openings2], dtype=np.int64),
-           "omitz": np.array([o.omit for o in openingsz], dtype=np.int64)}
+def online_streams(openings2: List[OpenOnline], openingsz: List[OpenOnline], counts,
+                   pin: bool = False) -> dict:
+    """The online openings on the host, as the verifier reads them, in the
+    proof's order, rep-major: each GF(2) stream packed, (R,
+    window_bytes(0, n)) uint8 (the bytes that hold its n records; the
+    remainder byte past them is never read), each z64 stream (R, n) int64
+    words, n the count on `counts` (an object with ONLINE_RECORDS' count
+    attributes; lenient parsing: zero-padded or truncated); the omits of
+    the two domains, which a malformed proof can make differ
+    (build_online_injection_packed), as 'omits' (R, 2) int64 and its
+    columns 'omit' and 'omitz' (numpy views).  Host tensors, in pinned
+    memory when `pin` (for a CUDA device, to which online_inputs then
+    copies each whole with one non_blocking copy)."""
+    omits = torch.empty((len(openings2), 2), dtype=torch.int64, pin_memory=pin)
+    om = omits.numpy()
+    om[:, 0] = [o.omit for o in openings2]
+    om[:, 1] = [o.omit for o in openingsz]
+    out = {"omits": omits, "omit": om[:, 0], "omitz": om[:, 1]}
     for name, field, count, _ in ONLINE_RECORDS:
         n = getattr(counts, count)
         if name.endswith("2"):
-            out[name] = _stack_streams([getattr(o, field) for o in openings2], packed_len(n))
+            out[name] = _stream_rows([getattr(o, field) for o in openings2],
+                                     window_bytes(0, n), torch.uint8, pin)
         else:
-            out[name] = np.stack([_u64s_from_stream(getattr(o, field), n) for o in openingsz],
-                                 axis=1)
+            out[name] = _stream_rows([getattr(o, field) for o in openingsz], n, torch.int64, pin)
     return out
 
 
-def unpack_window(packed: np.ndarray, base: int, n: int, device) -> torch.Tensor:
-    """Bits base .. base + n - 1 of each column of packed (nb, R) host
-    bytes, MSB first -> (n, R) 0/1 uint8 on device; only their bytes are
-    copied, and base need not be a multiple of 8."""
+def _rep_major_to_records(t: torch.Tensor) -> torch.Tensor:
+    """(R, n) on the device -> (n, R), a new tensor of the default strides
+    (a transposing copy; `contiguous()` would keep a size-1 axis's)."""
+    out = torch.empty((t.shape[1], t.shape[0]), dtype=t.dtype, device=t.device)
+    return out.copy_(t.t())
+
+
+def unpack_window(rows: torch.Tensor, base: int, n: int, device) -> torch.Tensor:
+    """Bits base .. base + n - 1 of each row of rows (R, nb) host bytes,
+    rep-major, MSB first -> (n, R) 0/1 uint8 on device, record-major: only
+    their bytes are copied (`upload`), and base need not be a multiple of
+    8; the bytes are turned to (byte, rep) on the device."""
     lo, hi = base // 8, (base + n + 7) // 8
     off = base - 8 * lo
-    return _unpack_bits(torch.from_numpy(packed[lo:hi]).to(device), off + n)[off:]
+    packed = _rep_major_to_records(upload(rows[:, lo:hi], device))
+    return _unpack_bits(packed, off + n)[off:]
 
 
 def online_inputs(streams: dict, cc: CompiledCircuit, device, seg=None) -> dict:
     """The VERIFY_ONL inputs of cc on the device, from online_streams: the
     records seg.<first> .. + cc.<count> of each stream (seg None: from
-    record 0), only those copied to the device.  The recon bits move to
-    the omitted player's bit, and the z64 recon words become one-hot shares
-    at its slot (make_online_unpacker)."""
+    record 0), only those copied to the device, and turned there to
+    (record, rep).  The recon bits move to the omitted player's bit, and
+    the z64 recon words become one-hot shares at its slot
+    (make_online_unpacker)."""
     inj = {}
     for name, _, count, first in ONLINE_RECORDS:
         n, base = getattr(cc, count), 0 if seg is None else getattr(seg, first)
         if name.endswith("2"):
             inj[name] = unpack_window(streams[name], base, n, device)
         else:
-            inj[name] = torch.from_numpy(streams[name][base : base + n]).to(device)
-    shift = torch.as_tensor((7 - streams["omit"]).astype(np.uint8), device=device)
-    onehot = (torch.arange(8, device=device)[:, None]
-              == torch.as_tensor(streams["omitz"], device=device)[None, :]).to(torch.int64)
+            inj[name] = _rep_major_to_records(upload(streams[name][:, base : base + n], device))
+    omits = upload(streams["omits"], device)
+    shift = (7 - omits[:, 0]).to(torch.uint8)
+    onehot = (torch.arange(8, device=device)[:, None] == omits[None, :, 1]).to(torch.int64)
     inj["re2"] = inj["re2"] << shift[None, :]
     inj["rez"] = inj["rez"][:, None, :] * onehot
     return inj
@@ -680,8 +727,9 @@ def _lane_columns(cols: np.ndarray, lanes: slice, R: int, device) -> torch.Tenso
 
 
 def _lanes_of(arrays: dict, lanes: slice) -> dict:
-    """The lanes (last axis) `lanes` of each host array."""
-    return {k: np.ascontiguousarray(v[..., lanes]) for k, v in arrays.items()}
+    """The lanes (first axis) `lanes` of each host array or tensor: views,
+    each a contiguous block of rows."""
+    return {k: v[lanes] for k, v in arrays.items()}
 
 
 def opened_rows(omit: np.ndarray, lanes: slice) -> slice:
@@ -730,7 +778,9 @@ class TorchKKW:
     execute, hash, challenge, extract_pull (prove); check, onl_inject,
     onl_tape, onl_exec, onl_hash, pre_tape, pre_exec, pre_hash, finish
     (verify).  A row (PhaseTimer.report): host_ms; device_ms, the stream
-    time between two CUDA events (None off CUDA); launches; start_ns and
+    time between two CUDA events (None off CUDA); launches; h2d_bytes and
+    h2d_pinned_bytes, the host bytes `upload` handed to a device in the
+    phase (onl_inject's: the online openings, pinned on CUDA); start_ns and
     end_ns on the profiler's clock (Unix ns); spans, its child spans
     [[name, start_ns, end_ns]]; wait_ms, the sum of its "wait" children.
     The children: each blocking wait on a pull, "wait"; "round_keys" (the
@@ -739,8 +789,9 @@ class TorchKKW:
     commitments and challenges) and "extract" (the extraction's launches
     and its pull's enqueue); extract_pull's "gather" (the pulled buffer
     split, gathered and made bytes) and "assemble" (the Proof objects);
-    onl_inject's "parse" (the openings' streams and keys) and "upload"
-    (their unpacking and host -> device copies); finish's "check" (the
+    onl_inject's "parse" (the openings' streams, rep-major, and keys) and
+    "upload" (their host -> device copies, and the launches that unpack
+    them to (record, rep)); finish's "check" (the
     commitment's); on a mesh over several processes each gloo gather,
     "allgather"."""
 
@@ -1033,7 +1084,8 @@ class TorchKKW:
         shards = self.lanes.split(Ro)
         with timer.phase("onl_inject" + tag):
             with timer.span("parse"):
-                streams = online_streams(proof.gf2.online, proof.z64.online, cc)
+                streams = online_streams(proof.gf2.online, proof.z64.online, cc,
+                                         pin=self.device.type == "cuda")
                 omit, omitz = streams["omit"], streams["omitz"]
                 player_keys = opened_keys(proof.gf2.online)
                 player_keysz = opened_keys(proof.z64.online)

@@ -23,8 +23,9 @@ tapes of a circuit on the device; here the program is cut into segments
 
 Verification runs its online leg (the opened reps) and its preprocessing
 leg (the others) segment by segment in the same way; the proof's online
-streams stay on the host, and each segment copies only its window of
-them to the device (host.online_inputs; a GF(2) window starts at a bit
+streams stay on the host, rep-major, and each segment copies only its
+window of them (a column range) to the device, where it is turned to
+(record, rep) (host.online_inputs; a GF(2) window starts at a bit
 offset).  Every proof is byte-equal to `TorchKKW`'s with the same seeds,
 every verdict equal to its verdict.
 
@@ -132,10 +133,12 @@ class StreamingKKW:
     `prove`; onl_inject, onl_exec, onl_hash, pre_tape, pre_exec, pre_hash
     after `verify`.  Each row (host.PhaseTimer.report): host_ms, device_ms
     (stream time between two CUDA events; None off CUDA), launches,
-    start_ns and end_ns on the profiler's clock (Unix ns), its child spans
-    [[name, start_ns, end_ns]] (each blocking wait on a pull "wait";
-    onl_inject's "parse" and "round_keys", pre_tape's "expand_seeds" and
-    "round_keys") and wait_ms, the sum of the "wait" ones."""
+    h2d_bytes and h2d_pinned_bytes (onl_exec's: the online windows, copied
+    from pageable memory), start_ns and end_ns on the profiler's clock
+    (Unix ns), its child spans [[name, start_ns, end_ns]] (each blocking
+    wait on a pull "wait"; onl_inject's "parse" and "round_keys",
+    pre_tape's "expand_seeds" and "round_keys") and wait_ms, the sum of
+    the "wait" ones."""
 
     def __init__(self, program, seg_ops: int,
                  params: ProtocolParams = DEFAULT_PARAMS, mesh=None, *,

@@ -197,9 +197,12 @@ def test_streamed_timings_name_their_phases():
 
 @pytest.mark.parametrize("base, n", [(0, 0), (0, 8), (3, 0), (3, 13), (13, 3), (16, 9), (5, 27)])
 def test_unpack_window_matches_whole_unpack(base, n):
+    """A window of rep-major rows (5 reps of 6 bytes) equals the same bits
+    of the whole (byte, rep) unpack."""
     packed = np.random.RandomState(base + n).randint(0, 256, (6, 5), dtype=np.uint8)
     whole = host._unpack_bits(torch.from_numpy(packed), 48)
-    assert torch.equal(host.unpack_window(packed, base, n, CPU), whole[base : base + n])
+    rows = torch.from_numpy(packed.T.copy())
+    assert torch.equal(host.unpack_window(rows, base, n, CPU), whole[base : base + n])
 
 
 # -- make_system and TorchKKW(cc=, params=) ----------------------------------
