@@ -93,13 +93,21 @@ def make_system(program, params=DEFAULT_PARAMS, mesh=None, hbm_budget_bytes=None
     to streaming with no whole compile, each op compiled once, in
     segments sized by the one before (sized_segments).  Otherwise it is
     compiled whole, and streamed only if its footprint passes the budget
-    after all (the one case that compiles its ops twice)."""
-    from .backend.host import Lanes, check_program, lower_footprint
+    after all (the one case that compiles its ops twice).
+
+    It also sets the process's heap thresholds (host.keep_freed_heap, once
+    a process): a prover's calls return their openings as fresh `bytes`
+    (~32 MB a proof of 50k Z_2^64 MULs), and by default glibc hands the
+    freed heap back after each call and faults it in again on the next.
+    A process that makes its system with TorchKKW or StreamingKKW directly
+    keeps the C library's defaults."""
+    from .backend.host import Lanes, check_program, keep_freed_heap, lower_footprint
     from .backend.streaming import sized_segments
     from .circuit.compile_native import analyze, compile_program, encode_program
 
     ops = encode_program(program)
     check_program(ops)
+    keep_freed_heap()
     lanes = Lanes(mesh, device)
     budget = device_budget(lanes.device, hbm_budget_bytes)
     # the system is made on the mesh, or else on the one device

@@ -37,15 +37,18 @@ not depend on the mesh.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..circuit.compile import CompiledCircuit, compile_program
+from ..circuit.compile import B2A_CORR, N_KINDS, CompiledCircuit, compile_program
 from ..circuit.compile_native import OpArrays, distinct_ops
 from ..circuit.ir import CombineOp, Gate, Kind, Op
 from ..crypto import blake3, expand_seeds
@@ -97,10 +100,11 @@ def launch_counts() -> Dict[str, int]:
 
 class _Row:
     """An open phase: its name, its children (name, start, end) in
-    perf_counter_ns, whether one is open, and the bytes `upload` handed to
-    a device in it, and of those the bytes copied from pinned memory."""
+    perf_counter_ns, whether one is open, the bytes `upload` handed to
+    a device in it, and of those the bytes copied from pinned memory, and
+    the sizes of its work (PhaseTimer.count)."""
 
-    __slots__ = ("name", "spans", "child", "h2d_bytes", "h2d_pinned_bytes")
+    __slots__ = ("name", "spans", "child", "h2d_bytes", "h2d_pinned_bytes", "counters")
 
     def __init__(self, name: str):
         self.name = name
@@ -108,6 +112,7 @@ class _Row:
         self.child = False
         self.h2d_bytes = 0
         self.h2d_pinned_bytes = 0
+        self.counters: Dict[str, object] = {}
 
     def child_range(self, child: str) -> str:
         """The profiler range of a child: "<phase>.<child><tag>", the
@@ -218,11 +223,18 @@ class PhaseTimer:
         row = self._open
         return profiling.NOTHING if row is None or row.child else _Child(row, name)
 
+    def count(self, **sizes) -> None:
+        """Sizes of the open phase's work (not timings), reported with its
+        row under their names; nothing outside a phase."""
+        if self._open is not None:
+            self._open.counters.update(sizes)
+
     def report(self) -> Dict[str, dict]:
         """{phase: {host_ms, device_ms (None off CUDA), launches,
         h2d_bytes, h2d_pinned_bytes, start_ns, end_ns, wait_ms, spans}}:
         spans [[child, start_ns, end_ns]] in order, wait_ms the sum of the
-        "wait" children's."""
+        "wait" children's; and the row's counters (count), where it has
+        any."""
         for d in self.devices:
             torch.cuda.synchronize(d)
         off = self.offset
@@ -237,6 +249,7 @@ class PhaseTimer:
                 "end_ns": t1 + off,
                 "wait_ms": sum(e - s for n, s, e in row.spans if n == "wait") / 1e6,
                 "spans": [[n, s + off, e + off] for n, s, e in row.spans],
+                **row.counters,
             }
             for row, t0, t1, evs, launches in self._rows
         }
@@ -251,9 +264,18 @@ def _take_rows(buf: torch.Tensor, slots: np.ndarray) -> torch.Tensor:
     """Rows `slots` of buf, as a slice where the slots form a run."""
     slots = np.asarray(slots, np.int64)
     meta = _classify(slots) + (len(slots),)
-    index = (torch.as_tensor(slots, device=buf.device)
-             if meta[0] == "gather" else None)
+    index = upload_array(slots, buf.device) if meta[0] == "gather" else None
     return take(buf, meta, index)
+
+
+def _take_events(buf: torch.Tensor, starts: np.ndarray, width: int) -> torch.Tensor:
+    """Rows of the events that start at `starts`, `width` rows each: a
+    slice where the events lie back to back (found on the starts, not on
+    their rows), else _take_rows of their rows."""
+    starts = np.asarray(starts, np.int64)
+    if len(starts) and (np.diff(starts) == width).all():
+        return buf[starts[0] : starts[0] + len(starts) * width]
+    return _take_rows(buf, event_rows(starts, width))
 
 
 def packed_len(n: int) -> int:
@@ -278,24 +300,24 @@ def _pack_rows_device(bits: torch.Tensor, lead: Optional[int] = None) -> torch.T
     lead = lead or 0
     padded = torch.zeros((n_chunks * 8, K), dtype=torch.uint8, device=bits.device)
     padded[lead : lead + N] = bits
-    w = torch.tensor([128 >> j for j in range(8)], dtype=torch.uint8,
-                     device=bits.device)
-    return (padded.view(n_chunks, 8, K) * w[None, :, None]).sum(dim=1).to(torch.uint8)
+    # bit j of a byte is record 8 * byte + 7 - j (made on the device: no copy)
+    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=bits.device)
+    return (padded.view(n_chunks, 8, K) << shifts[None, :, None]).sum(dim=1).to(torch.uint8)
 
 
 def extract_gf2(cc: CompiledCircuit, onl2: torch.Tensor, pre2: torch.Tensor,
-                cols: np.ndarray, omit_sel: np.ndarray,
+                cols: torch.Tensor, omit_sel: torch.Tensor,
                 leads: Optional[Sequence[int]] = None) -> torch.Tensor:
     """Opened columns -> one flat uint8 buffer [recons | corrs | inputs],
     each (K, packed_len(n)) row-major (make_gf2_extractor, gather form);
     with leads = (recons, corrs, inputs) bit offsets, each packed after its
     lead zero bits into (K, window_bytes(lead, n)), for a caller that ORs it
-    into whole rows at a byte offset (the streaming prover's segments)."""
-    dev = onl2.device
-    cols_t = torch.as_tensor(np.asarray(cols, np.int64), device=dev)
-    shifts = torch.as_tensor((7 - np.asarray(omit_sel)).astype(np.uint8), device=dev)
-    onl_sel = onl2.index_select(1, cols_t)  # (n_onl, K)
-    pre_sel = pre2.index_select(1, cols_t)
+    into whole rows at a byte offset (the streaming prover's segments).
+    cols and omit_sel are int64 tensors on the streams' device
+    (upload_array)."""
+    shifts = (7 - omit_sel).to(torch.uint8)
+    onl_sel = onl2.index_select(1, cols)  # (n_onl, K)
+    pre_sel = pre2.index_select(1, cols)
     rec = (_take_rows(onl_sel, cc.recon_slots2) >> shifts[None, :]) & 1
     cor = _take_rows(pre_sel, cc.corr_slots2) & 1
     inp = _take_rows(onl_sel, cc.input_slots2) & 1
@@ -305,28 +327,26 @@ def extract_gf2(cc: CompiledCircuit, onl2: torch.Tensor, pre2: torch.Tensor,
 
 
 def extract_z64(cc: CompiledCircuit, onlz: torch.Tensor, prez: torch.Tensor,
-                cols: np.ndarray, omit_sel: np.ndarray) -> torch.Tensor:
+                cols: torch.Tensor, omit_sel: torch.Tensor) -> torch.Tensor:
     """Opened columns -> one flat uint8 buffer [recons | corrs | inputs],
     each (K, n*8) row-major (make_z64_extractor, gather form).  A recon
     event is 64 stream rows (8 players x 8 bytes), of which the omitted
-    player's 8 are opened; corr and input events are 8 rows."""
-    omit_sel = np.asarray(omit_sel, np.int64)
-    if (omit_sel >= 8).any():
-        raise ValueError("extract_z64: an opened repetition omits no player")
+    player's 8 are opened; corr and input events are 8 rows.  cols and
+    omit_sel (each < 8) are int64 tensors on the streams' device
+    (upload_array)."""
     dev = onlz.device
     K = len(cols)
-    cols_t = torch.as_tensor(np.asarray(cols, np.int64), device=dev)
     parts = []
     nr = len(cc.recon_slotsz)
     if nr:
-        rec = _take_rows(onlz, event_rows(cc.recon_slotsz, 64))
-        rec = rec.index_select(1, cols_t).reshape(nr, 8, 8, K)
-        idx = torch.as_tensor(omit_sel, device=dev).view(1, 1, 1, K)
+        rec = _take_events(onlz, cc.recon_slotsz, 64)
+        rec = rec.index_select(1, cols).reshape(nr, 8, 8, K)
+        idx = omit_sel.view(1, 1, 1, K)
         rec = rec.gather(1, idx.expand(nr, 1, 8, K))[:, 0]  # (nr, 8, K)
         parts.append(rec.permute(2, 0, 1).reshape(-1))
     for slots, src in ((cc.corr_slotsz, prez), (cc.input_slotsz, onlz)):
         if len(slots):
-            ev = _take_rows(src, event_rows(slots, 8)).index_select(1, cols_t)
+            ev = _take_events(src, slots, 8).index_select(1, cols)
             parts.append(ev.reshape(len(slots), 8, K).permute(2, 0, 1).reshape(-1))
     if not parts:
         return torch.zeros((0,), dtype=torch.uint8, device=dev)
@@ -348,6 +368,16 @@ def upload(t: torch.Tensor, device) -> torch.Tensor:
         row.h2d_bytes += nbytes
         row.h2d_pinned_bytes += nbytes if pinned else 0
     return t.to(device, non_blocking=pinned)
+
+
+def upload_array(a: np.ndarray, device) -> torch.Tensor:
+    """A host array on `device`, a tensor of its dtype; on CUDA copied
+    from pinned memory (upload): the host goes on at once, where a pageable
+    copy would wait for the work queued on the stream before it.  Copied
+    row-major first: upload sends only a contiguous pinned tensor without
+    waiting, and columns picked out of an array are column-major."""
+    t = torch.tensor(np.ascontiguousarray(a))
+    return upload(t.pin_memory() if torch.device(device).type == "cuda" else t, device)
 
 
 def _stream_rows(streams: List[bytes], n: int, dtype: torch.dtype, pin: bool) -> torch.Tensor:
@@ -390,7 +420,7 @@ ONLINE_RECORDS = (("co2", "corrs", "n_corrs2", "cor0"), ("in2", "inputs", "n_inp
 
 
 def online_streams(openings2: List[OpenOnline], openingsz: List[OpenOnline], counts,
-                   pin: bool = False) -> dict:
+                   pin: bool = False, z64: bool = True) -> dict:
     """The online openings on the host, as the verifier reads them, in the
     proof's order, rep-major: each GF(2) stream packed, (R,
     window_bytes(0, n)) uint8 (the bytes that hold its n records; the
@@ -401,20 +431,28 @@ def online_streams(openings2: List[OpenOnline], openingsz: List[OpenOnline], cou
     (build_online_injection_packed), as 'omits' (R, 2) int64 and its
     columns 'omit' and 'omitz' (numpy views).  Host tensors, in pinned
     memory when `pin` (for a CUDA device, to which online_inputs then
-    copies each whole with one non_blocking copy)."""
+    copies each whole with one non_blocking copy).  With z64 False the z64
+    streams are left out, for online_streams_z64 to add."""
     omits = torch.empty((len(openings2), 2), dtype=torch.int64, pin_memory=pin)
     om = omits.numpy()
     om[:, 0] = [o.omit for o in openings2]
     om[:, 1] = [o.omit for o in openingsz]
     out = {"omits": omits, "omit": om[:, 0], "omitz": om[:, 1]}
     for name, field, count, _ in ONLINE_RECORDS:
-        n = getattr(counts, count)
         if name.endswith("2"):
             out[name] = _stream_rows([getattr(o, field) for o in openings2],
-                                     window_bytes(0, n), torch.uint8, pin)
-        else:
-            out[name] = _stream_rows([getattr(o, field) for o in openingsz], n, torch.int64, pin)
+                                     window_bytes(0, getattr(counts, count)), torch.uint8, pin)
+    if z64:
+        out.update(online_streams_z64(openingsz, counts, pin))
     return out
+
+
+def online_streams_z64(openingsz: List[OpenOnline], counts, pin: bool = False) -> dict:
+    """The z64 half of online_streams: each z64 stream (R, n) int64 words,
+    rep-major."""
+    return {name: _stream_rows([getattr(o, field) for o in openingsz], getattr(counts, count),
+                               torch.int64, pin)
+            for name, field, count, _ in ONLINE_RECORDS if not name.endswith("2")}
 
 
 def _rep_major_to_records(t: torch.Tensor) -> torch.Tensor:
@@ -488,6 +526,74 @@ class _Pull:
         return self._host.numpy()
 
 
+#: glibc's mallopt parameters (malloc.h)
+_M_TRIM_THRESHOLD, _M_MMAP_THRESHOLD = -1, -3
+
+
+@functools.cache
+def keep_freed_heap() -> bool:
+    """Have the process's C library keep the heap that freed proofs give
+    back (once a process; False where the C library is not glibc).  A
+    prove call returns its openings as bytes, ~32 MB a proof of 50k z64
+    MULs and ~10 MB a 1M-AND one, in blocks that glibc serves from its
+    heap once a freed one has raised its mmap threshold.  By default it
+    then hands the freed heap back to the system when a call's proofs go,
+    and the next call faults every page in again: in a virtual machine
+    ~2.4 us a 4 KiB page, four times the copy that fills it, and more or
+    less of it from call to call as proofs kept alive pin the heap's top.
+    Fixed thresholds end that: blocks under 32 MiB come from the heap, and
+    up to 2 GiB of free heap is kept for the next call (mallopt; as
+    MALLOC_MMAP_THRESHOLD_ and MALLOC_TRIM_THRESHOLD_ would in the
+    environment)."""
+    try:
+        mallopt = ctypes.CDLL(None).mallopt
+    except (AttributeError, OSError):
+        return False
+    return bool(mallopt(_M_MMAP_THRESHOLD, 32 << 20)) and bool(
+        mallopt(_M_TRIM_THRESHOLD, (1 << 31) - 1))
+
+
+#: CPython's C API for a bytes object: made with its contents unset, and
+#: the address of its contents
+_bytes_new = ctypes.pythonapi.PyBytes_FromStringAndSize
+_bytes_new.restype, _bytes_new.argtypes = ctypes.py_object, (ctypes.c_void_p, ctypes.c_ssize_t)
+_bytes_at = ctypes.pythonapi.PyBytes_AsString
+_bytes_at.restype, _bytes_at.argtypes = ctypes.c_void_p, (ctypes.py_object,)
+#: threads that fill rows_to_bytes's bytes, and the bytes under which one
+#: thread, the caller's, fills them all
+COPY_THREADS, COPY_ALONE_BYTES = 4, 1 << 20
+
+
+@functools.cache
+def _copy_pool() -> ThreadPoolExecutor:
+    return ThreadPoolExecutor(COPY_THREADS, thread_name_prefix="reverie-rows")
+
+
+def rows_to_bytes(a: np.ndarray) -> List[bytes]:
+    """Each row of a 2-D array as bytes, as [r.tobytes() for r in a], with
+    the copies made in COPY_THREADS threads at once: each bytes object is
+    made with its contents unset (PyBytes_FromStringAndSize with no source,
+    as C code makes one) and filled by ctypes.memmove, which runs without
+    the GIL, before any other code holds it.  tobytes copies under the GIL,
+    as fast as one core copies: a z64 proof's openings are ~32 MB."""
+    a = np.ascontiguousarray(a, dtype=np.uint8)
+    n = a.shape[1]
+    out = [_bytes_new(None, n) for _ in range(len(a))]
+    if not n:
+        return out
+    jobs = [(_bytes_at(b), a.ctypes.data + i * n) for i, b in enumerate(out)]
+
+    def fill(part):
+        for dst, src in part:
+            ctypes.memmove(dst, src, n)
+
+    if a.nbytes < COPY_ALONE_BYTES:
+        fill(jobs)
+    else:
+        list(_copy_pool().map(fill, [jobs[i::COPY_THREADS] for i in range(COPY_THREADS)]))
+    return out
+
+
 def _seeds(seeds: Optional[np.ndarray], n: int, R: int) -> np.ndarray:
     """(n, R, 16) uint8 rep seeds, fresh random ones where None."""
     if seeds is None:
@@ -509,6 +615,32 @@ def device_footprint(cc: CompiledCircuit, R: int) -> int:
     if uses_waves(cc):
         return max(scan.prover_bytes(cc, R), hashing) + scan.table_bytes(cc, R)
     return max(prover_bytes(cc, R), hashing) + table_bytes(cc)
+
+
+def wave_sizes(cc: CompiledCircuit, mode: int) -> dict:
+    """The sizes of cc that one W2 call's work is counted from in role
+    `mode` (roofline.wave_gf2_work and wave_z64_work): its GF(2) and z64
+    gates by compiled kind ({kind: gates}; B2A_CORR and B2A_OUT among the
+    z64 ones), its B2As, and the bytes a rep of the GF(2) and z64 input
+    rows and of the four streams.  Sizes of the circuit, not of its wave
+    table (no empty slot); {} for a circuit with no z64 gate (no W2)."""
+    gates: Tuple[dict, dict] = ({}, {})
+    for lvl in cc.levels:
+        for key, cols in lvl.items():
+            domain, kind = divmod(key, N_KINDS)
+            gates[domain][kind] = gates[domain].get(kind, 0) + len(next(iter(cols.values())))
+    if not gates[1]:
+        return {}
+    rows2 = {PROVER: cc.m2 + cc.n_wit2,
+             VERIFY_ONL: cc.m2 + cc.n_inputs2 + cc.n_corrs2 + cc.n_recons2,
+             VERIFY_PRE: cc.m2}[mode]
+    bytesz = {PROVER: 64 * cc.mz + 8 * cc.n_witz,
+              VERIFY_ONL: 64 * cc.mz + 8 * (cc.n_inputsz + cc.n_corrsz) + 64 * cc.n_reconsz,
+              VERIFY_PRE: 64 * cc.mz}[mode]
+    return {"role": mode, "gf2_gates": gates[0], "z64_gates": gates[1],
+            "b2a": gates[1].get(B2A_CORR, 0), "gf2_input_bytes": rows2,
+            "z64_input_bytes": bytesz, "onl2": cc.onl2, "pre2": cc.pre2, "onlz": cc.onlz,
+            "prez": cc.prez}
 
 
 def lower_footprint(counts, R: int) -> int:
@@ -721,9 +853,8 @@ def _lane_columns(cols: np.ndarray, lanes: slice, R: int, device) -> torch.Tenso
     over its lanes on the device."""
     proof = np.arange(lanes.start, lanes.stop) // R
     ps, counts = np.unique(proof, return_counts=True)
-    t = torch.from_numpy(np.ascontiguousarray(cols[:, ps])).to(device)
-    return t.repeat_interleave(torch.as_tensor(counts, device=device), dim=1,
-                               output_size=len(proof))
+    t = upload_array(cols[:, ps], device)
+    return t.repeat_interleave(upload_array(counts, device), dim=1, output_size=len(proof))
 
 
 def _lanes_of(arrays: dict, lanes: slice) -> dict:
@@ -793,7 +924,14 @@ class TorchKKW:
     "upload" (their host -> device copies, and the launches that unpack
     them to (record, rep)); finish's "check" (the
     commitment's); on a mesh over several processes each gloo gather,
-    "allgather"."""
+    "allgather".  In a circuit with z64 events their share is a child of
+    its own, beside the GF(2) one: "extract_z64" (the z64 extraction's
+    launches and uploads) before each shard's "extract", "gather_z64" after
+    "gather", "parse_z64" (the z64 streams and keys) after "parse".
+    Counters (sizes, not timings): each row that makes the z64 tape
+    (tape_z64, onl_tape, pre_tape) of a circuit with z64 masks holds
+    "z64_tape_shares" (mz), and each executor row of a circuit on W2
+    (execute, onl_exec, pre_exec) "w2_work" (wave_sizes in its role)."""
 
     def __init__(self, program, params: ProtocolParams = DEFAULT_PARAMS, mesh=None,
                  cc: Optional[CompiledCircuit] = None, cache_key: Optional[bytes] = None, *,
@@ -804,7 +942,28 @@ class TorchKKW:
         self.params = params
         self.cc = compile_program(program, cache_key=cache_key) if cc is None else cc
         self._executors: Dict[tuple, object] = {}
+        self._wave_sizes: Dict[int, dict] = {}
         self.last_timings: Dict[str, dict] = {}
+
+    @property
+    def _z64_events(self) -> bool:
+        """Whether the circuit's proofs open z64 records."""
+        cc = self.cc
+        return bool(cc.n_inputsz or cc.n_corrsz or cc.n_reconsz)
+
+    def _count(self, timer: PhaseTimer, mode: Optional[int] = None) -> None:
+        """The open phase's counters: z64_tape_shares in a z64 tape phase
+        (mode None) of a circuit with z64 masks; w2_work in an executor
+        phase of role `mode` of a circuit on W2."""
+        if mode is None:
+            if self.cc.mz:
+                timer.count(z64_tape_shares=self.cc.mz)
+            return
+        if uses_waves(self.cc):
+            if mode not in self._wave_sizes:
+                self._wave_sizes[mode] = wave_sizes(self.cc, mode)
+            if self._wave_sizes[mode]:
+                timer.count(w2_work=self._wave_sizes[mode])
 
     def _executor(self, mode: int, R: int, device: Optional[torch.device] = None):
         """The executor of one role at R lanes on `device` (by default the
@@ -955,6 +1114,7 @@ class TorchKKW:
             tapes = [self._gf2_tape(player_keys[sl], device=dev) for dev, sl in shards]
         with timer.phase("tape_z64" + tag):
             tapezs = [self._z64_tape(player_keys[sl], device=dev) for dev, sl in shards]
+            self._count(timer)
         with timer.phase("execute" + tag):
             # one witness column uploaded per proof, repeated over its lanes
             # on the device; each shard's tapes go with its executor run
@@ -962,6 +1122,7 @@ class TorchKKW:
                 {"tape": tapes.pop(0), "tapez": tapezs.pop(0),
                  "wit2": _lane_columns(wit2, sl, R, dev), "witz": _lane_columns(witz, sl, R, dev)})
                 for dev, sl in shards]
+            self._count(timer, PROVER)
         with timer.phase("hash" + tag):
             pulls = [_Pull(torch.cat([*self._hash_fn(out), out["fail"].to(torch.uint8)[:, None]],
                                      dim=1)) for out in outs]
@@ -990,15 +1151,24 @@ class TorchKKW:
                 omits = np.stack([challenge_omits(c, self.params) for c in comms])
                 omit = omits.reshape(N * R)
             st["xpulls"] = []
-            with timer.span("extract"):
+            # without z64 events one "extract" span holds every shard's (the
+            # inner spans fold into it, as in gather and parse)
+            with profiling.NOTHING if self._z64_events else timer.span("extract"):
                 for (dev, sl), out in zip(st.pop("shards"), st.pop("outs")):
                     cols = np.nonzero(omit[sl] < 8)[0]
                     if not len(cols):
                         continue
-                    g2 = extract_gf2(self.cc, out["onl2"], out["pre2"], cols, omit[sl][cols])
-                    gz = extract_z64(self.cc, out["onlz"], out["prez"], cols, omit[sl][cols])
-                    # one flat buffer a shard, pulled once: [gf2 openings | z64 openings]
-                    st["xpulls"].append((_Pull(torch.cat([g2, gz])), g2.numel(), len(cols)))
+                    with timer.span("extract_z64"):
+                        # the columns and omits of both extractions, copied
+                        # once without waiting for the next chunk's work
+                        # queued on the stream
+                        cols_t = upload_array(cols, dev)
+                        omit_t = upload_array(omit[sl][cols], dev)
+                        gz = extract_z64(self.cc, out["onlz"], out["prez"], cols_t, omit_t)
+                    with timer.span("extract"):
+                        g2 = extract_gf2(self.cc, out["onl2"], out["pre2"], cols_t, omit_t)
+                        # one flat buffer a shard, pulled once: [gf2 openings | z64 openings]
+                        st["xpulls"].append((_Pull(torch.cat([g2, gz])), g2.numel(), len(cols)))
         st.update(comms=comms, omits=omits)
 
     def _gf2_parts(self, buf: np.ndarray, K: int):
@@ -1017,6 +1187,13 @@ class TorchKKW:
         o1, o2 = K * nr * 8, K * (nr + nc) * 8
         return buf[:o1].reshape(K, nr * 8), buf[o1:o2].reshape(K, nc * 8), buf[o2:].reshape(K, ni * 8)
 
+    def _opened(self, parts: list, widths: list) -> list:
+        """Each shard's (recons, corrs, inputs) rows of one domain, gathered
+        in lane order (rows of `widths` bytes) -> per opened lane its three
+        streams' bytes."""
+        return list(zip(*(rows_to_bytes(self.lanes.gather([p[i] for p in parts], w))
+                          for i, w in enumerate(widths))))
+
     def _prove_assemble(self, st: dict) -> List[Proof]:
         """Pipeline stage 3: wait for the openings' pulls, gather them in
         lane order and assemble the N proofs; the opened lanes come in lane
@@ -1024,16 +1201,18 @@ class TorchKKW:
         R = self.params.total_reps
         cc = self.cc
         timer = st["timer"]
+        z64 = self._z64_events
         with timer.phase("extract_pull" + st["tag"]):
             bufs = [(pull.numpy(), n_g2, K) for pull, n_g2, K in st.pop("xpulls")]
-            with timer.span("gather"):
-                parts2 = [self._gf2_parts(buf[:n_g2], K) for buf, n_g2, K in bufs]
-                partsz = [self._z64_parts(buf[n_g2:], K) for buf, n_g2, K in bufs]
-                widths2 = [packed_len(n) for n in (cc.n_recons2, cc.n_corrs2, cc.n_inputs2)]
-                widthsz = [8 * len(s) for s in (cc.recon_slotsz, cc.corr_slotsz, cc.input_slotsz)]
-                open2, openz = ([tuple(r.tobytes() for r in rows) for rows in zip(*(
-                    self.lanes.gather([p[i] for p in parts], w) for i, w in enumerate(widths)))]
-                    for parts, widths in ((parts2, widths2), (partsz, widthsz)))
+            with profiling.NOTHING if z64 else timer.span("gather"):
+                with timer.span("gather"):
+                    open2 = self._opened(
+                        [self._gf2_parts(buf[:n_g2], K) for buf, n_g2, K in bufs],
+                        [packed_len(n) for n in (cc.n_recons2, cc.n_corrs2, cc.n_inputs2)])
+                with timer.span("gather_z64"):
+                    openz = self._opened(
+                        [self._z64_parts(buf[n_g2:], K) for buf, n_g2, K in bufs],
+                        [8 * len(s) for s in (cc.recon_slotsz, cc.corr_slotsz, cc.input_slotsz)])
             with timer.span("assemble"):
                 proofs, j = [], 0
                 for p in range(st["N"]):
@@ -1082,13 +1261,17 @@ class TorchKKW:
         # ---- online re-execution (the opened reps as one batch) -----------
         Ro = self.params.online_reps
         shards = self.lanes.split(Ro)
+        pin, z64 = self.device.type == "cuda", self._z64_events
         with timer.phase("onl_inject" + tag):
-            with timer.span("parse"):
-                streams = online_streams(proof.gf2.online, proof.z64.online, cc,
-                                         pin=self.device.type == "cuda")
-                omit, omitz = streams["omit"], streams["omitz"]
-                player_keys = opened_keys(proof.gf2.online)
-                player_keysz = opened_keys(proof.z64.online)
+            with profiling.NOTHING if z64 else timer.span("parse"):
+                with timer.span("parse"):
+                    streams = online_streams(proof.gf2.online, proof.z64.online, cc, pin=pin,
+                                             z64=False)
+                    omit, omitz = streams["omit"], streams["omitz"]
+                    player_keys = opened_keys(proof.gf2.online)
+                with timer.span("parse_z64"):
+                    streams.update(online_streams_z64(proof.z64.online, cc, pin=pin))
+                    player_keysz = opened_keys(proof.z64.online)
             with timer.span("upload"):
                 injs = [online_inputs(_lanes_of(streams, sl), cc, dev) for dev, sl in shards]
             del streams
@@ -1098,10 +1281,12 @@ class TorchKKW:
                            tapez=self._z64_tape(player_keysz[sl], omitz[sl], dev))
                 if os.environ.get("REVERIE_DEBUG"):
                     _check_omitted_lanes(inj["tape"], inj["tapez"], omit[sl], omitz[sl])
+            self._count(timer)
         with timer.phase("onl_exec" + tag):
             # each shard's inputs go with its executor run
             outs = [self._executor(VERIFY_ONL, sl.stop - sl.start, dev)(injs.pop(0))
                     for dev, sl in shards]
+            self._count(timer, VERIFY_ONL)
         with timer.phase("onl_hash" + tag):
             # pulled under the preprocessing leg's device work
             pull_onl = [_Pull(torch.cat([self._hash_fn(out)[0],
@@ -1120,9 +1305,11 @@ class TorchKKW:
                     Rp, 8, KEY_SIZE)
             inps = [{"tape": self._gf2_tape(pk2[sl], device=dev),
                      "tapez": self._z64_tape(pkz[sl], device=dev)} for dev, sl in shards]
+            self._count(timer)
         with timer.phase("pre_exec" + tag):
             outs = [self._executor(VERIFY_PRE, sl.stop - sl.start, dev)(inps.pop(0))
                     for dev, sl in shards]
+            self._count(timer, VERIFY_PRE)
         with timer.phase("pre_hash" + tag):
             comm2 = committed_hashes(proof.gf2.preprocessing)
             commz = committed_hashes(proof.z64.preprocessing)

@@ -358,9 +358,11 @@ class StreamingKKW:
         def extract(i: int, s: int, out: dict) -> None:
             seg, sl = self.segments[s], lanes[opened[i]][1]
             cols = np.nonzero(omit[sl] < 8)[0]
-            g2 = host.extract_gf2(seg.cc, out["onl2"], out["pre2"], cols, omit[sl][cols],
+            dev = out["onl2"].device
+            cols_t, omit_t = host.upload_array(cols, dev), host.upload_array(omit[sl][cols], dev)
+            g2 = host.extract_gf2(seg.cc, out["onl2"], out["pre2"], cols_t, omit_t,
                                   leads=(seg.rec0 % 8, seg.cor0 % 8, seg.inp0 % 8))
-            gz = host.extract_z64(seg.cc, out["onlz"], out["prez"], cols, omit[sl][cols])
+            gz = host.extract_z64(seg.cc, out["onlz"], out["prez"], cols_t, omit_t)
             pending.append((s, host.opened_rows(omit, sl), host._Pull(torch.cat([g2, gz]))))
             # the pulls of earlier segments were queued ahead of this one's
             # work: place them while the card runs it

@@ -63,9 +63,13 @@ _PLAIN_CHUNK = 1 << 22
 def round_keys(player_keys: np.ndarray, device: torch.device) -> torch.Tensor:
     """(R, 8, 16) u8 player keys -> (R*8, 11, 16) u8 AES-128 round keys on
     `device` (key order rep-major: key r*8 + p is player p of rep r).  The
-    key schedule runs in the port's host C library (crypto/native.py)."""
-    rk = key_expand_batch(np.asarray(player_keys, np.uint8).reshape(-1, 16))
-    return torch.from_numpy(rk).to(device)
+    key schedule runs in the port's host C library (crypto/native.py); on
+    CUDA the keys go up from pinned memory, without waiting for the work
+    queued on the stream before them."""
+    rk = torch.from_numpy(key_expand_batch(np.asarray(player_keys, np.uint8).reshape(-1, 16)))
+    if torch.device(device).type == "cuda":
+        return rk.pin_memory().to(device, non_blocking=True)
+    return rk.to(device)
 
 
 def _xtime(x: torch.Tensor) -> torch.Tensor:
